@@ -1,14 +1,17 @@
-"""Where the time of chip_smoke.py's recognition workload goes, on one NVIDIA GPU.
+"""Where the time of chip_smoke.py's workloads goes, on one NVIDIA GPU.
 
     python3 profile_smoke.py
 
-Drives the workload of chip_smoke.py (4 synthetic pages x 8 line boxes,
-production widths, random bf16 weights, seed 0) through RecognitionPredictor,
-pinned to 40 tokens per line and with free-running stops. For each mode it
-prints:
+Drives the workloads of chip_smoke.py at production widths with random bf16
+weights: recognition of given line boxes (4 synthetic pages x 8 lines,
+RecognitionPredictor, bf16 KV cache), pinned to 40 tokens per line and with
+free-running stops, and whole-page OCR (8 synthetic pages x 16 lines,
+DetectionPredictor then RecognitionPredictor, int8 KV cache), pinned. For each
+mode it prints:
 
 - untraced: the wall of REPS runs, each split into its prefill waves, its
-  decode chunks and the host time around them (both device programs end in a
+  decode chunks and the host time around them, and for whole-page OCR also
+  the detection wall and its device program (every device program ends in a
   copy to the host, so the timers add no synchronisation);
 - traced, one more run under torch.profiler: that run's own wall, the
   device's busy time in it (the union of kernel, copy and memset intervals),
@@ -30,7 +33,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
+from surya_tpu_torch.detection import DetectionPredictor
+from surya_tpu_torch.models.efficientvit import install_blob_detector
 from surya_tpu_torch.recognition import RecognitionPredictor
+from surya_tpu_torch.settings import settings
 
 REPS = 3
 TOP = 10
@@ -38,7 +44,9 @@ TOP = 10
 KINDS = (
     ("K1 segmented_block_attention", ("segmented_attention_kernel",)),
     ("K2 causal_flash_attention", ("causal_attention_kernel",)),
+    ("K3q gqa_decode, int8 cache", ("gqa_decode_kernel<128, 3, true>", "gqa_decode_kernelili128eli3elb1e")),
     ("K3 gqa_decode", ("gqa_decode_kernel",)),
+    ("convolutions (cuDNN)", ("conv", "fprop", "wgrad", "dgrad")),
     ("GEMM (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("copies, memsets, index ops", ("memcpy", "memset", "copy", "index", "gather", "scatter")),
     ("elementwise and reductions", ("elementwise", "reduce")),
@@ -66,32 +74,37 @@ def busy_us(intervals) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def time_programs(pred, stats):
-    """Wrap the predictor's two device programs with wall timers."""
-    for name in ("_prefill", "_decode"):
-        def timed(*args, _fn=getattr(pred, name), _name=name, **kwargs):
+def time_programs(obj, names, stats):
+    """Wrap the device programs `names` of a predictor with wall timers."""
+    for name in names:
+        def timed(*args, _fn=getattr(obj, name), _name=name, **kwargs):
             t0 = time.perf_counter()
             out = _fn(*args, **kwargs)
             stats[_name].append(time.perf_counter() - t0)
             return out
 
-        setattr(pred, name, timed)
+        setattr(obj, name, timed)
 
 
-def untraced(pred, pages, bboxes, pin, stats):
+def untraced(run, stats):
+    """REPS runs of `run()` -> (wall, detection wall, tokens), each split by the timed programs."""
     runs = []
     for _ in range(REPS):
         stats.clear()
-        wall, _, toks = chip_smoke.run_predictor(pred, pages, bboxes, pin=pin)
+        wall, det_wall, toks = run()
         prefill, decode = sum(stats["_prefill"]), sum(stats["_decode"])
-        runs.append({"wall_s": wall, "tokens": toks, "prefill_s": prefill, "waves": len(stats["_prefill"]),
-                     "decode_s": decode, "chunks": len(stats["_decode"]), "host_rest_s": wall - prefill - decode})
+        r = {"wall_s": wall, "tokens": toks, "prefill_s": prefill, "waves": len(stats["_prefill"]),
+             "decode_s": decode, "chunks": len(stats["_decode"]),
+             "host_rest_s": wall - det_wall - prefill - decode}
+        if det_wall:
+            r.update(detection_s=det_wall, detection_device_program_s=sum(stats["heatmaps"]))
+        runs.append(r)
     return runs
 
 
-def traced(pred, pages, bboxes, pin):
+def traced(run):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall, _, toks = chip_smoke.run_predictor(pred, pages, bboxes, pin=pin)
+        wall, _, toks = run()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise RuntimeError("torch.profiler recorded no device events")
@@ -116,18 +129,38 @@ def main():
     power = chip_smoke.card()
     print(f"card: {power}")
     pred = RecognitionPredictor(device="cuda")
+    det = DetectionPredictor(device="cuda")
+    install_blob_detector(det)
     pages, bboxes = chip_smoke.synthetic_pages(np.random.default_rng(chip_smoke.SEED))
+    ocr_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 1))
     stats = defaultdict(list)
-    time_programs(pred, stats)
+    time_programs(pred, ("_prefill", "_decode"), stats)
+    time_programs(det, ("heatmaps",), stats)
+
+    def given_lines(pin):
+        wall, _, toks = chip_smoke.run_predictor(pred, pages, bboxes, pin=pin)
+        return wall, 0.0, toks
+
+    def whole_page():
+        settings.RECOGNITION_MODEL_QUANTIZE = True
+        try:
+            det_wall, rec_wall, _, toks = chip_smoke.run_full_page(pred, det, ocr_pages, pin=True)
+        finally:
+            settings.RECOGNITION_MODEL_QUANTIZE = False
+        return det_wall + rec_wall, det_wall, toks
+
     report = {"card": power}
-    for label, pin in [("pinned", True), ("free-running", False)]:
-        chip_smoke.run_predictor(pred, pages, bboxes, pin=pin)  # warm-up at this mode's shapes
-        runs = untraced(pred, pages, bboxes, pin, stats)
-        trace = traced(pred, pages, bboxes, pin)
+    for label, run in [("pinned", lambda: given_lines(True)), ("free-running", lambda: given_lines(False)),
+                       ("whole-page pinned, int8 cache", whole_page)]:
+        run()  # warm-up at this mode's shapes
+        runs = untraced(run, stats)
+        trace = traced(run)
         report[label] = {"untraced": runs, "traced": trace}
         print(f"[{label}] {runs[0]['tokens']} tokens [{power}]")
         for r in runs:
-            print(f"  untraced: wall {r['wall_s']:.4f} s = prefill {r['prefill_s']:.4f} s ({r['waves']} waves) "
+            det_part = (f"detection {r['detection_s']:.4f} s (device program {r['detection_device_program_s']:.4f} s) + "
+                        if "detection_s" in r else "")
+            print(f"  untraced: wall {r['wall_s']:.4f} s = {det_part}prefill {r['prefill_s']:.4f} s ({r['waves']} waves) "
                   f"+ decode {r['decode_s']:.4f} s ({r['chunks']} chunks) + host {r['host_rest_s']:.4f} s")
         print(f"  traced: wall {trace['wall_s']:.4f} s, device busy {trace['device_busy_s']:.4f} s "
               f"({trace['busy_share']:.1%} of that wall), {trace['device_events']} device events")

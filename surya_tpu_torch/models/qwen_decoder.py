@@ -10,6 +10,11 @@ cache plus that buffer (kernel K3); the chunk is committed once at its end.
 Where JAX donated buffers, the port writes in place: ``merge_prefill`` and
 ``commit_chunk`` update the cache tensors, ``decode_step_chunked`` updates
 the chunk buffers.
+
+``init_cache(..., quantize=True)`` stores the cache as int8 with one bf16
+scale per (layer, slot, head, row) (``RECOGNITION_MODEL_QUANTIZE``); the
+chunk buffers stay in the compute dtype, and rows are quantized when they
+enter the cache (kernel K3q reads them).
 """
 
 from __future__ import annotations
@@ -117,6 +122,7 @@ class Decoder(nn.Module):
         cos, sin = self.rope((base_len + step).float()[:, None])
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         attend = decode_attn.gqa_decode if use_kernels else decode_attn.gqa_decode_reference
+        scales = (cache["k_scale"], cache["v_scale"]) if "k_scale" in cache else (None, None)
         x = embeds[:, None, :]
         for li, layer in enumerate(self.layers):
             q, k, v = self._qkv(layer, layer.input_layernorm(x))
@@ -124,20 +130,52 @@ class Decoder(nn.Module):
             chunk_k[li, :, :, step] = k[:, 0]
             chunk_v[li, :, :, step] = v[:, 0]
             # the full cache/chunk arrays go in; the kernel picks the layer
-            out = attend(q[:, 0], cache["k"], cache["v"], base_len, chunk_k, chunk_v, step, li)
+            out = attend(q[:, 0], cache["k"], cache["v"], base_len, chunk_k, chunk_v, step, li, *scales)
             x = x + layer.self_attn.o_proj(out.reshape(B, 1, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         return self.norm(x)[:, 0]
 
 
-def init_cache(config: DecoderConfig, n_slots: int, max_seq: int, dtype, device) -> dict:
-    """Slot KV cache {"k", "v": [layers, slots, kvh, max_seq, hd], "len": [slots] int32}."""
+def init_cache(config: DecoderConfig, n_slots: int, max_seq: int, dtype, device, quantize: bool = False) -> dict:
+    """Slot KV cache {"k", "v": [layers, slots, kvh, max_seq, hd], "len": [slots]
+    int32}; with ``quantize`` k/v are int8 and "k_scale"/"v_scale" hold the
+    bf16 scales [layers, slots, kvh, max_seq]."""
     shape = (config.num_hidden_layers, n_slots, config.num_key_value_heads, max_seq, config.head_dim)
-    return {
-        "len": torch.zeros((n_slots,), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    cache = {"len": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
+    if quantize:
+        cache["k"] = torch.zeros(shape, dtype=torch.int8, device=device)
+        cache["v"] = torch.zeros(shape, dtype=torch.int8, device=device)
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+    else:
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def quantize_kv(x):
+    """Symmetric per-vector int8: x [..., head_dim] -> (int8 values, bf16
+    scales [...]). As surya_tpu's quantize_kv, bit for bit: the values are
+    divided by the float32 scale and rounded half to even, and the scale is
+    stored rounded to bf16 afterwards."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def _store(cache: dict, index, k, v) -> None:
+    """cache["k"/"v"][index] = k/v, quantizing them first for an int8 cache."""
+    if "k_scale" in cache:
+        (k, k_scale), (v, v_scale) = quantize_kv(k), quantize_kv(v)
+        cache["k_scale"][index] = k_scale
+        cache["v_scale"][index] = v_scale
+    cache["k"][index] = k
+    cache["v"][index] = v
 
 
 def merge_prefill(cache: dict, new_k, new_v, seq_lens, slot_idx) -> dict:
@@ -147,8 +185,7 @@ def merge_prefill(cache: dict, new_k, new_v, seq_lens, slot_idx) -> dict:
     than once; nothing ever reads it."""
     L = new_k.shape[2]
     slot_idx = slot_idx.long()
-    cache["k"][:, slot_idx, :, :L] = new_k.transpose(2, 3)
-    cache["v"][:, slot_idx, :, :L] = new_v.transpose(2, 3)
+    _store(cache, (slice(None), slot_idx, slice(None), slice(0, L)), new_k.transpose(2, 3), new_v.transpose(2, 3))
     cache["len"][slot_idx] = seq_lens.to(torch.int32)
     return cache
 
@@ -165,7 +202,6 @@ def commit_chunk(cache: dict, chunk_k, chunk_v, base_len, advance) -> dict:
     slots = torch.arange(n_slots, device=dev)[:, None, None]
     heads = torch.arange(kvh, device=dev)[None, :, None]
     rows = torch.clamp(base_len.long()[:, None, None] + torch.arange(K, device=dev)[None, None, :], max=S - 1)
-    cache["k"][:, slots, heads, rows] = chunk_k
-    cache["v"][:, slots, heads, rows] = chunk_v
+    _store(cache, (slice(None), slots, heads, rows), chunk_k, chunk_v)
     cache["len"] += advance.to(torch.int32)
     return cache

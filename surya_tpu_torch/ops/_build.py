@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``surya_tpu_torch/csrc``.
 
 The kernels are plain CUDA C++ with a C interface. At first use, nvcc compiles
-every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared library, which
+every ``csrc/*.cu`` for Hopper (``sm_90a``), one process per source, all
+started together, and links the objects into one shared library, which
 ctypes then loads. The library's name carries a hash of the sources, so an
 edited kernel is rebuilt and a built one is reused. The build directory is
 ``csrc/build`` inside the package (``SURYA_TORCH_BUILD_DIR`` overrides it).
@@ -19,13 +20,14 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +40,7 @@ SIGNATURES = {
     "surya_segmented_attention": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "surya_causal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "surya_gqa_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "surya_gqa_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -47,6 +50,9 @@ class KernelLibrary:
     path: Path
     build_seconds: float  # 0.0 when an existing build was reused
     build_log: str  # nvcc/ptxas output (registers, shared memory, spills)
+    # seconds of each nvcc process (one per source, then "link"); their sum
+    # is what the same build takes one process after another
+    step_seconds: dict
 
 
 def _nvcc() -> str:
@@ -77,16 +83,31 @@ def library() -> KernelLibrary:
     so = build_dir / f"libsurya_kernels_{digest.hexdigest()[:16]}.so"
     log_path = so.with_suffix(".log")
 
-    seconds = 0.0
+    seconds, step_seconds = 0.0, {}
     if not so.exists():
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc = _nvcc()
+
+        def run(name, cmd):
+            t = time.perf_counter()
+            out = subprocess.run(cmd, capture_output=True, text=True)
+            return name, out.returncode, out.stdout + out.stderr, time.perf_counter() - t
+
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        with ThreadPoolExecutor(len(sources)) as pool:
+            steps = list(pool.map(run, [s.name for s in sources],
+                                  [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)]))
+        if not any(rc for _, rc, _, _ in steps):
+            steps.append(run("link", [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
+        failed = [(n, rc, log) for n, rc, log, _ in steps if rc]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n} ({rc}):\n{log}" for n, rc, log in failed))
+        log_path.write_text("".join(log for _, _, log, _ in steps))
+        step_seconds = {n: s for n, _, _, s in steps}
         os.replace(tmp, so)  # atomic: a concurrent builder never loads a partial file
 
     lib = ctypes.CDLL(str(so))
@@ -95,7 +116,7 @@ def library() -> KernelLibrary:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     log = log_path.read_text() if log_path.exists() else ""
-    return KernelLibrary(lib=lib, path=so, build_seconds=seconds, build_log=log)
+    return KernelLibrary(lib=lib, path=so, build_seconds=seconds, build_log=log, step_seconds=step_seconds)
 
 
 def check(rc: int, name: str) -> None:

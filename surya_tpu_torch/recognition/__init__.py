@@ -1,14 +1,15 @@
 """Text recognition predictor of the PyTorch port, with continuous batching.
 
-Counterpart of surya_tpu/recognition/__init__.py for the ``bboxes=`` /
-``polygons=`` path. The scheduler keeps everything that decides outputs:
+Counterpart of surya_tpu/recognition/__init__.py: lines given as ``bboxes=``
+or ``polygons=``, or found by a ``det_predictor`` (whole-page OCR: detect,
+slice, recognize). The scheduler keeps everything that decides outputs:
 the width-sorted queue, cache slots plus a trash slot, prefill waves under
 slot and patch budgets with ``min_prefill_ratio``, prefill row buckets and
 sequence buckets, a cache sized to the workload, per-chunk stop scans on the
 host with kill masks sent down with the next dispatch, the device-side
-repeat stop and pinned decode. It runs synchronously: one prefill or decode
-chunk at a time, each ending in one device-to-host copy of its packed
-outputs.
+repeat stop and pinned decode, over a bf16 or (``RECOGNITION_MODEL_QUANTIZE``)
+an int8 KV cache. It runs synchronously: one prefill or decode chunk at a
+time, each ending in one device-to-host copy of its packed outputs.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ import numpy as np
 import torch
 from tqdm import tqdm
 
-from surya_tpu.common.polygon import PolygonBox
-from surya_tpu.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
+from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.common.predictor import BasePredictor
+from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
 from surya_tpu_torch.models import qwen_decoder
 from surya_tpu_torch.recognition.loader import load_recognition_model
 from surya_tpu_torch.recognition.postprocessing import fix_unbalanced_tags
@@ -61,7 +62,7 @@ def _pack(tokens, scores, bboxes):
 
 
 class RecognitionPredictor(BasePredictor):
-    batch_size = settings.RECOGNITION_BATCH_SIZE
+    batch_size_setting = "RECOGNITION_BATCH_SIZE"
     default_batch_sizes = {"cpu": 8, "cuda": 128}
     min_prefill_ratio: float = 0.2
     tasks = {
@@ -148,6 +149,39 @@ class RecognitionPredictor(BasePredictor):
         return _pack(toks, scores, bboxes).cpu().numpy(), (last_token, active, run)
 
     # -- slicing (host) --------------------------------------------------------
+
+    def detect_and_slice_bboxes(self, images, task_names, det_predictor, detection_batch_size=None,
+                                highres_images=None):
+        """Detect the lines of each page and slice them; with a highres page,
+        the polygons are scaled to it and the slices cut from it."""
+        det_predictions = det_predictor(images, batch_size=detection_batch_size)
+        if highres_images is None:
+            highres_images = [None] * len(images)
+        all_slices, slice_map, all_polygons, all_task_names, all_res_scales = [], [], [], [], []
+        for det_pred, image, highres, task_name in zip(det_predictions, images, highres_images, task_names):
+            polygons = [p.polygon for p in det_pred.bboxes]
+            if highres is not None:
+                sx = highres.size[0] / image.size[0]
+                sy = highres.size[1] / image.size[1]
+                scaled = [[[int(p[0] * sx), int(p[1] * sy)] for p in poly] for poly in polygons]
+                slices = slice_polys_from_image(np.asarray(highres), scaled)
+                res_scales = [(sx, sy)] * len(slices)
+            else:
+                slices = slice_polys_from_image(np.asarray(image), polygons)
+                res_scales = [(1, 1)] * len(slices)
+            slice_map.append(len(slices))
+            all_slices.extend(slices)
+            all_polygons.extend(polygons)
+            all_task_names.extend([task_name] * len(slices))
+            all_res_scales.extend(res_scales)
+        return {
+            "slices": all_slices,
+            "slice_map": slice_map,
+            "polygons": all_polygons,
+            "task_names": all_task_names,
+            "input_text": [None] * len(all_slices),
+            "res_scales": all_res_scales,
+        }
 
     def slice_bboxes(self, images, task_names, bboxes=None, polygons=None, input_text=None):
         if bboxes is None and polygons is None:
@@ -236,7 +270,10 @@ class RecognitionPredictor(BasePredictor):
             cfg.max_sequence_length,
             -(-(prompt_bucket + max(max_tokens.values(), default=0)) // 256) * 256,
         )
-        cache = qwen_decoder.init_cache(cfg.decoder, n_slots + 1, cache_len, self.dtype, self.device)
+        cache = qwen_decoder.init_cache(
+            cfg.decoder, n_slots + 1, cache_len, self.dtype, self.device,
+            quantize=settings.RECOGNITION_MODEL_QUANTIZE,
+        )
         slot_prompt: List[Optional[int]] = [None] * n_slots
         # device state per slot (last token, active, repeat run), and the kill
         # mask that carries stops only the host sees down with the next dispatch
@@ -430,7 +467,10 @@ class RecognitionPredictor(BasePredictor):
         self,
         images,
         task_names: Optional[List[str]] = None,
+        det_predictor=None,
+        detection_batch_size: Optional[int] = None,
         recognition_batch_size: Optional[int] = None,
+        highres_images=None,
         bboxes=None,
         polygons=None,
         input_text=None,
@@ -439,18 +479,31 @@ class RecognitionPredictor(BasePredictor):
         return_words: bool = False,
         drop_repeated_text: bool = False,
     ) -> List[OCRResult]:
-        """Recognize the text in the given line boxes (``bboxes``: per image a
-        list of [x0, y0, x1, y1]) or polygons of PIL images. Detection is not
-        part of the port yet."""
+        """Recognize the text of PIL images: in the given line boxes
+        (``bboxes``: per image a list of [x0, y0, x1, y1]) or polygons, or in
+        the lines ``det_predictor`` finds (whole-page OCR; ``highres_images``
+        are sliced in place of the pages where given). Detection runs over
+        all pages, then recognition: the sequential path of the JAX
+        predictor, which streams detection into the running recognition
+        above RECOGNITION_DET_PIPELINE_PAGES pages with the same outputs
+        (tests/test_det_rec_pipeline.py); that streaming is not ported."""
         if task_names is None:
             task_names = [TaskNames.ocr_with_boxes] * len(images)
         if len(images) != len(task_names) or any(t not in self.tasks for t in task_names):
             raise ValueError(f"need one known task per image, got {task_names}")
-        if bboxes is None and polygons is None:
-            raise ValueError("the PyTorch port recognizes given lines only: pass bboxes= or polygons=")
         self.last_decoded_tokens = 0
         images = convert_if_not_rgb(images)
-        flat = self.slice_bboxes(images, task_names, bboxes=bboxes, polygons=polygons, input_text=input_text)
+        if bboxes is None and polygons is None:
+            if det_predictor is None:
+                raise ValueError("need a detection predictor (det_predictor=) or line boxes (bboxes=/polygons=)")
+            if highres_images is not None:
+                highres_images = convert_if_not_rgb(highres_images)
+            flat = self.detect_and_slice_bboxes(
+                images, task_names, det_predictor,
+                detection_batch_size=detection_batch_size, highres_images=highres_images,
+            )
+        else:
+            flat = self.slice_bboxes(images, task_names, bboxes=bboxes, polygons=polygons, input_text=input_text)
         if not flat["slices"]:
             return [OCRResult(text_lines=[], image_bbox=[0, 0, img.size[0], img.size[1]]) for img in images]
         predicted_tokens, bbox_arr, scores = self.prediction_loop(

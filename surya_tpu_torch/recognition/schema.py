@@ -15,7 +15,7 @@ from typing import List, Optional
 import numpy as np
 from pydantic import BaseModel, field_validator
 
-from surya_tpu.common.polygon import PolygonBox
+from surya_tpu_torch.common.polygon import PolygonBox
 
 
 class BaseChar(PolygonBox):

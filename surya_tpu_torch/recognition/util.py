@@ -8,7 +8,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from surya_tpu.common.polygon import PolygonBox
+from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.recognition.schema import TextChar, TextLine, TextWord
 
 MATH_SYMBOLS = ["+", "-", "*", "=", "^", "_", "\\", "{", "}"]

@@ -37,13 +37,34 @@ def _int_tuple(env: Mapping[str, str], name: str, default: tuple) -> tuple:
     return tuple(int(v) for v in value.split(",") if v.strip()) if value else default
 
 
+def _float(env: Mapping[str, str], name: str, default: float) -> float:
+    value = env.get(name, "").strip()
+    return float(value) if value else default
+
+
 class Settings:
+    """The fields are read from the environment once, at import; code reads
+    them from this object when it runs, so a caller may change a field
+    between calls (as the tests do)."""
+
     def __init__(self, env: Mapping[str, str] = os.environ):
         self.TORCH_DEVICE: Optional[str] = env.get("TORCH_DEVICE") or None
         self.ALLOW_RANDOM_WEIGHTS = _bool(env, "ALLOW_RANDOM_WEIGHTS")
         self.WEIGHT_SEED = int(env.get("WEIGHT_SEED", "0") or 0)
         self.DISABLE_TQDM = _bool(env, "DISABLE_TQDM")
+        # detection (defaults of surya_tpu/settings.py)
+        self.DETECTOR_BATCH_SIZE = _opt_int(env, "DETECTOR_BATCH_SIZE")
+        self.DETECTOR_IMAGE_CHUNK_HEIGHT = int(env.get("DETECTOR_IMAGE_CHUNK_HEIGHT", "1400") or 1400)
+        self.DETECTOR_TEXT_THRESHOLD = _float(env, "DETECTOR_TEXT_THRESHOLD", 0.6)
+        self.DETECTOR_BLANK_THRESHOLD = _float(env, "DETECTOR_BLANK_THRESHOLD", 0.35)
+        self.DETECTOR_POSTPROCESSING_CPU_WORKERS = int(
+            env.get("DETECTOR_POSTPROCESSING_CPU_WORKERS", "") or min(8, os.cpu_count() or 1)
+        )
+        self.DETECTOR_MIN_PARALLEL_THRESH = int(env.get("DETECTOR_MIN_PARALLEL_THRESH", "3") or 3)
+        self.DETECTOR_BOX_Y_EXPAND_MARGIN = _float(env, "DETECTOR_BOX_Y_EXPAND_MARGIN", 0.05)
         # recognition
+        self.RECOGNITION_MODEL_QUANTIZE = _bool(env, "RECOGNITION_MODEL_QUANTIZE")  # int8 KV cache
+        self.RECOGNITION_PAD_VALUE = int(env.get("RECOGNITION_PAD_VALUE", "255") or 255)
         self.RECOGNITION_MAX_TOKENS = _opt_int(env, "RECOGNITION_MAX_TOKENS")
         self.RECOGNITION_DECODE_CHUNK = int(env.get("RECOGNITION_DECODE_CHUNK", "64") or 64)
         self.RECOGNITION_PIN_DECODE = _bool(env, "RECOGNITION_PIN_DECODE")
