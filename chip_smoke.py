@@ -23,6 +23,14 @@ where one PyTorch call computes the same function, that call. Then:
   and sequence bucket), and runs that wave's prefill and one decode step
   through the int8 cache three ways, as above.
 
+K1's full-attention and windowed blocks are reported as two entries, each
+with its own launches; for each plan the script prints the query-key pairs
+K1 computes after skipping the key tiles outside its spans (modelled from
+the kernel's span rule) against the pairs the plan needs. K1 is also held
+against its plain version where no layout plan takes it: query rows outside
+their window, clamped window starts, and a window that is no multiple of its
+64-key tile.
+
 Exits non-zero on any failure and when no CUDA device is present. Prints the
 card's name and power limit, one JSON line with the kernels' results, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -73,25 +81,35 @@ MODEL_RATIO = 2.0  # see check_model_paths: bf16 rounding compounds over 18 laye
 # the least time of a call: bytes over HBM bandwidth or bf16 operations over
 # the dense tensor-core peak (NVIDIA H100 SXM data sheet), whichever is larger
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
-KERNELS = {  # name -> (wrapper, its launch counter, source, the TPU kernel it replaces)
-    "segmented_block_attention": (flash.segmented_block_attention, "launches",
-                                  "surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:215"),
-    "causal_flash_attention": (flash.causal_flash_attention, "launches",
-                               "surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:64"),
-    "gqa_decode": (decode_attn.gqa_decode, "launches",
-                   "surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:187"),
-    "gqa_decode_int8": (decode_attn.gqa_decode, "launches_q",
-                        "surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:167"),
+# the kernels line's entries: name -> (source, the TPU kernel it replaces).
+# K1's full-attention and windowed blocks are one kernel at two shapes, each
+# an entry of its own.
+KERNELS = {
+    "segmented_block_attention[full]": ("surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:215"),
+    "segmented_block_attention[window]": ("surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:215"),
+    "causal_flash_attention": ("surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:64"),
+    "gqa_decode": ("surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:187"),
+    "gqa_decode_int8": ("surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:167"),
 }
+COUNTERS = {  # kernel -> (wrapper, its launch counter)
+    "segmented_block_attention": (flash.segmented_block_attention, "launches"),
+    "causal_flash_attention": (flash.causal_flash_attention, "launches"),
+    "gqa_decode": (decode_attn.gqa_decode, "launches"),
+    "gqa_decode_int8": (decode_attn.gqa_decode, "launches_q"),
+}
+K1_BY_RANGE = "segmented_block_attention by kv_range"
 
 
 def reset_counts():
-    for fn, attr, _, _ in KERNELS.values():
+    for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    flash.segmented_block_attention.launches_by_range = {}
 
 
 def read_counts() -> dict:
-    return {n: getattr(fn, attr) for n, (fn, attr, _, _) in KERNELS.items()}
+    counts = {n: getattr(fn, attr) for n, (fn, attr) in COUNTERS.items()}
+    counts[K1_BY_RANGE] = dict(flash.segmented_block_attention.launches_by_range)
+    return counts
 
 
 def card() -> str:
@@ -134,11 +152,12 @@ def cuda_ms(fn, reps: int, cold: bool = False) -> float:
     return replay_ms(lambda: (flush.zero_(), fn())) - replay_ms(flush.zero_)
 
 
-def compare(name, kernel, plain, results, work, library=None, reps=20, cold=False, report=False):
+def compare(name, kernel, plain, results, work, library=None, reps=20, cold=False, report=False, entry=None):
     """Hold a kernel against its plain version on the same inputs. work:
     (operations, bytes) the call needs; cold: time each call with a cold L2
     (see cuda_ms); report: the case is the kernel's main-path shape, whose
-    times, bound and library time go in the kernels line."""
+    times, bound and library time go in the kernels line; entry: that
+    line's entry (default: the name up to "[")."""
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
@@ -157,7 +176,7 @@ def compare(name, kernel, plain, results, work, library=None, reps=20, cold=Fals
           + (f", library call {library_ms:.4f} ms" if library is not None else ""))
     if n_bad:
         raise AssertionError(f"{name}: {n_bad} elements of the kernel's output disagree with its plain version")
-    res = results.setdefault(name.split("[")[0], {"max_abs_err": 0.0})
+    res = results.setdefault(entry or name.split("[")[0], {"max_abs_err": 0.0})
     res["max_abs_err"] = max(res["max_abs_err"], err)
     if report:
         res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
@@ -204,14 +223,44 @@ def to_cuda(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a).to("cuda")
 
 
+def computed_pairs(gid: np.ndarray, starts: np.ndarray, kv_range: int) -> int:
+    """The query-key pairs K1 computes for one head, modelled from its span
+    rule (warp_span in csrc/flash_attn.cu), not counted on the card. Each 16
+    query rows span the keys from the start of their first row's group run
+    to the end of their last row's, clipped to their window (the whole
+    window for rows not inside it); each 64-row CTA walks the union of its 4
+    warps' spans in 64-key tiles, and a warp computes the tiles that meet
+    its own span."""
+    S = gid.size
+    bounds = np.concatenate([[0], np.flatnonzero(gid[1:] != gid[:-1]) + 1, [S]])
+    run_start, run_end = np.repeat(bounds[:-1], np.diff(bounds)), np.repeat(bounds[1:], np.diff(bounds))
+    r0 = np.arange(0, S, 16)
+    kv0 = np.clip(starts[r0 // flash.PLAN_CHUNK].astype(np.int64), 0, S - kv_range)
+    kv1 = kv0 + kv_range
+    inside = (r0 >= kv0) & (r0 + 16 <= kv1)
+    lo = np.where(inside, np.maximum(run_start[r0], kv0), kv0).reshape(-1, 4)
+    hi = np.where(inside, np.minimum(run_end[r0 + 15], kv1), kv1).reshape(-1, 4)
+    pairs = 0
+    for w_lo, w_hi in zip(lo, hi):
+        kt = w_lo.min() + 64 * np.arange(-(-(w_hi.max() - w_lo.min()) // 64))
+        pairs += 16 * 64 * int(((kt[None] < w_hi[:, None]) & (kt[None] + 64 > w_lo[:, None])).sum())
+    return pairs
+
+
+def segmented_inputs(gen, S, H, D):
+    """q, k, v: [S, H, D] bf16, k and v strided views of one fused qkv
+    tensor, as the encoder passes them; unit-scale queries for peaky
+    attention."""
+    qkv = randn(gen, S, 3, H, D)
+    return (qkv[:, 0].float() / 0.3).to(torch.bfloat16), qkv[:, 1], qkv[:, 2]
+
+
 def check_segmented(results, plan, gen, tag, report=False):
     """K1 over the layout plan of one prefill wave: its full-attention and
-    its windowed blocks. Only the full case can be reported."""
+    its windowed blocks, each reported as an entry of its own."""
     cfg = EncoderConfig(**DEFAULT_ENCODER)
     S, H, D = plan.cap, cfg.num_heads, cfg.head_dim
-    qkv = randn(gen, S, 3, H, D)
-    q = (qkv[:, 0].float() / 0.3).to(torch.bfloat16)  # peaky attention: unit-scale queries
-    k, v = qkv[:, 1], qkv[:, 2]  # strided views, as the encoder passes them
+    q, k, v = segmented_inputs(gen, S, H, D)
     qh, kh, vh = (x.transpose(0, 1)[None] for x in (q, k, v))  # [1, H, S, D] for the library call
     for label, gid, starts, rng_len in [
         ("full", plan.seg_id, plan.kv_starts, plan.kv_range),
@@ -223,6 +272,9 @@ def check_segmented(results, plan, gen, tag, report=False):
         pairs = int((sizes.astype(np.int64) ** 2).sum())
         print(f"  K1 [{tag}, {label}] S={S} H={H} D={D} kv_range={rng_len} "
               f"(kv_starts max {int(starts.max())}, {pairs} query-key pairs in {len(sizes)} groups)")
+        done = computed_pairs(gid, starts, rng_len)
+        print(f"    pairs per head, modelled from the span rule: the kernel computes {done} "
+              f"({done / pairs:.2f} x the plan's), the whole windows hold {S * rng_len} ({S * rng_len / pairs:.2f} x)")
         mask = (gid_t[:, None] == gid_t[None, :])[None, None]
 
         def library():
@@ -238,8 +290,43 @@ def check_segmented(results, plan, gen, tag, report=False):
             results,
             work=(4 * pairs * H * D, 4 * nbytes(q)),
             library=library,
-            report=report and label == "full",
+            report=report,
+            entry=f"segmented_block_attention[{label}]",
         )
+
+
+def check_segmented_edges(gen):
+    """K1 where no layout plan takes it, at the encoder's width. Contiguous
+    groups of 1 to 300 slots; half the 128-row query chunks lie inside their
+    window, the other half start it anywhere in [-200, S), so their rows lie
+    partly or wholly outside it (a row with no valid key averages its window)
+    and some starts are clamped; the window, 1000 keys, is no multiple of
+    the 64-key tile."""
+    cfg = EncoderConfig(**DEFAULT_ENCODER)
+    S, H, D, kv_range = 8192, cfg.num_heads, cfg.head_dim, 1000
+    rng = np.random.default_rng(SEED)
+    gid = np.repeat(np.arange(S, dtype=np.int32), rng.integers(1, 301, S))[:S]
+    n = S // flash.PLAN_CHUNK
+    starts = flash.PLAN_CHUNK * np.arange(n) - rng.integers(0, kv_range - flash.PLAN_CHUNK + 1, n)
+    anywhere = rng.random(n) < 0.5
+    starts = np.where(anywhere, rng.integers(-200, S, n), starts).astype(np.int32)
+    kv0 = np.clip(starts.astype(np.int64), 0, S - kv_range)
+    keys = gid[kv0[:, None] + np.arange(kv_range)]  # [n, kv_range]
+    valid = (gid.reshape(n, -1)[:, :, None] == keys[:, None, :]).sum(-1)  # [n, 128]
+    rows = (kv0[:, None] <= np.arange(S).reshape(n, -1)) & (np.arange(S).reshape(n, -1) < kv0[:, None] + kv_range)
+    pairs = int(np.where(valid > 0, valid, kv_range).sum())  # rows without a valid key take the window
+    print(f"  K1 [edges] S={S} H={H} D={D} kv_range={kv_range}: {int(anywhere.sum())} of {n} chunks start "
+          f"their window anywhere; {int((~rows).sum())} rows lie outside it, {int((valid == 0).sum())} have no "
+          f"valid key")
+    q, k, v = segmented_inputs(gen, S, H, D)
+    gid_t, starts_t = to_cuda(gid), to_cuda(starts)
+    compare(
+        "segmented_block_attention[edges]",
+        lambda: flash.segmented_block_attention(q, k, v, gid_t, starts_t, kv_range),
+        lambda: flash.segmented_block_attention_reference(q, k, v, gid_t, starts_t, kv_range),
+        {},
+        work=(4 * pairs * H * D, 4 * nbytes(q)),
+    )
 
 
 def check_causal(results, B, L, gen, report=False):
@@ -412,7 +499,7 @@ def check_model_paths(pred, flat, quantize: bool):
     with torch.inference_mode():
         before = read_counts()
         kern = run(pred.model, True, pred.dtype)
-        used = {n: c - before[n] for n, c in read_counts().items()}
+        used = {n: c - before[n] for n, c in read_counts().items() if n in COUNTERS}
         plain = run(pred.model, False, pred.dtype)
         model32 = copy.deepcopy(pred.model).float()
         ref = run(model32, False, torch.float32)
@@ -461,6 +548,7 @@ def main():
     while cap < sum(a * b for a, b in grids):
         cap *= 2
     check_segmented(results, plan_layout(grids, EncoderConfig(**DEFAULT_ENCODER), cap), gen, "given lines")
+    check_segmented_edges(gen)
     for B, L in [(32, 128), (2, 1536)]:
         check_causal(results, B, L, gen)
     check_decode(results, gen)
@@ -485,6 +573,9 @@ def main():
     for label, run_counts in counts.items():
         assert_launched(label, run_counts, ["segmented_block_attention", "causal_flash_attention", "gqa_decode"],
                         ["gqa_decode_int8"])
+        by_range = run_counts[K1_BY_RANGE]
+        if sum(by_range.values()) != run_counts["segmented_block_attention"]:
+            raise AssertionError(f"K1 launches by kv_range {by_range} do not add up")
 
     print("[5] kernels vs plain versions inside the model")
     for quantize in (False, True):
@@ -522,13 +613,24 @@ def main():
     settings.RECOGNITION_MODEL_QUANTIZE = False
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
-    # lines; the others: whole-page OCR, int8 cache)
+    # lines; the others: whole-page OCR, int8 cache). K1's full-attention and
+    # windowed blocks differ in window length (the wave's plan has both).
+    page = counts["whole-page pinned 40"]
+    lay = batch.layout
+    if lay.kv_range == lay.win_range:
+        raise AssertionError("the whole-page plan's full and window ranges coincide: launches cannot be split")
+    launches = {
+        "segmented_block_attention[full]": page[K1_BY_RANGE].get(lay.kv_range, 0),
+        "segmented_block_attention[window]": page[K1_BY_RANGE].get(lay.win_range, 0),
+        "causal_flash_attention": page["causal_flash_attention"],
+        "gqa_decode": counts["pinned 40"]["gqa_decode"],
+        "gqa_decode_int8": page["gqa_decode_int8"],
+    }
     report = {"kernels": [
-        {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts["pinned 40" if n == "gqa_decode" else "whole-page pinned 40"][n],
+        {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": launches[n],
          **{key: results[n][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-        for n, (_, _, src, rep) in KERNELS.items()
+        for n, (src, rep) in KERNELS.items()
     ]}
     print(json.dumps(report))
     print(power)

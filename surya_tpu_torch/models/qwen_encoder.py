@@ -81,6 +81,16 @@ class EncoderLayout:
     win_starts: np.ndarray  # [cap // 128] window-attention KV window start per query chunk
     win_range: int  # window-attention KV window length
 
+    def __post_init__(self):
+        # the K1 kernel walks, for each 16 query rows, only the keys from the
+        # start of the first row's group run to the end of the last row's: a
+        # group split over two runs of slots would lose the other run's keys
+        for name in ("seg_id", "win_id"):
+            ids = getattr(self, name)
+            run_ids = ids[np.concatenate([[True], ids[1:] != ids[:-1]])]
+            if np.unique(run_ids).size != run_ids.size:
+                raise ValueError(f"{name}: a group id occurs in more than one run of slots")
+
     @property
     def device_args(self):
         """The arrays the encoder consumes, in VisionEncoder.forward's order."""

@@ -4,12 +4,16 @@ Each public function runs the hand-written CUDA kernel in
 ``csrc/flash_attn.cu`` for tensors on a CUDA device, and its plain PyTorch
 version (``*_reference``) for tensors on the CPU. There is no fallback: a CUDA
 input the kernel does not take raises. ``<function>.launches`` counts the
-kernel launches.
+kernel launches; ``segmented_block_attention.launches_by_range`` splits them
+by KV window length (the encoder's full-attention and windowed blocks).
 
 K1 replaces surya_tpu/ops/flash.py::segmented_block_attention, K2 replaces
 surya_tpu/ops/flash.py::causal_flash_attention. Unlike the Pallas wrapper,
 K1 reads q/k/v as [S, H, D] through their row strides (no transpose to
-[H, S, D]).
+[H, S, D]), and walks for each 16 query rows only the span of keys their
+groups can reach instead of the whole window; the kernel finds the spans
+itself. That needs each group to be one contiguous run of slots, which
+``qwen_encoder.plan_layout`` checks.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ from surya_tpu_torch.ops import _build
 from surya_tpu_torch.ops.attention import NEG_INF, sdpa
 
 PLAN_CHUNK = 128  # query rows per kv_starts entry (qwen_encoder.FULL_ATTN_Q_CHUNK)
-KV_TILE = 64  # key rows per shared-memory tile in the kernels
 SEGMENTED_HEAD_DIM = 80  # the head dims the kernels are built for: recognition encoder
 CAUSAL_HEAD_DIM = 128  # and decoder
 
@@ -66,15 +69,8 @@ def segmented_block_attention_reference(q, k, v, seg_id, kv_starts, kv_range: in
     return out.reshape(S, H, D).to(q.dtype)
 
 
-def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
-    """q, k, v: [S, H, D] (post-RoPE; any row stride), seg_id: [S] int32 group
-    id per row (padding rows: a unique id per 128-row chunk), kv_starts:
-    [S / 128] int32 window start per query chunk, kv_range: window length.
-    Returns [S, H, D]."""
-    if q.device.type == "cpu":
-        return segmented_block_attention_reference(q, k, v, seg_id, kv_starts, kv_range)
-    name = "segmented_block_attention"
-    _check_cuda(name, q, k, v, seg_id, kv_starts)
+def _check_segmented(name, q, k, v, seg_id, kv_starts, kv_range: int) -> int:
+    """Raise for what K1 does not take; returns kv_range clipped to S."""
     S, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -83,14 +79,29 @@ def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
     if S % PLAN_CHUNK:
         raise ValueError(f"{name}: S={S} must be a multiple of {PLAN_CHUNK}")
     kv_range = min(int(kv_range), S)
-    if kv_range <= 0 or kv_range % KV_TILE:
-        raise ValueError(f"{name}: kv_range={kv_range} must be a positive multiple of {KV_TILE}")
+    if kv_range <= 0:
+        raise ValueError(f"{name}: kv_range={kv_range} must be positive")
     for t in (q, k, v):
         _check_bf16_rows(name, t)
     if seg_id.dtype != torch.int32 or kv_starts.dtype != torch.int32:
         raise TypeError(f"{name}: seg_id and kv_starts must be int32")
     if seg_id.shape != (S,) or kv_starts.shape != (S // PLAN_CHUNK,):
         raise ValueError(f"{name}: seg_id {tuple(seg_id.shape)} / kv_starts {tuple(kv_starts.shape)} do not match S={S}")
+    return kv_range
+
+
+def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
+    """q, k, v: [S, H, D] (post-RoPE; any row stride), seg_id: [S] int32 group
+    id per row, each group one contiguous run of rows (padding rows: a unique
+    id per 128-row chunk; plan_layout checks this, the kernel relies on it),
+    kv_starts: [S / 128] int32 window start per query chunk, kv_range: window
+    length. Returns [S, H, D]."""
+    if q.device.type == "cpu":
+        return segmented_block_attention_reference(q, k, v, seg_id, kv_starts, kv_range)
+    name = "segmented_block_attention"
+    _check_cuda(name, q, k, v, seg_id, kv_starts)
+    kv_range = _check_segmented(name, q, k, v, seg_id, kv_starts, kv_range)
+    S, H, D = q.shape
     seg_id, kv_starts = seg_id.contiguous(), kv_starts.contiguous()
 
     out = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
@@ -103,10 +114,13 @@ def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
         )
     _build.check(rc, name)
     segmented_block_attention.launches += 1
+    by_range = segmented_block_attention.launches_by_range
+    by_range[kv_range] = by_range.get(kv_range, 0) + 1
     return out
 
 
 segmented_block_attention.launches = 0
+segmented_block_attention.launches_by_range = {}
 
 
 # -- K2: causal GQA prefill attention -----------------------------------------
@@ -119,14 +133,8 @@ def causal_flash_attention_reference(q, k, v):
     return sdpa(q, k, v, mask=causal)
 
 
-def causal_flash_attention(q, k, v):
-    """q: [B, L, H, D], k/v: [B, L, kvh, D] (post-RoPE, right-padded rows).
-    Query head h reads kv head h // (H / kvh). Padded query rows produce
-    values the caller discards. Returns [B, L, H, D]."""
-    if q.device.type == "cpu":
-        return causal_flash_attention_reference(q, k, v)
-    name = "causal_flash_attention"
-    _check_cuda(name, q, k, v)
+def _check_causal(name, q, k, v) -> None:
+    """Raise for what K2 does not take."""
     B, L, H, D = q.shape
     kvh = k.shape[2]
     if k.shape != (B, L, kvh, D) or v.shape != k.shape or H % kvh:
@@ -138,11 +146,22 @@ def causal_flash_attention(q, k, v):
             raise ValueError(f"{name}: inputs must be contiguous")
         _check_bf16_rows(name, t)
 
+
+def causal_flash_attention(q, k, v):
+    """q: [B, L, H, D], k/v: [B, L, kvh, D] (post-RoPE, right-padded rows).
+    Query head h reads kv head h // (H / kvh). Padded query rows produce
+    values the caller discards. Returns [B, L, H, D]."""
+    if q.device.type == "cpu":
+        return causal_flash_attention_reference(q, k, v)
+    name = "causal_flash_attention"
+    _check_cuda(name, q, k, v)
+    _check_causal(name, q, k, v)
+    B, L, H, D = q.shape
     out = torch.empty_like(q)
     lib = _build.library().lib
     with torch.cuda.device(q.device):
         rc = lib.surya_causal_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, kvh, D,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, k.shape[2], D,
             D**-0.5, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, name)
