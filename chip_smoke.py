@@ -21,7 +21,21 @@ where one PyTorch call computes the same function, that call. Then:
 - checks K1 and K2 against their plain versions at the shapes of that
   path's prefill wave (the layout plan of its 128 detected lines, its rows
   and sequence bucket), and runs that wave's prefill and one decode step
-  through the int8 cache three ways, as above.
+  through the int8 cache three ways, as above;
+- holds K3 and K3q against their plain versions at the shape the pinned
+  runs gave them (K3: given lines, K3q: whole page; the first decode call's
+  lengths, cache rows S and chunk columns K, recorded by a stand-in for the
+  decoder's `decode_attn` in this script), at steps 0, K/2 - 1 and K - 1.
+
+K3 and K3q are also held against their plain versions, and timed, at the
+free-running path's 512-row cache: ragged lengths at three (step, layer)
+pairs (the step-37 case is the long-cache row), every slot at 512 rows and at the ragged mean, the
+edges of a split (lengths 0, 1, T - 1, T, T + 1, S - 1 and S at the first
+and last step), the floor (every length 0 at step 0) and 300 slots of ragged
+lengths. K3's library time
+is one `scaled_dot_product_attention` call over the cache and chunk joined
+beforehand; no PyTorch call reads an int8 cache with row scales, so K3q has
+none.
 
 K1's full-attention and windowed blocks are reported as two entries, each
 with its own launches; for each plan the script prints the query-key pairs
@@ -43,6 +57,7 @@ import json
 import os
 import subprocess
 import time
+import types
 
 import numpy as np
 import torch
@@ -98,6 +113,9 @@ COUNTERS = {  # kernel -> (wrapper, its launch counter)
     "gqa_decode_int8": (decode_attn.gqa_decode, "launches_q"),
 }
 K1_BY_RANGE = "segmented_block_attention by kv_range"
+# K3's library call: the first of these SDPA backends that takes a boolean
+# mask with enable_gqa (the fused ones first)
+DECODE_SDPA_BACKENDS = [SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
 
 
 def reset_counts():
@@ -157,7 +175,7 @@ def compare(name, kernel, plain, results, work, library=None, reps=20, cold=Fals
     (operations, bytes) the call needs; cold: time each call with a cold L2
     (see cuda_ms); report: the case is the kernel's main-path shape, whose
     times, bound and library time go in the kernels line; entry: that
-    line's entry (default: the name up to "[")."""
+    line's entry (default: the name up to "["). Returns the case's times."""
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
@@ -178,9 +196,11 @@ def compare(name, kernel, plain, results, work, library=None, reps=20, cold=Fals
         raise AssertionError(f"{name}: {n_bad} elements of the kernel's output disagree with its plain version")
     res = results.setdefault(entry or name.split("[")[0], {"max_abs_err": 0.0})
     res["max_abs_err"] = max(res["max_abs_err"], err)
+    timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
     if report:
-        res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        res.update(timed)
+    return timed
 
 
 def nbytes(*tensors) -> int:
@@ -345,49 +365,161 @@ def check_causal(results, B, L, gen, report=False):
     )
 
 
-def check_decode(results, gen):
-    """K3 and K3q: 128 slots + trash, 10 layers, a 512-row cache, 64-column
-    chunks; K3q reads the same cache quantized to int8. Ragged lengths at
-    three (step, layer) pairs, the first reported; then every slot at the
-    longest length and every slot at the ragged mean: the same longest slot
-    with twice the rows, and the same rows with a shorter longest slot."""
-    B, S3, K, layers = 129, 512, 64, 10
+def decode_inputs(gen, B, S, K, layers=10):
+    """q, bf16 cache and chunk, and the same cache quantized to int8, at the
+    decoder's widths (12/4 heads, D = 128)."""
     qd = randn(gen, B, 12, 128, scale=1.0)
-    kcache, vcache = randn(gen, layers, B, 4, S3, 128), randn(gen, layers, B, 4, S3, 128)
+    kcache, vcache = randn(gen, layers, B, 4, S, 128), randn(gen, layers, B, 4, S, 128)
     ck, cv = randn(gen, layers, B, 4, K, 128), randn(gen, layers, B, 4, K, 128)
     (kq, ks), (vq, vs) = qwen_decoder.quantize_kv(kcache), qwen_decoder.quantize_kv(vcache)
+    return qd, (kcache, vcache), (kq, vq, ks, vs), (ck, cv)
+
+
+def decode_library(qd, kcache, vcache, lens, ck, cv, step, layer):
+    """K3's yardstick: one scaled_dot_product_attention call (enable_gqa, a
+    boolean mask) over the layer's cache and chunk joined into one K/V
+    beforehand, outside the timed call. The first backend in
+    DECODE_SDPA_BACKENDS that takes these inputs is used and named. The port
+    never calls it. Returns (call, backend name)."""
+    S, K = kcache.shape[3], ck.shape[3]
+    kj, vj = torch.cat([kcache[layer], ck[layer]], dim=2), torch.cat([vcache[layer], cv[layer]], dim=2)
+    cols = torch.arange(S + K, device="cuda")
+    mask = torch.where(cols < S, cols[None] < lens[:, None].long(), cols[None] - S <= step)[:, None, None, :]
+    qh = qd[:, :, None, :]
+    for backend in DECODE_SDPA_BACKENDS:
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qh, kj, vj, attn_mask=mask, enable_gqa=True)[:, :, 0]
+        try:
+            call()
+        except RuntimeError:  # this backend does not take a boolean mask with enable_gqa
+            continue
+        return call, backend.name
+    raise RuntimeError("no SDPA backend takes K3's inputs")
+
+
+def check_decode_case(results, label, inputs, lens_np, step, layer, library=False):
+    """K3 and K3q on one (lengths, step, layer) case, each within tolerance
+    of its plain version, timed with a cold L2 as a decode step finds the
+    cache. Returns {kernel: its times}."""
+    qd, (kcache, vcache), (kq, vq, ks, vs), (ck, cv) = inputs
+    B, S, K = qd.shape[0], kcache.shape[3], ck.shape[3]
+    lens = to_cuda(lens_np)
+    rows = int(lens_np.sum())  # valid cache rows of each kv head, over all slots
+    ops = 4 * 12 * 128 * (rows + B * (step + 1))
+    chunk_bytes = 2 * B * 4 * (step + 1) * 128 * 2
+    other = 2 * nbytes(qd) + nbytes(lens)
+    print(f"  K3 B={B} S={S} K={K} step={step} layer={layer}, {label} lengths "
+          f"(longest {int(lens_np.max())}; {rows} valid cache rows per kv head)")
+    lib_call = None
+    if library:
+        lib_call, backend = decode_library(qd, kcache, vcache, lens, ck, cv, step, layer)
+        ref = decode_attn.gqa_decode_reference(qd, kcache, vcache, lens, ck, cv, step, layer)
+        print(f"    library call: SDPA, {backend} backend, max_abs_err {(lib_call().float() - ref.float()).abs().max().item():.3e} "
+              f"against the plain version")
+    timed = {"gqa_decode": compare(
+        f"gqa_decode[{step}, {label}]",
+        lambda: decode_attn.gqa_decode(qd, kcache, vcache, lens, ck, cv, step, layer),
+        lambda: decode_attn.gqa_decode_reference(qd, kcache, vcache, lens, ck, cv, step, layer),
+        results,
+        work=(ops, 2 * rows * 4 * 128 * 2 + chunk_bytes + other),
+        library=lib_call,
+        cold=True,  # a decode step reads each layer's cache once
+    )}
+    print("  K3q, the same with an int8 cache and bf16 row scales" +
+          ("; no PyTorch call reads an int8 cache with row scales, so it has no library time" if library else ""))
+    timed["gqa_decode_int8"] = compare(
+        f"gqa_decode_int8[{step}, {label}]",
+        lambda: decode_attn.gqa_decode(qd, kq, vq, lens, ck, cv, step, layer, ks, vs),
+        lambda: decode_attn.gqa_decode_reference(qd, kq, vq, lens, ck, cv, step, layer, ks, vs),
+        results,
+        work=(ops, 2 * rows * 4 * (128 + 2) + chunk_bytes + other),
+        cold=True,
+    )
+    return timed
+
+
+def check_decode(results, gen):
+    """K3 and K3q at the free-running path's cache: 128 slots + trash, 10
+    layers, a 512-row cache, 64-column chunks; K3q reads the same cache
+    quantized to int8. Ragged lengths at three (step, layer) pairs, the first
+    the long-cache row of PERF.md; every slot at the longest length and every
+    slot at the ragged mean (the same longest slot with twice the rows, and
+    the same rows with a shorter longest slot); the edges of the kernels'
+    partition in one batch (lengths 0 and 1, each side of a 16-row sub-tile,
+    of a T = SPLIT_ROWS split, and of S) at the first and last step; and the
+    floor, every length 0 at step 0: the fixed cost of a call and of the
+    timing. Then 300 slots of ragged lengths over 2 layers, a slot count no
+    recognition batch here reaches, at the last step. Returns the long-cache
+    row's times."""
+    B, S3, K = 129, 512, 64
+    inputs = decode_inputs(gen, B, S3, K)
     ragged = np.random.default_rng(SEED).integers(0, S3 + 1, B).astype(np.int32)
     ragged[:4] = [0, 1, 117, S3]
     mean = int(round(ragged.mean()))
+    sub, T = 16, decode_attn.SPLIT_ROWS  # a warp's sub-tile (SUB in csrc/decode_attn.cu), a split's rows
+    edges = np.resize(np.array([0, 1, sub - 1, sub, sub + 1, T - 1, T, T + 1, S3 - 1, S3], np.int32), B)
     cases = [("ragged", ragged, 37, 7), ("ragged", ragged, 0, 0), ("ragged", ragged, 63, 9),
-             (f"all {S3}", np.full(B, S3, np.int32), 37, 7), (f"all {mean}", np.full(B, mean, np.int32), 37, 7)]
-    for i, (label, lens_np, step, layer) in enumerate(cases):
-        lens = to_cuda(lens_np)
-        rows = int(lens_np.sum())  # valid cache rows of each kv head, over all slots
-        ops = 4 * 12 * 128 * (rows + B * (step + 1))
-        chunk_bytes = 2 * B * 4 * (step + 1) * 128 * 2
-        other = 2 * nbytes(qd) + nbytes(lens)
-        print(f"  K3 B={B} S={S3} K={K} step={step} layer={layer}, {label} lengths "
-              f"(longest {int(lens_np.max())}; {rows} valid cache rows per kv head)")
-        compare(
-            f"gqa_decode[{step}, {label}]",
-            lambda: decode_attn.gqa_decode(qd, kcache, vcache, lens, ck, cv, step, layer),
-            lambda: decode_attn.gqa_decode_reference(qd, kcache, vcache, lens, ck, cv, step, layer),
-            results,
-            work=(ops, 2 * rows * 4 * 128 * 2 + chunk_bytes + other),
-            cold=True,  # a decode step reads each layer's cache once
-            report=i == 0,
-        )
-        print("  K3q, the same with an int8 cache and bf16 row scales")
-        compare(
-            f"gqa_decode_int8[{step}, {label}]",
-            lambda: decode_attn.gqa_decode(qd, kq, vq, lens, ck, cv, step, layer, ks, vs),
-            lambda: decode_attn.gqa_decode_reference(qd, kq, vq, lens, ck, cv, step, layer, ks, vs),
-            results,
-            work=(ops, 2 * rows * 4 * (128 + 2) + chunk_bytes + other),
-            cold=True,
-            report=i == 0,
-        )
+             (f"all {S3}", np.full(B, S3, np.int32), 37, 7), (f"all {mean}", np.full(B, mean, np.int32), 37, 7),
+             ("edge", edges, 0, 3), ("edge", edges, K - 1, 3), ("floor: all 0", np.zeros(B, np.int32), 0, 0)]
+    timed = [check_decode_case(results, label, inputs, lens_np, step, layer, library=i == 0)
+             for i, (label, lens_np, step, layer) in enumerate(cases)]
+    many = np.random.default_rng(SEED + 1).integers(0, S3 + 1, 300).astype(np.int32)
+    check_decode_case(results, "300 slots, ragged", decode_inputs(gen, many.size, S3, K, layers=2), many, K - 1, 1)
+    return timed[0]
+
+
+class DecodeShapes:
+    """For one predictor run, the decoder's `decode_attn` becomes a stand-in
+    (in this script only) whose `gqa_decode` keeps, for each decode kernel,
+    the first call's lengths (a device copy: no sync) and its cache and
+    chunk shapes, then calls the wrapper."""
+
+    def __init__(self):
+        self.first = {}
+
+    def __enter__(self):
+        def record(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale=None, v_scale=None):
+            kernel = "gqa_decode" if k_scale is None else "gqa_decode_int8"
+            if kernel not in self.first:
+                self.first[kernel] = dict(lengths=lengths.clone(), cache=tuple(k_cache.shape),
+                                          chunk=tuple(chunk_k.shape))
+            return decode_attn.gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
+
+        qwen_decoder.decode_attn = types.SimpleNamespace(
+            gqa_decode=record, gqa_decode_reference=decode_attn.gqa_decode_reference)
+        return self
+
+    def __exit__(self, *exc):
+        qwen_decoder.decode_attn = decode_attn
+
+
+def check_decode_main_path(results, gen, shapes, long_cache):
+    """K3 at the first decode call of the pinned given-lines run, K3q at that
+    of the pinned whole-page run: their lengths, S and K, random inputs, at
+    steps 0, K/2 - 1 and K - 1 (a chunk runs every step once). The kernels
+    line takes their mean as the main-path entry and lists each step, and
+    the ragged S = 512 step-37 case as the long-cache row."""
+    for kernel, rec in shapes.items():
+        layers, B, kvh, S, _ = rec["cache"]
+        K = rec["chunk"][3]
+        lens_np = rec["lengths"].cpu().numpy().astype(np.int32)
+        print(f"  {kernel} main path: {B} slots, S={S}, K={K}, {int((lens_np > 0).sum())} slots with cache rows "
+              f"(lengths {int(lens_np.min())} to {int(lens_np.max())})")
+        inputs = decode_inputs(gen, B, S, K, layers)
+        by_step = {}
+        for step in (0, K // 2 - 1, K - 1):
+            by_step[str(step)] = check_decode_case(
+                results, "main path", inputs, lens_np, step, layers - 1, library=kernel == "gqa_decode"
+            )[kernel]
+        keys = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if kernel == "gqa_decode" else ())
+        res = results[kernel]
+        res.update({k: float(np.mean([t[k] for t in by_step.values()])) for k in keys})
+        res.setdefault("library_ms", None)
+        res.update(bound_by=by_step[str(K - 1)]["bound_by"], main_path=dict(slots=B, S=S, K=K), by_step=by_step,
+                   long_cache=long_cache[kernel])
+        print(f"    {kernel}: mean over steps {list(by_step)}: {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({100 * res['bound_ms'] / res['ms']:.1f} %)")
 
 
 def first_wave(pred, flat):
@@ -551,7 +683,7 @@ def main():
     check_segmented_edges(gen)
     for B, L in [(32, 128), (2, 1536)]:
         check_causal(results, B, L, gen)
-    check_decode(results, gen)
+    long_cache = check_decode(results, gen)
 
     print("[3] RecognitionPredictor at production width, random bf16 weights, given line boxes")
     t0 = time.perf_counter()
@@ -559,10 +691,13 @@ def main():
     print(f"    model built in {time.perf_counter() - t0:.1f} s")
     pages, bboxes = synthetic_pages(np.random.default_rng(SEED))
     run_predictor(pred, pages[:1], bboxes[:1], pin=True)  # warm-up (cuBLAS, allocator)
-    counts = {}
+    counts, shapes = {}, {}
     for label, pin in [("pinned 40", True), ("free-running", False)]:
         reset_counts()
-        wall, n_l, n_t = run_predictor(pred, pages, bboxes, pin=pin)
+        with DecodeShapes() as rec:
+            wall, n_l, n_t = run_predictor(pred, pages, bboxes, pin=pin)
+        if pin:
+            shapes["gqa_decode"] = rec.first["gqa_decode"]
         counts[label] = read_counts()
         if pin and n_t != PIN_TOKENS * N_PAGES * LINES_PER_PAGE:
             raise AssertionError(f"pinned run decoded {n_t} tokens, want {PIN_TOKENS} per line")
@@ -591,7 +726,10 @@ def main():
     run_full_page(pred, det, ocr_pages, pin=True)  # warm-up at the measured shapes (cuDNN, cuBLAS, allocator)
     for label, pin in [("whole-page pinned 40", True), ("whole-page free-running", False)]:
         reset_counts()
-        det_wall, rec_wall, n_l, n_t = run_full_page(pred, det, ocr_pages, pin=pin)
+        with DecodeShapes() as rec:
+            det_wall, rec_wall, n_l, n_t = run_full_page(pred, det, ocr_pages, pin=pin)
+        if pin:
+            shapes["gqa_decode_int8"] = rec.first["gqa_decode_int8"]
         counts[label] = read_counts()
         if pin and n_t != PIN_TOKENS * n_l:
             raise AssertionError(f"pinned run decoded {n_t} tokens for {n_l} lines, want {PIN_TOKENS} per line")
@@ -612,6 +750,9 @@ def main():
     check_model_paths(pred, flat, quantize=True)
     settings.RECOGNITION_MODEL_QUANTIZE = False
 
+    print("[8] K3 and K3q at the shapes the pinned runs gave them (K3: given lines, K3q: whole page)")
+    check_decode_main_path(results, gen, shapes, long_cache)
+
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and
     # windowed blocks differ in window length (the wave's plan has both).
@@ -626,10 +767,11 @@ def main():
         "gqa_decode": counts["pinned 40"]["gqa_decode"],
         "gqa_decode_int8": page["gqa_decode_int8"],
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "main_path", "by_step",
+            "long_cache")
     report = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": launches[n],
-         **{key: results[n][key] for key in
-            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+         **{key: results[n][key] for key in keys if key in results[n]}}
         for n, (src, rep) in KERNELS.items()
     ]}
     print(json.dumps(report))

@@ -8,37 +8,76 @@
 
 namespace surya {
 
+typedef __nv_bfloat16 bf16;
+
+constexpr int PAD = 8;  // bf16 elements of padding after each shared row
+constexpr float LOG2E = 1.4426950408889634f;
+
 // Finite mask sentinel, as in the Pallas kernels: exp(m_prev - m_new) never
 // becomes exp(-inf + inf) while a row has seen no valid key yet.
 constexpr float NEG_INF = -1e30f;
 
-// 8 bf16 values (one 16-byte load) -> 8 floats.
-__device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
+// -- the tensor cores' warp-level path: cp.async, ldmatrix, mma.sync ------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 8 floats -> 8 bf16 values (round to nearest even) packed for one 16-byte store.
-__device__ __forceinline__ uint4 float_to_bf16x8(const float* f) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
+// Global -> shared copies that do not block the thread; !pred zero-fills the
+// destination and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
 }
 
-// Sum of `x` over the `width` neighbouring lanes that share one row (width a
-// power of two dividing 32). Every lane of the warp must call it.
-template <int WIDTH>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < WIDTH; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and register i of lane l gets row l/4, columns 2(l%4), 2(l%4)+1 of matrix i
+// (of its transpose with .trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 operands, fp32 accumulator
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (a, b) = hi + lo, each a pair of bf16 values: hi rounds (a, b) to bf16 and
+// lo rounds what hi leaves out, so hi + lo keeps about 16 bits of each.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16x2(a - f.x, b - f.y);
 }
 
 }  // namespace surya

@@ -46,10 +46,7 @@ using namespace surya;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int STAGES = 2;         // depth of the K/V ring
-constexpr int PAD = 8;            // bf16 elements of padding after each shared row
 constexpr int WARP_ROWS = 16;     // query rows of one warp: the m16 of mma.sync
 constexpr int SEG_QT = 64;        // K1: query rows per CTA (4 warps)
 constexpr int PLAN_CHUNK = 128;   // K1: query rows per kv_starts entry (FULL_ATTN_Q_CHUNK)
@@ -58,75 +55,13 @@ constexpr int SEG_MIN_CTAS = 4;   // K1: CTAs an SM must hold (caps registers at
 constexpr int CAUSAL_QT = 64;     // K2: query rows per CTA (4 warps)
 constexpr int CAUSAL_BK = 32;     // K2: keys per shared-memory tile
 constexpr int CAUSAL_MIN_CTAS = 4;  // K2: CTAs an SM must hold (caps registers at 128)
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float inf_f() { return __uint_as_float(0x7f800000u); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Global -> shared copies that do not block the thread; !pred zero-fills the
-// destination and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(pred ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// and register i of lane l gets row l/4, columns 2(l%4), 2(l%4)+1 of matrix i
-// (of its transpose with .trans).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 operands, fp32 accumulator
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// (a, b) = hi + lo, each a pair of bf16 values: hi rounds (a, b) to bf16 and
-// lo rounds what hi leaves out, so hi + lo keeps about 16 bits of each.
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16x2(a - f.x, b - f.y);
 }
 
 // One warp's 16 query rows: where their Q tile sits in shared memory (row

@@ -39,8 +39,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "surya_segmented_attention": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "surya_causal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "surya_gqa_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "surya_gqa_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "surya_gqa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "surya_gqa_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _P],
 }
 
 

@@ -11,6 +11,14 @@ One decode step attends over two pieces, as one softmax:
   the frozen slot cache [layers, slots, kvh, S, D], rows < lengths[slot];
   this chunk's KV buffer [layers, slots, kvh, K, D], columns <= step.
 Both come in as the full multi-layer arrays; the layer is picked inside.
+
+On the card each (slot, kv head) is split into SPLIT_ROWS cache rows or
+chunk columns, one warp a split, one CTA the kv heads of a (slot, split). A
+split that is the only one of its (slot, kv head) writes the output;
+otherwise it writes its partial softmax state to a workspace from
+``torch.empty`` and counts itself in ``_merge_counts``, and the split that
+counts last merges them. The grid follows from the shapes alone: a call
+does not synchronise with the host.
 """
 
 from __future__ import annotations
@@ -21,6 +29,15 @@ from surya_tpu_torch.ops import _build
 from surya_tpu_torch.ops.attention import NEG_INF
 
 HEAD_DIM, GROUP = 128, 3  # the recognition decoder's head dim and query heads per kv head
+MAX_KV_HEADS = 4  # kv heads of one CTA, one warp each: MAX_KVH in csrc/decode_attn.cu
+SPLIT_ROWS = 64  # rows of one split: DEC_TILE in csrc/decode_attn.cu
+
+
+def workspace_floats(B: int, kvh: int, S: int, K: int) -> int:
+    """fp32 values of the splits' partials: (acc[G][D], m, l) for every
+    (slot, kv head, split), split or not."""
+    n_splits = -(-S // SPLIT_ROWS) + -(-K // SPLIT_ROWS)
+    return B * kvh * n_splits * GROUP * (HEAD_DIM + 2)
 
 
 def gqa_decode_reference(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer: int,
@@ -50,6 +67,57 @@ def gqa_decode_reference(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: i
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def _check_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale=None,
+                  v_scale=None) -> tuple:
+    """Raise for what K3 / K3q (scales given) do not take; returns (step, layer) as ints."""
+    quantized = k_scale is not None
+    tensors = (q, k_cache, v_cache, lengths, chunk_k, chunk_v) + ((k_scale, v_scale) if quantized else ())
+    B, H, D = q.shape
+    n_layers, _, kvh, S, _ = k_cache.shape
+    K = chunk_k.shape[3]
+    if k_cache.shape != (n_layers, B, kvh, S, D) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
+    if chunk_k.shape != (n_layers, B, kvh, K, D) or chunk_v.shape != chunk_k.shape:
+        raise ValueError(f"{name}: chunk {tuple(chunk_k.shape)} does not match cache {tuple(k_cache.shape)}")
+    if quantized and (k_scale.shape != k_cache.shape[:-1] or v_scale.shape != k_scale.shape):
+        raise ValueError(f"{name}: scales {tuple(k_scale.shape)} do not match cache {tuple(k_cache.shape)}")
+    if H != GROUP * kvh or D != HEAD_DIM or kvh > MAX_KV_HEADS:
+        raise ValueError(f"{name}: the kernel is built for {GROUP} query heads per kv head, at most "
+                         f"{MAX_KV_HEADS} kv heads and head dim {HEAD_DIM}, got {H}/{kvh} heads of dim {D}")
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: lengths must be int32 [{B}]")
+    cache_dtype = torch.int8 if quantized else torch.bfloat16
+    if k_cache.dtype != cache_dtype or v_cache.dtype != cache_dtype:
+        raise TypeError(f"{name}: kernel takes a {cache_dtype} cache, got {k_cache.dtype}/{v_cache.dtype}")
+    if any(t.dtype != torch.bfloat16 for t in (q, chunk_k, chunk_v) + ((k_scale, v_scale) if quantized else ())):
+        raise TypeError(f"{name}: kernel takes bfloat16 queries, chunk buffers and scales")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    step, layer = int(step), int(layer)
+    if not (0 <= step < K and 0 <= layer < n_layers):
+        raise ValueError(f"{name}: step {step} / layer {layer} out of range (K={K}, layers={n_layers})")
+    return step, layer
+
+
+_COUNTS = {}
+
+
+def _merge_counts(dev: torch.device, n: int) -> torch.Tensor:
+    """n int32 zeros on dev, one per (slot, kv head): the kernel counts the
+    splits that have ended in them and sets each back to 0 when it merges,
+    so one buffer serves every call of that size and every replay of a CUDA
+    graph that captured one. Kept for the life of the process (a captured
+    graph holds its address). Calls that share a buffer must not overlap in
+    time: the port issues its decode steps on one stream."""
+    key = (dev.index, n)
+    if key not in _COUNTS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("gqa_decode: call it once outside CUDA graph capture first, so that its "
+                               "merge counts are allocated and zeroed")
+        _COUNTS[key] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return _COUNTS[key]
+
+
 def gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer: int,
                k_scale=None, v_scale=None):
     """q: [B, H, D] current-token queries (post-RoPE); k/v_cache: [layers, B,
@@ -67,32 +135,13 @@ def gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer:
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    step, layer = _check_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
     B, H, D = q.shape
-    n_layers, _, kvh, S, _ = k_cache.shape
-    K = chunk_k.shape[3]
-    if k_cache.shape != (n_layers, B, kvh, S, D) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"{name}: cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
-    if chunk_k.shape != (n_layers, B, kvh, K, D) or chunk_v.shape != chunk_k.shape:
-        raise ValueError(f"{name}: chunk {tuple(chunk_k.shape)} does not match cache {tuple(k_cache.shape)}")
-    if quantized and (k_scale.shape != k_cache.shape[:-1] or v_scale.shape != k_scale.shape):
-        raise ValueError(f"{name}: scales {tuple(k_scale.shape)} do not match cache {tuple(k_cache.shape)}")
-    if H != GROUP * kvh or D != HEAD_DIM:
-        raise ValueError(f"{name}: the kernel is built for {GROUP} query heads per kv head and head dim "
-                         f"{HEAD_DIM}, got {H}/{kvh} heads of dim {D}")
-    if lengths.shape != (B,) or lengths.dtype != torch.int32:
-        raise ValueError(f"{name}: lengths must be int32 [{B}]")
-    cache_dtype = torch.int8 if quantized else torch.bfloat16
-    if k_cache.dtype != cache_dtype or v_cache.dtype != cache_dtype:
-        raise TypeError(f"{name}: kernel takes a {cache_dtype} cache, got {k_cache.dtype}/{v_cache.dtype}")
-    if any(t.dtype != torch.bfloat16 for t in (q, chunk_k, chunk_v) + ((k_scale, v_scale) if quantized else ())):
-        raise TypeError(f"{name}: kernel takes bfloat16 queries, chunk buffers and scales")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
-    step, layer = int(step), int(layer)
-    if not (0 <= step < K and 0 <= layer < n_layers):
-        raise ValueError(f"{name}: step {step} / layer {layer} out of range (K={K}, layers={n_layers})")
+    kvh, S, K = k_cache.shape[2], k_cache.shape[3], chunk_k.shape[3]
 
     out = torch.empty_like(q)
+    ws = torch.empty(workspace_floats(B, kvh, S, K), dtype=torch.float32, device=dev)
+    done = _merge_counts(dev, B * kvh)
     lib = _build.library().lib
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -100,13 +149,13 @@ def gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer:
             rc = lib.surya_gqa_decode_int8(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                 lengths.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(), out.data_ptr(),
-                B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
+                ws.data_ptr(), ws.numel(), done.data_ptr(), B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
             )
         else:
             rc = lib.surya_gqa_decode(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
                 chunk_k.data_ptr(), chunk_v.data_ptr(), out.data_ptr(),
-                B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
+                ws.data_ptr(), ws.numel(), done.data_ptr(), B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
             )
     _build.check(rc, name)
     if quantized:

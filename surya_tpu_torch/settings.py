@@ -1,11 +1,11 @@
 """Settings of the PyTorch port: read once from the environment.
 
 The names are those the JAX package's recognition path reads, so one
-environment configures both. Device and dtype are explicit: ``TORCH_DEVICE``
-names the device ("cuda", "cuda:1", "cpu"); without it the port takes the
-first CUDA device when there is one and the CPU otherwise. A CUDA device that
-is asked for and absent raises; nothing falls back to the CPU. The model runs
-in bfloat16 on CUDA and in float32 on the CPU.
+environment configures both. Device and dtype are explicit: a predictor's
+``device`` argument, else ``TORCH_DEVICE`` ("cuda", "cuda:1", "cpu"), else
+"cuda". The CPU runs only where it is asked for: a CUDA device that is asked
+for, or left as the default, and absent raises; nothing falls back to the
+CPU. The model runs in bfloat16 on CUDA and in float32 on the CPU.
 """
 
 from __future__ import annotations
@@ -79,10 +79,12 @@ settings = Settings()
 
 def resolve_device(device=None) -> torch.device:
     """The device the port runs on: ``device``, else TORCH_DEVICE, else
-    cuda when available, else cpu. Raises for a CUDA device that is absent."""
-    dev = torch.device(device or settings.TORCH_DEVICE or ("cuda" if torch.cuda.is_available() else "cpu"))
+    cuda. Raises for a CUDA device that is absent, also when it is the
+    default: the CPU runs only when it is asked for."""
+    dev = torch.device(device or settings.TORCH_DEVICE or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        raise RuntimeError(f"device {dev} requested (or the default) but CUDA is not available; "
+                           "pass device='cpu' or set TORCH_DEVICE=cpu to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
