@@ -25,7 +25,22 @@ where one PyTorch call computes the same function, that call. Then:
 - holds K3 and K3q against their plain versions at the shape the pinned
   runs gave them (K3: given lines, K3q: whole page; the first decode call's
   lengths, cache rows S and chunk columns K, recorded by a stand-in for the
-  decoder's `decode_attn` in this script), at steps 0, K/2 - 1 and K - 1.
+  decoder's `decode_attn` in this script), at steps 0, K/2 - 1 and K - 1;
+- runs detection of 16 such pages with the device resize and the component
+  stats on the card (their auto setting) and holds the boxes against the
+  host path's (PIL, maps, the C++ CRAFT op) by the IoU rule of
+  tests/test_device_postprocess.py, and one batch's resized pixels against
+  PIL's double LANCZOS;
+- drives whole-page OCR at the north star's shape (16 pages, int8 cache,
+  40 pinned tokens a line) through the streaming det->rec path, the same
+  with every output read after a device synchronise, and sequentially: the
+  same lines and token counts, at least 95 % of the lines with the same
+  token ids between the pipelined and the synchronised reads, K1, K2 and
+  K3q launched;
+- runs one whole-page call with the recognition dispatches under
+  ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host sync), and
+  ``stream()`` over a generator of the 16 pages (in order, the batch call's
+  lines).
 
 K3 and K3q are also held against their plain versions, and timed, at the
 free-running path's 512-row cache: ragged lengths at three (step, layer)
@@ -72,7 +87,7 @@ os.environ.setdefault("DISABLE_TQDM", "true")
 
 from PIL import Image  # noqa: E402
 
-from surya_tpu_torch.detection import DetectionPredictor  # noqa: E402
+from surya_tpu_torch.detection import DetectionPredictor, resize_on_device  # noqa: E402
 from surya_tpu_torch.models import qwen_decoder  # noqa: E402
 from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
 from surya_tpu_torch.models.qwen_encoder import EncoderConfig, plan_layout  # noqa: E402
@@ -89,6 +104,21 @@ LINE_SHAPES = [(56, 504), (56, 700), (84, 840), (56, 980), (84, 560), (56, 616),
 # whole-page OCR: 8 pages (the JAX predictor's sequential det->rec limit),
 # one detection chunk each, 16 dark bands of 24 px every 62 px
 OCR_PAGES, OCR_LINES, OCR_PAGE_SIZE = 8, 16, 1024
+# whole-page OCR at the north star's shape (bench.py: 16 pages, 40 pinned
+# tokens a line), in two detection groups of 8 pages through the streaming path
+NORTH_STAR_PAGES, PIPELINE_PAGES = 16, 8
+# the share of lines whose token ids must agree between the pipelined
+# streaming run and the same run reading every output after a device
+# synchronise (the same waves); a stale output buffer would give garbage far
+# below it. Against the sequential run, whose waves hold other lines, the
+# share is printed only: with random weights the logits' near-ties are many,
+# and bf16 GEMMs over other rows flip them (0.4805 of the lines agreed in my
+# first run on the card)
+TOKEN_AGREEMENT = 0.95
+# the device resize (bf16 operands) against PIL's double LANCZOS: the share of
+# pixels within one level and the mean |diff|, set from the same products
+# emulated on the CPU on these pages (0.94 and 0.62) before the first card run
+RESIZE_WITHIN_1, RESIZE_MEAN = 0.90, 0.75
 # kernel vs plain version, elementwise: both round an fp32 result to bf16, so
 # they may differ by one bf16 spacing (2^-7 relative) plus a small floor
 KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 1e-3
@@ -222,11 +252,11 @@ def synthetic_pages(rng):
     return pages, bboxes
 
 
-def synthetic_full_pages(rng):
-    """8 noisy 1024x1024 pages of 16 dark line bands each, 24 px tall every
+def synthetic_full_pages(rng, n=OCR_PAGES):
+    """n noisy 1024x1024 pages of 16 dark line bands each, 24 px tall every
     62 px, of random widths: what the detector's blob hook sees as lines."""
     pages = []
-    for _ in range(OCR_PAGES):
+    for _ in range(n):
         arr = rng.integers(200, 256, (OCR_PAGE_SIZE, OCR_PAGE_SIZE, 3), dtype=np.uint8)
         for i in range(OCR_LINES):
             y0, w = 24 + 62 * i, int(rng.integers(300, 960))
@@ -594,6 +624,237 @@ def run_full_page(pred, det, pages, pin: bool):
     return timed.wall, wall - timed.wall, check_lines(results, pages, OCR_LINES), pred.last_decoded_tokens
 
 
+class Detector:
+    """A DetectionPredictor whose calls are timed without synchronising:
+    a call returns host boxes, so it ends after its device work, and a
+    synchronise would wait for recognition's stream too."""
+
+    def __init__(self, det):
+        self.det, self.calls = det, []
+
+    def __call__(self, images, batch_size=None):
+        t0 = time.perf_counter()
+        out = self.det(images, batch_size=batch_size)
+        self.calls.append(time.perf_counter() - t0)
+        return out
+
+
+def bbox_iou(a, b):
+    ix0, iy0, ix1, iy1 = max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0, ix1 - ix0) * max(0, iy1 - iy0)
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / union if union else 0.0
+
+
+def hold_boxes(host, dev, min_iou=0.8, max_extra=1):
+    """The IoU rule of tests/test_device_postprocess.py: box counts within
+    max_extra, and every host box but max_extra matched at IoU >= min_iou."""
+    h_boxes, d_boxes = [b.bbox for b in host.bboxes], [b.bbox for b in dev.bboxes]
+    matched = sum(max((bbox_iou(hb, db) for db in d_boxes), default=0.0) >= min_iou for hb in h_boxes)
+    if abs(len(h_boxes) - len(d_boxes)) > max_extra or matched < len(h_boxes) - max_extra:
+        raise AssertionError(f"stats-path boxes: {len(d_boxes)} against {len(h_boxes)} host boxes, "
+                             f"{matched} matched at IoU >= {min_iou}")
+
+
+def check_detection(det, pages, power):
+    """Detection of the pages on the card with the device resize and stats
+    left at auto (on for CUDA) against both off (PIL on the host, the maps
+    path, the C++ CRAFT op), by the IoU rule; then the device-resized pixels
+    of one batch against PIL's double LANCZOS, and against the same products
+    on the CPU (bf16 operands, float32 results)."""
+    res = {}
+    for label, value in [("device resize + stats (auto)", None), ("host resize + maps", False)]:
+        settings.DETECTOR_DEVICE_RESIZE = settings.DETECTOR_ON_DEVICE_POSTPROCESS = value
+        det([p.copy() for p in pages])  # warm-up at these shapes
+        before = (det.stats_batches, det.maps_batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[label] = det([p.copy() for p in pages])
+        wall = time.perf_counter() - t0
+        n_stats, n_maps = det.stats_batches - before[0], det.maps_batches - before[1]
+        n_boxes = sum(len(r.bboxes) for r in res[label])
+        print(f"    {label}: {len(pages)} pages, {n_boxes} boxes, {n_stats} stats batches, {n_maps} maps batches; "
+              f"detection {wall:.4f} s, {len(pages) / wall:.2f} pages/s [{power}]")
+        if value is None and not (n_stats > 0 and n_maps == 0):
+            raise AssertionError(f"auto settings took the stats path in {n_stats} batches, the maps path in {n_maps}")
+    settings.DETECTOR_DEVICE_RESIZE = settings.DETECTOR_ON_DEVICE_POSTPROCESS = None
+    for host, dev in zip(res["host resize + maps"], res["device resize + stats (auto)"]):
+        if len(host.bboxes) != OCR_LINES:
+            raise AssertionError(f"the host path found {len(host.bboxes)} lines on a page of {OCR_LINES}")
+        hold_boxes(host, dev)
+    print(f"    stats-path boxes held against the host path's: every page within the IoU rule")
+
+    parts = [p.convert("RGB") for p in pages[: det.pipeline_cap(settings.DETECTOR_PIPELINE_BATCH, det.get_batch_size())]]
+    buf, (uniq, gid) = det._canvas(parts, len(parts))
+    Vs, Hs = det._resize_mats(uniq, 1 << (len(uniq) - 1).bit_length(), tuple(buf.shape[1:3]))
+    card_px = resize_on_device(buf.cuda(), Vs, Hs, torch.from_numpy(gid).cuda(), det.dtype)
+    cpu_px = resize_on_device(buf, Vs.cpu(), Hs.cpu(), torch.from_numpy(gid), det.dtype)
+    card_px = card_px.expand(-1, 3, -1, -1).permute(0, 2, 3, 1).cpu().numpy()
+    cpu_px = cpu_px.expand(-1, 3, -1, -1).permute(0, 2, 3, 1).numpy()
+    pil = np.stack([det.prepare_image(p.copy()) for p in parts]).astype(np.float32)
+    d_pil, d_cpu = np.abs(card_px - pil), np.abs(card_px - cpu_px)
+    print(f"    device resize of one batch ({len(parts)} chunks {buf.shape[1]}x{buf.shape[2]}x{buf.shape[3]} -> "
+          f"{pil.shape[1]}x{pil.shape[2]}, {det.dtype}): against PIL mean |diff| {d_pil.mean():.4f}, "
+          f"within 1 level {(d_pil <= 1).mean():.4f}, max {d_pil.max():.0f}; against the CPU's products "
+          f"within 1 level {(d_cpu <= 1).mean():.6f}, max {d_cpu.max():.0f}")
+    if (d_pil <= 1).mean() < RESIZE_WITHIN_1 or d_pil.mean() > RESIZE_MEAN:
+        raise AssertionError(f"the device resize is further from PIL than {RESIZE_WITHIN_1} within 1 level, "
+                             f"mean {RESIZE_MEAN}")
+    if (d_cpu <= 1).mean() < 0.999:
+        raise AssertionError("the device resize disagrees with the same products on the CPU")
+
+
+def run_pages(pred, det, pages, pipeline_pages: int):
+    """Whole-page OCR of pages with RECOGNITION_DET_PIPELINE_PAGES set as
+    given. Returns (results, wall, detection calls' walls, the token ids of
+    every line in page order)."""
+    settings.RECOGNITION_DET_PIPELINE_PAGES = pipeline_pages
+    timed, runs = Detector(det), []
+    loop = pred.prediction_loop
+
+    def recording(*args, **kwargs):
+        runs.append(loop(*args, **kwargs))
+        return runs[-1]
+
+    pred.prediction_loop = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = pred([p.copy() for p in pages], det_predictor=timed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del pred.prediction_loop
+    if len(runs) != 1:
+        raise AssertionError(f"{len(runs)} recognition loops ran (leftovers?), want 1")
+    return results, wall, timed.calls, runs[0][0]
+
+
+def agreement(tokens, ref):
+    """(share of lines whose token ids equal ref's, share with the same token
+    0, the median index of the first token that differs, over the lines that
+    differ; None when none does)."""
+    first = [next((i for i, (u, v) in enumerate(zip(x, y)) if u != v), None) for x, y in zip(tokens, ref)]
+    differ = [i for i in first if i is not None]
+    return (float(np.mean([x == y for x, y in zip(tokens, ref)])),
+            float(np.mean([x[:1] == y[:1] for x, y in zip(tokens, ref)])),
+            float(np.median(differ)) if differ else None)
+
+
+def check_north_star(pred, det, pages, power):
+    """Whole-page OCR at bench.py's shape (16 pages, int8 cache, 40 pinned
+    tokens a line) through the streaming path (detection of the second group
+    of 8 pages in a worker thread, feeding the live run), the same with every
+    output read only after a device synchronise, and sequentially. All three
+    must find the same lines and decode the same token count; the pipelined
+    and the synchronised streaming runs, whose waves are the same, must agree
+    on the token ids of at least TOKEN_AGREEMENT of the lines (a read of a
+    copy that has not landed would not). Returns the streaming run's results."""
+    set_pin(True)
+    settings.RECOGNITION_MODEL_QUANTIZE = True
+    run_pages(pred, det, pages, PIPELINE_PAGES)  # warm-up at these shapes
+    fetch = pred._fetch
+
+    def fetch_then_synchronise(*tensors):
+        handle = fetch(*tensors)
+        torch.cuda.synchronize()
+        return handle
+
+    out = {}
+    for label, g, synchronised in [("streaming", PIPELINE_PAGES, False),
+                                   ("streaming, reads after a synchronise", PIPELINE_PAGES, True),
+                                   ("sequential", 0, False)]:
+        reset_counts()
+        if synchronised:
+            pred._fetch = fetch_then_synchronise
+        try:
+            results, wall, det_calls, tokens = run_pages(pred, det, pages, g)
+        finally:
+            pred.__dict__.pop("_fetch", None)
+        launches = read_counts()
+        n_l = check_lines(results, pages, OCR_LINES)
+        n_t = sum(len(t) for t in tokens)
+        rec_wall = wall - det_calls[0]  # recognition starts once the first group is detected
+        print(f"    {label} (RECOGNITION_DET_PIPELINE_PAGES={g}): {len(pages)} pages, {n_l} lines, {n_t} tokens; "
+              f"wall {wall:.4f} s, detection {sum(det_calls):.4f} s in {len(det_calls)} calls, recognition after "
+              f"the first detection call {rec_wall:.4f} s; {len(pages) / wall:.2f} pages/s, {n_l / wall:.2f} "
+              f"lines/s [{power}]")
+        if n_t != PIN_TOKENS * n_l:
+            raise AssertionError(f"{label}: {n_t} tokens for {n_l} lines, want {PIN_TOKENS} a line")
+        out[label] = (results, tokens, launches)
+    s_res, s_tok, s_launch = out["streaming"]
+    for label in ("streaming, reads after a synchronise", "sequential"):
+        res, tok, _ = out[label]
+        if len(tok) != len(s_tok) or any(
+                [ln.polygon for ln in a.text_lines] != [ln.polygon for ln in b.text_lines] for a, b in zip(s_res, res)):
+            raise AssertionError(f"the streaming and the {label} run found other lines")
+        same, same0, first = agreement(tok, s_tok)
+        print(f"    token ids against the streaming run, {label}: {same:.4f} of the lines the same, {same0:.4f} "
+              f"with the same token 0, the first difference at token {first} (median)")
+        if label != "sequential" and same < TOKEN_AGREEMENT:
+            raise AssertionError(f"the pipelined reads agree with the synchronised ones on {same:.4f} of the lines")
+    assert_launched("streaming whole-page", s_launch,
+                    ["segmented_block_attention", "causal_flash_attention", "gqa_decode_int8"], ["gqa_decode"])
+    settings.RECOGNITION_DET_PIPELINE_PAGES = PIPELINE_PAGES
+    return s_res
+
+
+def check_sync_free_dispatch(pred, det, pages, power):
+    """One whole-page call, free-running, whose recognition dispatches
+    (uploads, the device programs, the enqueued copies of their outputs:
+    prefill waves with their fused chunks, then decode chunks) run under
+    torch.cuda.set_sync_debug_mode("error"): any hidden host sync in them
+    raises. The drains' event waits lie outside. Sequential, so detection
+    (whose component flood checks its convergence on the host) has ended
+    before the first dispatch."""
+    guarded = {"_dispatch_prefill": 0, "_dispatch_decode": 0}
+    for name in guarded:
+        fn = getattr(pred, name)
+
+        def under_debug(*args, _fn=fn, _name=name, **kwargs):
+            guarded[_name] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        setattr(pred, name, under_debug)
+    set_pin(False)  # free-running: a wave's fused chunk leaves decoding slots, so decode chunks follow
+    try:
+        results, wall, _, _ = run_pages(pred, det, pages, 0)
+    finally:
+        for name in guarded:
+            delattr(pred, name)
+        set_pin(True)
+    n_l = check_lines(results, pages, OCR_LINES)
+    print(f"    {guarded['_dispatch_prefill']} prefill and {guarded['_dispatch_decode']} decode dispatches under "
+          f"sync debug mode \"error\": no host sync; {n_l} lines, wall {wall:.4f} s [{power}]")
+    if not all(guarded.values()):
+        raise AssertionError(f"dispatches under the debug mode: {guarded}")
+
+
+def check_stream(pred, det, pages, batch_results, power):
+    """stream() over a generator of the pages, in groups of PIPELINE_PAGES
+    (the batch call's detection batches, so the same boxes): yields in order,
+    each page's lines and polygons those of the batch call."""
+    t0 = time.perf_counter()
+    first, got = None, []
+    for i, res in pred.stream((p.copy() for p in pages), det, group_pages=PIPELINE_PAGES):
+        if first is None:
+            first = time.perf_counter() - t0
+        got.append((i, res))
+    wall = time.perf_counter() - t0
+    if [i for i, _ in got] != list(range(len(pages))):
+        raise AssertionError(f"stream() yielded pages {[i for i, _ in got]}")
+    for (_, a), b in zip(got, batch_results):
+        if [ln.polygon for ln in a.text_lines] != [ln.polygon for ln in b.text_lines]:
+            raise AssertionError("a streamed page's lines differ from the batch call's")
+    n_l = check_lines([r for _, r in got], pages, OCR_LINES)
+    print(f"    stream(): {len(pages)} pages in order, {n_l} lines as the batch call's; first page after "
+          f"{first:.4f} s, all after {wall:.4f} s, {len(pages) / wall:.2f} pages/s [{power}]")
+
+
 def check_model_paths(pred, flat, quantize: bool):
     """One prefill wave over flat's lines (the first_wave batch), then one
     decode step over the cache it filled (bf16, or int8 with quantize), run
@@ -605,7 +866,9 @@ def check_model_paths(pred, flat, quantize: bool):
     batch, _ = first_wave(pred, flat)
     rows, L = batch.input_ids.shape
     lay = batch.layout
-    t = pred._tensor
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(pred.device)
+
     enc_args = tuple(t(a) for a in lay.device_args)
     dec = pred.config.decoder
     slots = torch.arange(rows, device=pred.device)
@@ -752,6 +1015,19 @@ def main():
 
     print("[8] K3 and K3q at the shapes the pinned runs gave them (K3: given lines, K3q: whole page)")
     check_decode_main_path(results, gen, shapes, long_cache)
+
+    north_pages = synthetic_full_pages(np.random.default_rng(SEED + 2), NORTH_STAR_PAGES)
+    print("[9] detection on the card: device resize and component stats (auto) against the host path")
+    check_detection(det, north_pages, power)
+    print(f"[10] whole-page OCR at the north star's shape: {NORTH_STAR_PAGES} pages, int8 cache, pinned "
+          f"{PIN_TOKENS} tokens, streaming against sequential")
+    batch_results = check_north_star(pred, det, north_pages, power)
+    print("[11] the recognition dispatch path under torch.cuda.set_sync_debug_mode(\"error\")")
+    check_sync_free_dispatch(pred, det, north_pages, power)
+    print(f"[12] stream() over a generator of the {NORTH_STAR_PAGES} pages")
+    check_stream(pred, det, north_pages, batch_results, power)
+    settings.RECOGNITION_MODEL_QUANTIZE = False
+    set_pin(False)
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and

@@ -5,14 +5,18 @@
 Drives the workloads of chip_smoke.py at production widths with random bf16
 weights: recognition of given line boxes (4 synthetic pages x 8 lines,
 RecognitionPredictor, bf16 KV cache), pinned to 40 tokens per line and with
-free-running stops, and whole-page OCR (8 synthetic pages x 16 lines,
-DetectionPredictor then RecognitionPredictor, int8 KV cache), pinned. For each
-mode it prints:
+free-running stops; whole-page OCR (DetectionPredictor then
+RecognitionPredictor, int8 KV cache, pinned) of 8 synthetic pages x 16 lines
+(one detection group: detection, then recognition) and of 16 such pages, the
+north star's shape (two groups of 8: detection of the second runs in a
+worker thread while the first is recognized). For each mode it prints:
 
-- untraced: the wall of REPS runs, each split into its prefill waves, its
-  decode chunks and the host time around them, and for whole-page OCR also
-  the detection wall and its device program (every device program ends in a
-  copy to the host, so the timers add no synchronisation);
+- untraced: the wall of REPS runs, each split by timers that add no
+  synchronisation (the pipelined scheduler reads a dispatch's outputs on an
+  event while the next one runs): recognition's host time enqueueing its
+  dispatches (waves, chunks), its waits for their outputs, and the rest of
+  its host time; for whole-page OCR also the detection calls' wall (in the
+  streaming run it overlaps recognition) and their waits for the device;
 - traced, one more run under torch.profiler: that run's own wall, the
   device's busy time in it (the union of kernel, copy and memset intervals),
   the number of kernels, device time by kind and the largest kernels.
@@ -74,10 +78,11 @@ def busy_us(intervals) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def time_programs(obj, names, stats):
-    """Wrap the device programs `names` of a predictor with wall timers."""
+def time_calls(obj, names, stats, prefix=""):
+    """Wrap the methods `names` of a predictor with wall timers (the times
+    are kept under prefix + name)."""
     for name in names:
-        def timed(*args, _fn=getattr(obj, name), _name=name, **kwargs):
+        def timed(*args, _fn=getattr(obj, name), _name=prefix + name, **kwargs):
             t0 = time.perf_counter()
             out = _fn(*args, **kwargs)
             stats[_name].append(time.perf_counter() - t0)
@@ -87,17 +92,24 @@ def time_programs(obj, names, stats):
 
 
 def untraced(run, stats):
-    """REPS runs of `run()` -> (wall, detection wall, tokens), each split by the timed programs."""
+    """REPS runs of `run()` -> (wall, detection calls' walls, tokens), each
+    split by the timed calls. Recognition runs from the end of the first
+    detection call to the end of the run."""
     runs = []
     for _ in range(REPS):
         stats.clear()
-        wall, det_wall, toks = run()
-        prefill, decode = sum(stats["_prefill"]), sum(stats["_decode"])
-        r = {"wall_s": wall, "tokens": toks, "prefill_s": prefill, "waves": len(stats["_prefill"]),
-             "decode_s": decode, "chunks": len(stats["_decode"]),
-             "host_rest_s": wall - det_wall - prefill - decode}
-        if det_wall:
-            r.update(detection_s=det_wall, detection_device_program_s=sum(stats["heatmaps"]))
+        wall, det_calls, toks = run()
+        prefill, decode = sum(stats["_dispatch_prefill"]), sum(stats["_dispatch_decode"])
+        waits = sum(stats["_wait"])
+        rec_wall = wall - (det_calls[0] if det_calls else 0.0)
+        r = {"wall_s": wall, "tokens": toks, "recognition_s": rec_wall,
+             "prefill_enqueue_s": prefill, "waves": len(stats["_dispatch_prefill"]),
+             "decode_enqueue_s": decode, "chunks": len(stats["_dispatch_decode"]),
+             "recognition_wait_s": waits, "recognition_host_rest_s": rec_wall - prefill - decode - waits}
+        if det_calls:
+            det_waits = sum(stats["det._wait"])
+            r.update(detection_s=sum(det_calls), detection_calls=len(det_calls), detection_wait_s=det_waits,
+                     detection_host_s=sum(det_calls) - det_waits)
         runs.append(r)
     return runs
 
@@ -133,35 +145,42 @@ def main():
     install_blob_detector(det)
     pages, bboxes = chip_smoke.synthetic_pages(np.random.default_rng(chip_smoke.SEED))
     ocr_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 1))
+    north_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 2),
+                                                  chip_smoke.NORTH_STAR_PAGES)
     stats = defaultdict(list)
-    time_programs(pred, ("_prefill", "_decode"), stats)
-    time_programs(det, ("heatmaps",), stats)
+    time_calls(pred, ("_dispatch_prefill", "_dispatch_decode", "_wait"), stats)
+    time_calls(det, ("_wait",), stats, prefix="det.")
 
     def given_lines(pin):
         wall, _, toks = chip_smoke.run_predictor(pred, pages, bboxes, pin=pin)
-        return wall, 0.0, toks
+        return wall, [], toks
 
-    def whole_page():
+    def whole_page(page_set):
+        chip_smoke.set_pin(True)
         settings.RECOGNITION_MODEL_QUANTIZE = True
         try:
-            det_wall, rec_wall, _, toks = chip_smoke.run_full_page(pred, det, ocr_pages, pin=True)
+            _, wall, det_calls, tokens = chip_smoke.run_pages(pred, det, page_set, chip_smoke.PIPELINE_PAGES)
         finally:
             settings.RECOGNITION_MODEL_QUANTIZE = False
-        return det_wall + rec_wall, det_wall, toks
+        return wall, det_calls, sum(len(t) for t in tokens)
 
     report = {"card": power}
     for label, run in [("pinned", lambda: given_lines(True)), ("free-running", lambda: given_lines(False)),
-                       ("whole-page pinned, int8 cache", whole_page)]:
+                       ("whole-page 8 pages pinned, int8 cache", lambda: whole_page(ocr_pages)),
+                       ("whole-page 16 pages streaming pinned, int8 cache", lambda: whole_page(north_pages))]:
         run()  # warm-up at this mode's shapes
         runs = untraced(run, stats)
         trace = traced(run)
         report[label] = {"untraced": runs, "traced": trace}
         print(f"[{label}] {runs[0]['tokens']} tokens [{power}]")
         for r in runs:
-            det_part = (f"detection {r['detection_s']:.4f} s (device program {r['detection_device_program_s']:.4f} s) + "
+            det_part = (f"; detection {r['detection_s']:.4f} s in {r['detection_calls']} calls = waits "
+                        f"{r['detection_wait_s']:.4f} s + host {r['detection_host_s']:.4f} s"
                         if "detection_s" in r else "")
-            print(f"  untraced: wall {r['wall_s']:.4f} s = {det_part}prefill {r['prefill_s']:.4f} s ({r['waves']} waves) "
-                  f"+ decode {r['decode_s']:.4f} s ({r['chunks']} chunks) + host {r['host_rest_s']:.4f} s")
+            print(f"  untraced: wall {r['wall_s']:.4f} s; recognition {r['recognition_s']:.4f} s = enqueue "
+                  f"{r['prefill_enqueue_s']:.4f} s ({r['waves']} waves) + {r['decode_enqueue_s']:.4f} s "
+                  f"({r['chunks']} chunks) + waits {r['recognition_wait_s']:.4f} s + other host "
+                  f"{r['recognition_host_rest_s']:.4f} s{det_part}")
         print(f"  traced: wall {trace['wall_s']:.4f} s, device busy {trace['device_busy_s']:.4f} s "
               f"({trace['busy_share']:.1%} of that wall), {trace['device_events']} device events")
         for k, v in trace["by_kind"].items():

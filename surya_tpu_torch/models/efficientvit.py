@@ -226,8 +226,12 @@ class EfficientViT(nn.Module):
     def forward_logits(self, pixel_values):
         """pixel_values: [B, 3, H, W] float in [0, 1]. Returns the raw
         decode-head logits at 1/4 resolution [B, num_classes, H/4, W/4]."""
-        mean = torch.tensor(IMAGENET_MEAN, dtype=pixel_values.dtype, device=pixel_values.device)
-        std = torch.tensor(IMAGENET_STD, dtype=pixel_values.dtype, device=pixel_values.device)
+        # the constants are made on the device: a copy from pageable host
+        # memory would make the host wait for the stream
+        mean, std = (
+            torch.cat([torch.full((1,), c, dtype=pixel_values.dtype, device=pixel_values.device) for c in cs])
+            for cs in (IMAGENET_MEAN, IMAGENET_STD)
+        )
         x = self.stem((pixel_values - mean[:, None, None]) / std[:, None, None])
         feats = []
         for stage in self.stages:

@@ -4,7 +4,8 @@ Counterpart of surya_tpu/models/foundation.py. ``prefill`` encodes the
 images, scatters them into the prompt's <IMAGE> positions, runs the decoder
 prefill, writes the KV into the slot cache and samples token 0.
 ``decode_chunk`` runs ``num_steps`` greedy steps on the device: a Python loop
-with no host synchronisation inside, over a read-only cache plus a chunk
+with no host synchronisation inside (nor in ``prefill``: no copy from the
+host, no read of a device value), over a read-only cache plus a chunk
 buffer that is committed once at the end. Where the JAX loop exits early once
 no slot is active, the port runs every step; a slot that is no longer active
 emits pad and does not advance, so the outputs are the same.
@@ -117,7 +118,7 @@ class FoundationModel(nn.Module):
         chunk_v = torch.zeros_like(chunk_k)
         base_len = cache["len"].clone()
         advance = torch.zeros((B,), dtype=torch.int32, device=dev)
-        pad = torch.tensor(cfg.pad_token_id, dtype=torch.int32, device=dev)
+        pad = cfg.pad_token_id
 
         for step in range(K):
             emb = self.token_embed(last_token.long())

@@ -3,8 +3,10 @@
 Counterpart of surya_tpu/recognition/processor.py. ``build_prefill_batch``
 assembles one static-shape bundle per prefill wave (numpy): the padded uint8
 patch array, the encoder layout plan, the right-padded token matrix and the
-<IMAGE> scatter map. ``normalize_patch_rows`` rescales and normalizes the
-uint8 patches on the device, in torch.
+<IMAGE> scatter map; a wave whose patch rows all have R == G == B ships one
+channel third of them (``_gray_ship``). ``normalize_patch_rows`` tiles such
+a third back to [R|G|B] and rescales and normalizes the uint8 patches on the
+device, in torch.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from surya_tpu_torch.recognition.tokenizer import (
     OCRTokenizer,
     TaskNames,
 )
+from surya_tpu_torch.settings import settings
 
 # minimum crop edge after scale_to_fit; prompt_len_bound and the blank that
 # stands in for a degenerate crop must agree with it
@@ -44,7 +47,7 @@ IMAGE_STD = (0.229, 0.224, 0.225)
 class PrefillBatch:
     """Static-shape inputs for one prefill wave (numpy)."""
 
-    patches: np.ndarray  # [cap, patch_dim] uint8 (normalized on the device)
+    patches: np.ndarray  # [cap, patch_dim] uint8, or [cap, patch_dim / 3] gray (normalized on the device)
     layout: qwen_encoder.EncoderLayout
     input_ids: np.ndarray  # [rows, L] int32, right-padded
     img_gather: np.ndarray  # [rows, L] int32 image-token row, -1 = text position
@@ -144,12 +147,29 @@ class RecognitionProcessor:
 
     def normalize_patch_rows(self, patches: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """uint8 patch rows (channel-major (C, p, p)) -> ImageNet-normalized
-        rows in `dtype`, on the patches' device."""
+        rows in `dtype`, on the patches' device. Rows of one channel third
+        (``_gray_ship``) are tiled back to [R|G|B] first, bit for bit the
+        three-channel rows. The constants are made on the device (no copy
+        from the host, which would wait for it)."""
         p2 = self.patch_size**2
+        if patches.shape[-1] == p2:
+            patches = torch.cat([patches, patches, patches], dim=-1)
         dev = patches.device
-        mean = torch.tensor(IMAGE_MEAN, dtype=torch.float32, device=dev).repeat_interleave(p2)
-        std = torch.tensor(IMAGE_STD, dtype=torch.float32, device=dev).repeat_interleave(p2)
+        mean = torch.cat([torch.full((p2,), m, dtype=torch.float32, device=dev) for m in IMAGE_MEAN])
+        std = torch.cat([torch.full((p2,), s, dtype=torch.float32, device=dev) for s in IMAGE_STD])
         return ((patches.float() / 255.0 - mean) / std).to(dtype)
+
+    def _gray_ship(self, patch_buf: np.ndarray) -> np.ndarray:
+        """The first channel third of the patch rows when every row has
+        R == G == B (most OCR content), else the rows: a third of the bytes
+        to the device. RECOGNITION_GRAYSCALE_SHIP=False always ships three."""
+        if settings.RECOGNITION_GRAYSCALE_SHIP is False:
+            return patch_buf
+        p2 = self.patch_size**2
+        a = patch_buf[..., :p2]
+        if np.array_equal(a, patch_buf[..., p2 : 2 * p2]) and np.array_equal(a, patch_buf[..., 2 * p2 :]):
+            return np.ascontiguousarray(a)
+        return patch_buf
 
     def window_slots_needed(self, grid: Tuple[int, int]) -> int:
         """Layout slots an image occupies: its patch count (packed layout)."""
@@ -223,6 +243,7 @@ class RecognitionProcessor:
         if all_patches:
             cat = np.concatenate(all_patches, axis=0)
             patch_buf[: cat.shape[0]] = cat
+        patch_buf = self._gray_ship(patch_buf)
         layout = self._cached_plan(
             (tuple(map(tuple, grids)), patch_cap, encoder_config),
             lambda: qwen_encoder.plan_layout(grids, encoder_config, patch_cap),

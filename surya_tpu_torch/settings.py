@@ -6,6 +6,11 @@ environment configures both. Device and dtype are explicit: a predictor's
 "cuda". The CPU runs only where it is asked for: a CUDA device that is asked
 for, or left as the default, and absent raises; nothing falls back to the
 CPU. The model runs in bfloat16 on CUDA and in float32 on the CPU.
+
+Where the JAX package's defaults are "auto: on for TPU" (the detection
+device resize and device postprocess), the port's are "auto: on for CUDA":
+None in the field, resolved against the predictor's device when it runs
+(``on_for_cuda``); the detection pipeline batch is 8 rows on CUDA.
 """
 
 from __future__ import annotations
@@ -30,6 +35,12 @@ def _bool(env: Mapping[str, str], name: str, default: bool = False) -> bool:
     if value in ("0", "false", "no", "off"):
         return False
     raise ValueError(f"{name}={value!r} is not a boolean")
+
+
+def _opt_bool(env: Mapping[str, str], name: str) -> Optional[bool]:
+    """None (auto) when unset or "auto", else the boolean."""
+    value = env.get(name, "").strip().lower()
+    return None if value in ("", "auto", "none") else _bool(env, name)
 
 
 def _int_tuple(env: Mapping[str, str], name: str, default: tuple) -> tuple:
@@ -62,6 +73,22 @@ class Settings:
         )
         self.DETECTOR_MIN_PARALLEL_THRESH = int(env.get("DETECTOR_MIN_PARALLEL_THRESH", "3") or 3)
         self.DETECTOR_BOX_Y_EXPAND_MARGIN = _float(env, "DETECTOR_BOX_Y_EXPAND_MARGIN", 0.05)
+        # the C++ CRAFT host op (native/craft_ops.cpp); off: the OpenCV path
+        self.USE_NATIVE_POSTPROCESS = _bool(env, "USE_NATIVE_POSTPROCESS", True)
+        # None = auto, on for CUDA: the double-LANCZOS chunk resize on the
+        # device as two weight products (detection/resize.py) instead of PIL
+        self.DETECTOR_DEVICE_RESIZE = _opt_bool(env, "DETECTOR_DEVICE_RESIZE")
+        # None = auto, on for CUDA: connected components and their stats on
+        # the device (ops/connected_components.py); the host gets the stats
+        self.DETECTOR_ON_DEVICE_POSTPROCESS = _opt_bool(env, "DETECTOR_ON_DEVICE_POSTPROCESS")
+        self.DETECTOR_MAX_COMPONENTS = int(env.get("DETECTOR_MAX_COMPONENTS", "512") or 512)
+        # chunk rows per detection dispatch (None = auto: 8 on CUDA, the whole
+        # batch on the CPU), so that a multi-page call keeps one dispatch in
+        # flight while the host prepares the next
+        self.DETECTOR_PIPELINE_BATCH = _opt_int(env, "DETECTOR_PIPELINE_BATCH")
+        # None = auto (ship one channel when every chunk has R == G == B);
+        # False: always three channels
+        self.DETECTOR_GRAYSCALE_SHIP = _opt_bool(env, "DETECTOR_GRAYSCALE_SHIP")
         # recognition
         self.RECOGNITION_MODEL_QUANTIZE = _bool(env, "RECOGNITION_MODEL_QUANTIZE")  # int8 KV cache
         self.RECOGNITION_PAD_VALUE = int(env.get("RECOGNITION_PAD_VALUE", "255") or 255)
@@ -72,6 +99,16 @@ class Settings:
         self.RECOGNITION_SEQ_BUCKETS = _int_tuple(
             env, "RECOGNITION_SEQ_BUCKETS", (128, 256, 512, 1024, 1536)
         )
+        # None = auto (ship one channel third of the patch rows when every
+        # patch has R == G == B); False: always the three channels
+        self.RECOGNITION_GRAYSCALE_SHIP = _opt_bool(env, "RECOGNITION_GRAYSCALE_SHIP")
+        # whole-page OCR of more pages than this streams: detection of page
+        # group k + 1 runs in a worker thread and feeds the live recognition
+        # run; 0 turns it off (detection of every page, then recognition)
+        self.RECOGNITION_DET_PIPELINE_PAGES = int(env.get("RECOGNITION_DET_PIPELINE_PAGES", "") or 8)
+        # stream(): finished pages held for a slow consumer before the feeder
+        # stops taking new pages (None = 4 x the page group)
+        self.RECOGNITION_STREAM_BUFFER_PAGES = _opt_int(env, "RECOGNITION_STREAM_BUFFER_PAGES")
 
 
 settings = Settings()
@@ -88,6 +125,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_for_cuda(value: Optional[bool], device: torch.device) -> bool:
+    """An auto setting (None) is on for CUDA and off for the CPU."""
+    return device.type == "cuda" if value is None else bool(value)
 
 
 def model_dtype(device: torch.device) -> torch.dtype:

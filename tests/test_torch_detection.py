@@ -3,8 +3,8 @@ shared weights (carried over with detection.loader.from_jax_params):
 
 - the tiny EfficientViT's ``apply_heat`` at 896x896: within 1e-4 abs (fp32
   convolutions summed in other orders);
-- ``DetectionPredictor`` with the blob hook on both sides and the JAX
-  OpenCV postprocess (its C++ op orders components differently), on a page
+- ``DetectionPredictor`` with the blob hook and the C++ CRAFT op (the
+  port's default; the JAX package's is the same source) on both sides, on a page
   of drawn text and on a 4096-px tall page (5 chunks): the same number of
   boxes, polygons within 1e-3, confidences within 1e-4.
 """
@@ -122,7 +122,7 @@ def test_detection_predictor_matches_jax(detectors, page):
     assert ref.config == jax_evit.EfficientViTConfig(**TINY_DETECTOR)  # the JAX loader's tiny config
     pages = {"text": [_text_page()], "tall": [_tall_page()], "both": [_text_page(), _tall_page(), _text_page()]}[page]
     old = jax_settings.USE_NATIVE_POSTPROCESS
-    jax_settings.USE_NATIVE_POSTPROCESS = False
+    jax_settings.USE_NATIVE_POSTPROCESS = settings.USE_NATIVE_POSTPROCESS = True
     try:
         expected = ref([p.copy() for p in pages])
     finally:
@@ -154,7 +154,7 @@ def test_detection_maps_match_jax(detectors):
     heat is rounded to uint8 on both sides)."""
     ref, ours = detectors
     old = jax_settings.USE_NATIVE_POSTPROCESS
-    jax_settings.USE_NATIVE_POSTPROCESS = False
+    jax_settings.USE_NATIVE_POSTPROCESS = settings.USE_NATIVE_POSTPROCESS = True
     try:
         [expected] = ref([_text_page()], include_maps=True)
     finally:

@@ -2,7 +2,10 @@
 the GPU machine: in a subprocess where ``import jax`` and ``import
 surya_tpu`` fail, the port's modules import, tiny predictors recognize given
 lines and run a whole-page OCR (detection, then recognition with the int8
-KV cache) on the CPU, and no module of either is loaded afterwards."""
+KV cache) on the CPU, then the streaming path (more pages than
+RECOGNITION_DET_PIPELINE_PAGES) and ``stream()`` with detection's device
+resize, device stats and C++ CRAFT op, and no module of either is loaded
+afterwards."""
 
 import os
 import subprocess
@@ -39,6 +42,17 @@ SCRIPT = textwrap.dedent(
     settings.RECOGNITION_MODEL_QUANTIZE = True
     [page] = pred([img], det_predictor=det)
     assert len(page.text_lines) == 1 and pred.last_decoded_tokens > 0
+
+    # the streaming det->rec path (a detection worker and a builder thread),
+    # stream(), and detection's device paths, here on the CPU
+    settings.RECOGNITION_DET_PIPELINE_PAGES = 1
+    settings.DETECTOR_DEVICE_RESIZE = settings.DETECTOR_ON_DEVICE_POSTPROCESS = True
+    pages = [img, img.copy(), img.copy()]
+    results = pred([p.copy() for p in pages], det_predictor=det)
+    assert [len(r.text_lines) for r in results] == [1, 1, 1] and det.stats_batches == 3
+    streamed = list(pred.stream(iter(pages), det, group_pages=2))
+    assert [i for i, _ in streamed] == [0, 1, 2]
+    assert [r.text_lines[0].text for _, r in streamed] == [r.text_lines[0].text for r in results]
 
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert jax_like == ["jax"], jax_like  # only the blocking sentinel

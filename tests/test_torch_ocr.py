@@ -1,7 +1,7 @@
 """Whole-page OCR of the port against the JAX package's, on the CPU in
 float32, on shared weights: ``RecognitionPredictor(pages,
 det_predictor=DetectionPredictor())`` with the blob hook on both detectors
-and the JAX OpenCV postprocess, with the int8 KV cache off and on. The same
+and the C++ CRAFT op on both sides, with the int8 KV cache off and on. The same
 pages must give the same text, polygons and decoded token counts, and
 confidences within 1e-4."""
 
@@ -71,7 +71,7 @@ def _assert_same(ours, ref):
 
 def _run_both(pipelines, pages, quantize, pin, highres=None, detection_batch_size=None):
     """The JAX and the port's whole-page OCR of the same pages, with the
-    JAX OpenCV postprocess. Returns the tokens decoded."""
+    C++ CRAFT op on both sides. Returns the tokens decoded."""
     (jdet, jrec), (det, rec) = pipelines
 
     def call(pred, det_pred):
@@ -80,7 +80,7 @@ def _run_both(pipelines, pages, quantize, pin, highres=None, detection_batch_siz
 
     old =(jax_settings.USE_NATIVE_POSTPROCESS, jax_settings.RECOGNITION_MODEL_QUANTIZE,
            jax_settings.RECOGNITION_PIN_DECODE, settings.RECOGNITION_MODEL_QUANTIZE, settings.RECOGNITION_PIN_DECODE)
-    jax_settings.USE_NATIVE_POSTPROCESS = False
+    jax_settings.USE_NATIVE_POSTPROCESS = settings.USE_NATIVE_POSTPROCESS = True
     jax_settings.RECOGNITION_MODEL_QUANTIZE = settings.RECOGNITION_MODEL_QUANTIZE = quantize
     jax_settings.RECOGNITION_PIN_DECODE = settings.RECOGNITION_PIN_DECODE = pin
     try:
