@@ -40,7 +40,25 @@ where one PyTorch call computes the same function, that call. Then:
 - runs one whole-page call with the recognition dispatches under
   ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host sync), and
   ``stream()`` over a generator of the 16 pages (in order, the batch call's
-  lines).
+  lines);
+- drives ``LayoutPredictor`` at the JAX package's full width (DonutSwin
+  768x768, depths (2, 2, 16, 2); ADETR 8 layers, 1024 wide) with random bf16
+  weights over 16 pages of bench.py's shape (1240x1754, two tiles each), as
+  called and cap-bound (no class taken for EOS or PAD, so every row decodes
+  its 100 steps), printing each dispatch's AR steps and host syncs and the
+  host enqueue time against the wall; and ``TableRecPredictor`` at full
+  width with ``install_synthetic_tables`` (14 rows x 8 columns) over 4 crops
+  of 768x768, whose rows, columns and recorded steps must be the script's.
+  Neither path runs a hand-written kernel (the JAX package runs no Pallas
+  kernel there), and neither launches one. Each model is also run in
+  float32 on the card (TF32 off) and on the CPU with the same weights: the
+  encoder outputs within relative error 1e-3;
+- runs two ``RecognitionPredictor``s, each on its own stream, in two
+  threads on the same given-lines pages: the token ids must equal those of
+  the same two calls one after the other, and the decode kernel's merge
+  counts must be a buffer per stream; and K3 on two streams in turn at a
+  4096-row cache, so that calls of both run at once, each within tolerance
+  of its plain version.
 
 K3 and K3q are also held against their plain versions, and timed, at the
 free-running path's 512-row cache: ragged lengths at three (step, layer)
@@ -68,9 +86,11 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
+import threading
 import time
 import types
 
@@ -85,16 +105,20 @@ if not torch.cuda.is_available():
 os.environ.setdefault("ALLOW_RANDOM_WEIGHTS", "true")
 os.environ.setdefault("DISABLE_TQDM", "true")
 
-from PIL import Image  # noqa: E402
+from PIL import Image, ImageDraw  # noqa: E402
 
 from surya_tpu_torch.detection import DetectionPredictor, resize_on_device  # noqa: E402
+from surya_tpu_torch.layout import LayoutPredictor  # noqa: E402
+from surya_tpu_torch.layout.slicer import ImageSlicer  # noqa: E402
 from surya_tpu_torch.models import qwen_decoder  # noqa: E402
 from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
 from surya_tpu_torch.models.qwen_encoder import EncoderConfig, plan_layout  # noqa: E402
 from surya_tpu_torch.ops import _build, decode_attn, flash  # noqa: E402
 from surya_tpu_torch.recognition import RecognitionPredictor  # noqa: E402
 from surya_tpu_torch.recognition.loader import DEFAULT_ENCODER  # noqa: E402
+from surya_tpu_torch.models.layout_model import ID_TO_LABEL  # noqa: E402
 from surya_tpu_torch.settings import settings  # noqa: E402
+from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables  # noqa: E402
 
 SEED = 0
 N_PAGES, LINES_PER_PAGE, PIN_TOKENS = 4, 8, 40
@@ -119,6 +143,16 @@ TOKEN_AGREEMENT = 0.95
 # pixels within one level and the mean |diff|, set from the same products
 # emulated on the CPU on these pages (0.94 and 0.62) before the first card run
 RESIZE_WITHIN_1, RESIZE_MEAN = 0.90, 0.75
+# layout and table recognition at full width, as bench.py:468-503 times them:
+# layout of 16 pages of its page shape (1240x1754, 40 text lines; two tiles
+# each), table rec of 4 crops of 768x768 of them with install_synthetic_tables'
+# 14-row x 8-column table of 8 cell candidates a row
+LAYOUT_PAGES, TABLE_CROPS = 16, 4
+TABLE_ROWS, TABLE_COLS, TABLE_CELLS = 14, 8, 8
+# float32 on the card (TF32 off) against the CPU on the same weights: the
+# encoder output's relative error (norm of the difference over the norm) at
+# most this; the AR tokens' agreement is printed (random weights flip ties)
+ENCODER_REL_ERR, F32_MAX_BOXES = 1e-3, 8
 # kernel vs plain version, elementwise: both round an fp32 result to bf16, so
 # they may differ by one bf16 spacing (2^-7 relative) plus a small floor
 KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 1e-3
@@ -171,7 +205,9 @@ def card() -> str:
 def cuda_ms(fn, reps: int, cold: bool = False) -> float:
     """Mean device time of one call. `reps` calls are captured in a CUDA
     graph after a warm-up and the graph is replayed between two CUDA events,
-    so the host's cost of launching does not enter the time. cold: each call
+    so the host's cost of launching does not enter the time. The warm-up and
+    the capture run on one side stream: the decode kernel's merge counts are
+    kept per stream and must exist before a capture on it. cold: each call
     follows a write of 64 MiB, more than the 50 MB L2, as a decode step
     finds the cache it reads; the time of the writes alone is subtracted."""
     side = torch.cuda.Stream()
@@ -183,7 +219,7 @@ def cuda_ms(fn, reps: int, cold: bool = False) -> float:
 
     def replay_ms(body) -> float:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(reps):
                 body()
         graph.replay()
@@ -911,6 +947,274 @@ def check_model_paths(pred, flat, quantize: bool):
             raise AssertionError(f"{key}: kernel path is further from float32 than {MODEL_RATIO}x the plain path")
 
 
+def bench_pages(n: int):
+    """Pages of bench.py's shape: 1240x1754, 40 lines of text."""
+    pages = []
+    for k in range(n):
+        img = Image.new("RGB", (1240, 1754), "white")
+        draw = ImageDraw.Draw(img)
+        for i in range(40):
+            draw.text((60, 40 + i * 42), f"Line {i} of page {k}: the quick brown fox jumps over the lazy dog.",
+                      fill="black")
+        pages.append(img)
+    return pages
+
+
+def synchronised(fn, *args):
+    """fn(*args) and its wall, to the end of its work on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def float32_against_cpu(label, cls, config, pixels, generate):
+    """The model at `config` in float32 on the card (TF32 off) and on the CPU
+    with the same weights, on uint8 pixels [B, H, W, 3]: the encoder outputs'
+    relative error must be at most ENCODER_REL_ERR; generate(model, x) gives
+    per-step (valid [B, M], tokens [B, M, ...]) whose agreement is printed."""
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = cls(device="cuda", config=config, dtype=torch.float32).model
+        cpu = cls(device="cpu", config=config).model
+        cpu.load_state_dict(gpu.state_dict())
+        x = (torch.from_numpy(pixels).float() / 255.0 - 0.5) / 0.5
+        with torch.inference_mode():
+            enc_g, enc_c = gpu.encoder(x.cuda()).cpu(), cpu.encoder(x)
+            (valid_g, tok_g), (valid_c, tok_c) = generate(gpu, x.cuda()), generate(cpu, x)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = float((enc_g - enc_c).norm() / enc_c.norm())
+    valid_g, valid_c = valid_g.cpu(), valid_c.cpu()
+    either = valid_g | valid_c
+    same = valid_g & valid_c & (tok_g.cpu() == tok_c).all(-1)
+    share = float(same.sum() / either.sum()) if either.any() else 1.0
+    print(f"    float32 on the card (TF32 off) against the CPU, {label}: encoder output {tuple(enc_c.shape)} relative "
+          f"error {rel:.3e} (limit {ENCODER_REL_ERR:.0e}); {int(same.sum())} of {int(either.sum())} recorded steps "
+          f"({share:.4f}) with equal tokens")
+    if not rel <= ENCODER_REL_ERR:
+        raise AssertionError(f"{label}: the card's float32 encoder is {rel:.3e} from the CPU's")
+
+
+def layout_tokens(model, x):
+    boxes, _, valid = model.generate(x)
+    return valid, boxes.to(torch.int32)  # the (box, label) token fed back, as integers
+
+
+def run_layout(lay, pages, label, power):
+    """One timed layout call; checks and prints it. Returns the results."""
+    reset_counts()
+    results, wall = synchronised(lay, pages)
+    launches = read_counts()
+    run = lay.last_run
+    n = len(pages)
+    if len(results) != n or sum(run["tiles"]) != 2 * n:
+        raise AssertionError(f"{len(results)} results of {sum(run['tiles'])} tiles for {n} pages")
+    for r in results:
+        if not r.sliced or r.image_bbox != [0, 0, 1240, 1754]:
+            raise AssertionError(f"a page came back unjoined: sliced {r.sliced}, {r.image_bbox}")
+        for b in r.bboxes:
+            if b.label not in ID_TO_LABEL.values() or not np.isfinite(np.asarray(b.polygon)).all():
+                raise AssertionError(f"bad layout box {b.label} {b.polygon}")
+    print(f"    {label}: {n} pages, {sum(run['tiles'])} tiles in {len(run['tiles'])} dispatches of {run['tiles']} "
+          f"tiles; AR steps run {run['steps']}, host syncs {run['host_syncs']} (per dispatch); "
+          f"{sum(len(r.bboxes) for r in results)} boxes after joining")
+    print(f"    {label}: wall {wall:.4f} s, {wall / n:.4f} s/page; host enqueue of the dispatches "
+          f"{run['enqueue_s']:.4f} s of the wall [{power}]")
+    if any(launches[k] for k in COUNTERS):
+        raise AssertionError(f"the layout path launched {launches}")
+    return results
+
+
+def check_layout(pages, power):
+    """LayoutPredictor at the JAX package's full default width with random
+    bf16 weights on bench.py's pages: each page two tiles, every result a
+    joined, sliced page of finite boxes with known labels; the AR steps, host
+    syncs and host enqueue time of each dispatch printed. Run as a user calls
+    it, and cap-bound: with no class taken for EOS or PAD, every row decodes
+    max_boxes steps (bench.py's layout split is that upper bound). Then the
+    float32 check on one page, cap-bound at F32_MAX_BOXES steps."""
+    t0 = time.perf_counter()
+    lay = LayoutPredictor(device="cuda")
+    c = lay.config
+    print(f"    model built in {time.perf_counter() - t0:.1f} s: DonutSwin {c.encoder.image_size}, embed_dim "
+          f"{c.encoder.embed_dim}, depths {c.encoder.depths}, heads {c.encoder.num_heads}, window "
+          f"{c.encoder.window_size}; ADETR {c.decoder.num_hidden_layers} layers, {c.decoder.hidden_size} wide, "
+          f"{c.decoder.num_attention_heads}/{c.decoder.num_key_value_heads} heads, double residual "
+          f"{c.decoder.double_residual_flow}; max_boxes {c.max_boxes}; {lay.dtype} [{power}]")
+    capped = dataclasses.replace(c, eos_token_id=-1, pad_token_id=-1)
+    lay(pages[:2])  # warm-up (cuBLAS, cuDNN, allocator)
+    run_layout(lay, pages, "as called", power)
+    lay.model.config = capped
+    try:
+        run_layout(lay, pages, f"cap-bound ({c.max_boxes} steps)", power)
+    finally:
+        lay.model.config = c
+    if lay.last_run["steps"] != [c.max_boxes] * len(lay.last_run["tiles"]):
+        raise AssertionError(f"the cap-bound run stopped at {lay.last_run['steps']}")
+    tiles, _ = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE).slice([pages[0]])
+    float32_against_cpu("layout, one page (2 tiles), cap-bound at 8 steps", LayoutPredictor,
+                        dataclasses.replace(capped, max_boxes=F32_MAX_BOXES),
+                        np.stack([lay.prepare_image(t) for t in tiles]), layout_tokens)
+
+
+def table_tokens(model, x):
+    enc = model.encode(x)
+    B = x.shape[0]
+    vec = torch.ones((B, 3, 10), dtype=torch.int32, device=x.device)  # bos, the whole-table query, query end
+    vec[:, 1, :6] = torch.tensor([512, 512, 1024, 1024, 512, 512])
+    vec[:, 1, 6:] = torch.tensor([4 + 5, 5, 5, 5])
+    vec[:, 2] = 4
+    bufs = model.generate(enc, vec, torch.full((B,), 3, dtype=torch.int32, device=x.device), F32_MAX_BOXES)
+    tok = torch.cat([bufs["bbox"].to(torch.int32)] + [bufs[k][..., None] for k in ("category", "merges", "colspan",
+                                                                                  "is_header")], -1)
+    return bufs["valid"], tok
+
+
+def check_table_rec(pages, power):
+    """TableRecPredictor at the JAX package's full default width with random
+    bf16 weights and install_synthetic_tables on 4 crops of 768x768 (as
+    bench.py makes them): every table has the script's rows and columns, and
+    the passes recorded the script's steps. Then the float32 check on one crop."""
+    t0 = time.perf_counter()
+    tab = TableRecPredictor(device="cuda")
+    c = tab.config
+    print(f"    model built in {time.perf_counter() - t0:.1f} s: DonutSwin depths {c.encoder.depths}, encoder_length "
+          f"{c.encoder.encoder_length}; ADETR {c.decoder.num_hidden_layers} layers, {c.decoder.hidden_size} wide, "
+          f"{c.decoder.num_attention_heads}/{c.decoder.num_key_value_heads} heads, double residual "
+          f"{c.decoder.double_residual_flow}; max_boxes {c.max_boxes}; {tab.dtype} [{power}]")
+    install_synthetic_tables(tab, TABLE_ROWS, TABLE_COLS, TABLE_CELLS)
+    crops = [p.crop((100, 100, 868, 868)) for p in pages[:TABLE_CROPS]]
+    tab(crops[:1])  # warm-up
+    reset_counts()
+    results, wall = synchronised(tab, crops)
+    launches = read_counts()
+    run = tab.last_run
+    n = len(crops)
+    for r in results:
+        if len(r.rows) != TABLE_ROWS or len(r.cols) != TABLE_COLS or not r.cells:
+            raise AssertionError(f"a table came back with {len(r.rows)} rows, {len(r.cols)} columns, "
+                                 f"{len(r.cells)} cells; the script gives {TABLE_ROWS} x {TABLE_COLS}")
+        if {cell.row_id for cell in r.cells} != set(range(TABLE_ROWS)):
+            raise AssertionError("a row has no cell")
+    passes = run["passes"]
+    want = [n * (TABLE_ROWS + TABLE_COLS), n * TABLE_ROWS * TABLE_CELLS]
+    got = [passes[0]["recorded"], sum(p["recorded"] for p in passes[1:])]
+    if len(results) != n or got != want:
+        raise AssertionError(f"the passes recorded {got} steps, the script gives {want}")
+    print(f"    {n} tables: rows {[len(r.rows) for r in results]}, columns {[len(r.cols) for r in results]}, cells "
+          f"{[len(r.cells) for r in results]} (unmerged {[len(r.unmerged_cells) for r in results]}); recorded "
+          f"steps {got[0]} rows and columns, {got[1]} cell candidates, as the script gives")
+    print(f"    passes: {[(p['rows'], p['steps'], p['host_syncs']) for p in passes]} (rows, AR steps, host syncs); "
+          f"cell pass batch {run['cell_batch']}")
+    print(f"    wall {wall:.4f} s, {wall / n:.4f} s/table; host enqueue of the passes "
+          f"{sum(p['enqueue_s'] for p in passes):.4f} s of the wall [{power}]")
+    if any(launches[k] for k in COUNTERS):
+        raise AssertionError(f"the table-rec path launched {launches}")
+    float32_against_cpu("table rec, one crop, the whole-table pass to 8 steps", TableRecPredictor, c,
+                        np.stack([tab.prepare_image(crops[0].convert("RGB"))]), table_tokens)
+
+
+def recognized_tokens(pred, pages, bboxes):
+    """Given-lines recognition; the token ids of every line, in order."""
+    loop, runs = pred.prediction_loop, []
+
+    def recording(*args, **kwargs):
+        runs.append(loop(*args, **kwargs))
+        return runs[-1]
+
+    pred.prediction_loop = recording
+    try:
+        pred([p.copy() for p in pages], bboxes=bboxes)
+    finally:
+        del pred.prediction_loop
+    return [list(map(int, t)) for run in runs for t in run[0]]
+
+
+def check_two_predictors(pred, pages, bboxes, power):
+    """Two RecognitionPredictors (each on its own stream, the same weights,
+    the same pages and slot count) decoding at once in two threads give the
+    token ids of the same two calls one after the other, and the decode
+    kernel's merge counts are two buffers, one per stream."""
+    set_pin(True)
+    settings.RECOGNITION_MODEL_QUANTIZE = False
+    pred2 = RecognitionPredictor(device="cuda")
+    recognized_tokens(pred2, pages, bboxes)  # warm-up
+    (seq, seq_wall) = synchronised(lambda: [recognized_tokens(p, pages, bboxes) for p in (pred, pred2)])
+    out, errors = [None, None], []
+
+    def work(i, p):
+        try:
+            out[i] = recognized_tokens(p, pages, bboxes)
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    reset_counts()
+    threads = [threading.Thread(target=work, args=(i, p)) for i, p in enumerate((pred, pred2))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    launches = read_counts()
+    n_slots = {key[2] for key in decode_attn._COUNTS}
+    buffers = {key[1]: buf.data_ptr() for key, buf in decode_attn._COUNTS.items()
+               if key[1] in (pred._stream.cuda_stream, pred2._stream.cuda_stream)}
+    same = [a == b for a, b in zip(out, seq)]
+    print(f"    two predictors in two threads: {sum(map(len, out))} lines, wall {wall:.4f} s (one after the other "
+          f"{seq_wall:.4f} s); token ids equal to the sequential calls' for each: {same}; K3 launches "
+          f"{launches['gqa_decode']}; merge-count buffers by stream {len(buffers)} ({len(set(buffers.values()))} "
+          f"distinct, slot x kv-head sizes {sorted(n_slots)}) [{power}]")
+    if not all(same) or len(out[0]) != len(pages) * LINES_PER_PAGE:
+        raise AssertionError("two predictors decoding at once gave other token ids than one after the other")
+    if len(buffers) != 2 or len(set(buffers.values())) != 2:
+        raise AssertionError(f"the two predictors' streams do not have a merge-count buffer each: {buffers}")
+    if launches["gqa_decode"] <= 0:
+        raise AssertionError("the threaded run launched no K3")
+
+
+def check_decode_on_two_streams(gen, power, reps=20):
+    """K3 launched in turn on two streams with the same slot count, at a
+    cache long enough (4096 rows, every split merged) that the calls of the
+    two streams run at once on the card: every output must equal its plain
+    version within the kernel tolerance. With one merge-count buffer for
+    both, a split of one call could count the other's and merge partials
+    not yet written; the two predictors of check_two_predictors launch
+    their short calls too far apart to show that."""
+    B, S, K, step = 129, 4096, 64, 63
+    cases = []
+    for _ in range(2):
+        qd, (kc, vc), _, (ck, cv) = decode_inputs(gen, B, S, K, layers=1)
+        args = (qd, kc, vc, to_cuda(np.full(B, S, np.int32)), ck, cv, step, 0)
+        cases.append((torch.cuda.Stream(), args, decode_attn.gqa_decode_reference(*args).float()))
+    torch.cuda.synchronize()
+    outs = [[], []]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for (stream, args, _), out in zip(cases, outs):
+            with torch.cuda.stream(stream):
+                out.append(decode_attn.gqa_decode(*args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad, worst = 0, 0.0
+    for (_, _, ref), out in zip(cases, outs):
+        for o in out:
+            err = (o.float() - ref).abs()
+            bad += int((err > KERNEL_RTOL * ref.abs() + KERNEL_ATOL).any())
+            worst = max(worst, err.max().item())
+    print(f"    K3 on two streams in turn, {reps} calls each (B={B}, S={S}, every split merged): {2 * reps} calls in "
+          f"{wall * 1e3:.2f} ms, {bad} outside the tolerance, max_abs_err {worst:.3e} [{power}]")
+    if bad:
+        raise AssertionError(f"{bad} K3 calls on two streams at once disagree with the plain version")
+
+
 def assert_launched(label, run_counts, launched, not_launched=()):
     print(f"    {label}: {run_counts}")
     for n in launched:
@@ -1027,6 +1331,17 @@ def main():
     print(f"[12] stream() over a generator of the {NORTH_STAR_PAGES} pages")
     check_stream(pred, det, north_pages, batch_results, power)
     settings.RECOGNITION_MODEL_QUANTIZE = False
+    set_pin(False)
+
+    layout_pages = bench_pages(LAYOUT_PAGES)
+    print(f"[13] layout analysis at full width, random bf16 weights: {LAYOUT_PAGES} pages of 1240x1754")
+    check_layout(layout_pages, power)
+    print(f"[14] table recognition at full width, random bf16 weights, synthetic {TABLE_ROWS} x {TABLE_COLS} "
+          f"tables: {TABLE_CROPS} crops of 768x768")
+    check_table_rec(layout_pages, power)
+    print("[15] two RecognitionPredictors decoding at once in two threads, against one after the other")
+    check_two_predictors(pred, pages, bboxes, power)
+    check_decode_on_two_streams(gen, power)
     set_pin(False)
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given

@@ -9,7 +9,10 @@ free-running stops; whole-page OCR (DetectionPredictor then
 RecognitionPredictor, int8 KV cache, pinned) of 8 synthetic pages x 16 lines
 (one detection group: detection, then recognition) and of 16 such pages, the
 north star's shape (two groups of 8: detection of the second runs in a
-worker thread while the first is recognized). For each mode it prints:
+worker thread while the first is recognized); layout of chip_smoke.py's 16
+pages of 1240x1754 at full width, as called and cap-bound (every row decodes
+its 100 steps), and table recognition of its 4 synthetic 14 x 8 tables. For
+each mode it prints:
 
 - untraced: the wall of REPS runs, each split by timers that add no
   synchronisation (the pipelined scheduler reads a dispatch's outputs on an
@@ -17,6 +20,8 @@ worker thread while the first is recognized). For each mode it prints:
   dispatches (waves, chunks), its waits for their outputs, and the rest of
   its host time; for whole-page OCR also the detection calls' wall (in the
   streaming run it overlaps recognition) and their waits for the device;
+  for layout and table rec the host time enqueueing the box loops (event
+  waits of the all-done check included) and the waits for their outputs;
 - traced, one more run under torch.profiler: that run's own wall, the
   device's busy time in it (the union of kernel, copy and memset intervals),
   the number of kernels, device time by kind and the largest kernels.
@@ -27,6 +32,7 @@ untraced one. The last line is one JSON object holding every number.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from collections import defaultdict
@@ -38,9 +44,11 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 from surya_tpu_torch.detection import DetectionPredictor
+from surya_tpu_torch.layout import LayoutPredictor
 from surya_tpu_torch.models.efficientvit import install_blob_detector
 from surya_tpu_torch.recognition import RecognitionPredictor
 from surya_tpu_torch.settings import settings
+from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables
 
 REPS = 3
 TOP = 10
@@ -137,6 +145,49 @@ def traced(run):
     }
 
 
+def box_loop_modes():
+    """(label, run) of the layout and table-rec modes; a run returns (wall,
+    [], AR steps run) and keeps its enqueue and wait split in SPLITS."""
+    lay = LayoutPredictor(device="cuda")
+    tab = TableRecPredictor(device="cuda")
+    install_synthetic_tables(tab, chip_smoke.TABLE_ROWS, chip_smoke.TABLE_COLS, chip_smoke.TABLE_CELLS)
+    pages = chip_smoke.bench_pages(chip_smoke.LAYOUT_PAGES)
+    crops = [p.crop((100, 100, 868, 868)) for p in pages[: chip_smoke.TABLE_CROPS]]
+    as_called = lay.config
+    capped = dataclasses.replace(as_called, eos_token_id=-1, pad_token_id=-1)
+    waits = defaultdict(list)
+    time_calls(lay, ("_wait",), waits, prefix="lay.")
+    time_calls(tab, ("_wait",), waits, prefix="tab.")
+
+    def layout(config):
+        lay.model.config = config
+        try:
+            waits.clear()
+            _, wall = chip_smoke.synchronised(lay, pages)
+        finally:
+            lay.model.config = as_called
+        run = lay.last_run
+        SPLITS.append({"wall_s": wall, "enqueue_s": run["enqueue_s"], "wait_s": sum(waits["lay._wait"]),
+                       "steps": run["steps"], "host_syncs": run["host_syncs"]})
+        return wall, [], sum(run["steps"])
+
+    def tables():
+        waits.clear()
+        _, wall = chip_smoke.synchronised(tab, crops)
+        passes = tab.last_run["passes"]
+        SPLITS.append({"wall_s": wall, "enqueue_s": sum(p["enqueue_s"] for p in passes),
+                       "wait_s": sum(waits["tab._wait"]), "steps": [p["steps"] for p in passes],
+                       "host_syncs": [p["host_syncs"] for p in passes]})
+        return wall, [], sum(p["steps"] for p in passes)
+
+    return [("layout 16 pages, as called", lambda: layout(as_called)),
+            ("layout 16 pages, cap-bound", lambda: layout(capped)),
+            ("table rec 4 synthetic tables", tables)]
+
+
+SPLITS: list = []
+
+
 def main():
     power = chip_smoke.card()
     print(f"card: {power}")
@@ -181,6 +232,24 @@ def main():
                   f"{r['prefill_enqueue_s']:.4f} s ({r['waves']} waves) + {r['decode_enqueue_s']:.4f} s "
                   f"({r['chunks']} chunks) + waits {r['recognition_wait_s']:.4f} s + other host "
                   f"{r['recognition_host_rest_s']:.4f} s{det_part}")
+        print(f"  traced: wall {trace['wall_s']:.4f} s, device busy {trace['device_busy_s']:.4f} s "
+              f"({trace['busy_share']:.1%} of that wall), {trace['device_events']} device events")
+        for k, v in trace["by_kind"].items():
+            print(f"    {v['share']:6.1%} {v['s'] * 1e3:9.3f} ms  {k}")
+        for t in trace["top"]:
+            print(f"    top: {t['s'] * 1e3:9.3f} ms {t['calls']:6d} calls  {t['name'][:110]}")
+    for label, run in box_loop_modes():
+        run()  # warm-up
+        SPLITS.clear()
+        for _ in range(REPS):
+            run()
+        runs = list(SPLITS)
+        trace = traced(run)
+        report[label] = {"untraced": runs, "traced": trace}
+        print(f"[{label}] AR steps {runs[0]['steps']}, host syncs {runs[0]['host_syncs']} [{power}]")
+        for r in runs:
+            print(f"  untraced: wall {r['wall_s']:.4f} s = enqueue {r['enqueue_s']:.4f} s + output waits "
+                  f"{r['wait_s']:.4f} s + other host {r['wall_s'] - r['enqueue_s'] - r['wait_s']:.4f} s")
         print(f"  traced: wall {trace['wall_s']:.4f} s, device busy {trace['device_busy_s']:.4f} s "
               f"({trace['busy_share']:.1%} of that wall), {trace['device_events']} device events")
         for k, v in trace["by_kind"].items():

@@ -3,10 +3,11 @@
 ``craft_ops.cpp`` does a page's whole box extraction in one call: threshold,
 4-connected components (union-find), per-component rectangular dilation,
 the minimum-area rectangle, the near-square snap and the corner order. At
-first use it is built with ``g++`` into ``native/build/`` inside the package
-(git-ignored; ``SURYA_TORCH_NATIVE_DIR`` overrides it) and loaded with
-ctypes; the library's name carries a hash of the source, so an edited source
-is rebuilt. A build or load failure raises: the OpenCV path orders
+first use it is built with ``g++`` into the user's cache directory
+(``platformdirs.user_cache_dir("surya_tpu_torch")/native``, so an installed,
+read-only package builds too; ``SURYA_TORCH_NATIVE_DIR`` overrides it) and
+loaded with ctypes; the library's name carries a hash of the source, so an
+edited source is rebuilt. A build or load failure raises: the OpenCV path orders
 components differently, so it runs only where ``USE_NATIVE_POSTPROCESS`` is
 off, never in place of a failed build.
 """
@@ -21,6 +22,7 @@ import threading
 from pathlib import Path
 
 import numpy as np
+from platformdirs import user_cache_dir
 
 _SRC = Path(__file__).resolve().parent / "craft_ops.cpp"
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
@@ -28,8 +30,13 @@ _lock = threading.Lock()
 _lib = None
 
 
+def default_build_dir() -> Path:
+    """Where the library is built when SURYA_TORCH_NATIVE_DIR is unset."""
+    return Path(user_cache_dir("surya_tpu_torch")) / "native"
+
+
 def _load() -> ctypes.CDLL:
-    build_dir = Path(os.environ.get("SURYA_TORCH_NATIVE_DIR", _SRC.parent / "build"))
+    build_dir = Path(os.environ.get("SURYA_TORCH_NATIVE_DIR") or default_build_dir())
     build_dir.mkdir(parents=True, exist_ok=True)
     digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
     so = build_dir / f"libcraft_ops_{digest}.so"

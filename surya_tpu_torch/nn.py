@@ -30,6 +30,39 @@ class RMSNorm(nn.Module):
         return (y * self.weight.float()).to(x.dtype)
 
 
+class GemmaRMSNorm(nn.Module):
+    """The ADETR decoder's RMSNorm (surya_tpu nn.gemma_rmsnorm): the variance
+    clamped below at eps, scaled by (1 + weight) with the weight stored as
+    zeros, the result clamped to the input dtype's range and NaNs zeroed."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        y = xf * torch.rsqrt(torch.clamp(xf.square().mean(-1, keepdim=True), min=self.eps))
+        y = y * (1.0 + self.weight.float())
+        info = torch.finfo(x.dtype)
+        return torch.clamp(y, info.min, info.max).nan_to_num(nan=0.0).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis in fp32, the result in the input dtype
+    (surya_tpu nn.layernorm; its leaves scale/bias are weight/bias here)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(), self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
 class FoldedBatchNorm(nn.Module):
     """Inference batch-norm folded to a per-channel scale (``weight``) and
     bias, over the channels of an NCHW tensor (surya_tpu nn.bn_fold)."""
@@ -64,7 +97,8 @@ def bilinear_resize(x, out_hw: Tuple[int, int]):
 
 def init_normal_(module: nn.Module, generator: torch.Generator, std: float = 0.02) -> None:
     """Random init mirroring the JAX package's initializers: every Linear and
-    Conv2d weight and Embedding table ~ N(0, std^2), biases 0, norm scales 1."""
+    Conv2d weight and Embedding table ~ N(0, std^2), biases 0, norm scales 1
+    (a Gemma RMSNorm's stored weight 0, since it scales by 1 + weight)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding)):
@@ -73,6 +107,11 @@ def init_normal_(module: nn.Module, generator: torch.Generator, std: float = 0.0
                     m.bias.zero_()
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
+            elif isinstance(m, GemmaRMSNorm):
+                m.weight.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
             elif isinstance(m, FoldedBatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

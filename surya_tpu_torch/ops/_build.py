@@ -5,7 +5,9 @@ every ``csrc/*.cu`` for Hopper (``sm_90a``), one process per source, all
 started together, and links the objects into one shared library, which
 ctypes then loads. The library's name carries a hash of the sources, so an
 edited kernel is rebuilt and a built one is reused. The build directory is
-``csrc/build`` inside the package (``SURYA_TORCH_BUILD_DIR`` overrides it).
+the user's cache directory, ``platformdirs.user_cache_dir("surya_tpu_torch")
+/kernels``, so an installed, read-only package builds too
+(``SURYA_TORCH_BUILD_DIR`` overrides it).
 
 Nothing here runs at import, so the package imports where there is no nvcc
 and no card.
@@ -23,6 +25,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
+
+from platformdirs import user_cache_dir
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
@@ -70,6 +74,11 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def default_build_dir() -> Path:
+    """Where the kernels are built when SURYA_TORCH_BUILD_DIR is unset."""
+    return Path(user_cache_dir("surya_tpu_torch")) / "kernels"
+
+
 @functools.cache
 def library() -> KernelLibrary:
     """Compile (once per source hash) and load the kernel library."""
@@ -79,7 +88,7 @@ def library() -> KernelLibrary:
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    build_dir = Path(os.environ.get("SURYA_TORCH_BUILD_DIR", CSRC / "build"))
+    build_dir = Path(os.environ.get("SURYA_TORCH_BUILD_DIR") or default_build_dir())
     build_dir.mkdir(parents=True, exist_ok=True)
     so = build_dir / f"libsurya_kernels_{digest.hexdigest()[:16]}.so"
     log_path = so.with_suffix(".log")

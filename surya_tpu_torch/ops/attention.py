@@ -13,15 +13,23 @@ import torch
 NEG_INF = -1e30
 
 
-def sdpa(q, k, v, mask: Optional[torch.Tensor] = None):
+def sdpa(q, k, v, mask: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None):
     """Dense attention, fp32 logits and softmax. q: [B, Sq, H, D], k/v:
     [B, Sk, kvh, D]; query head h reads kv head h // (H / kvh) without
     repeating kv per query head. mask: bool, True = attend, broadcastable
-    to [B, kvh, H / kvh, Sq, Sk]. Returns [B, Sq, H, D] in q's dtype."""
+    to [B, kvh, H / kvh, Sq, Sk]. bias: additive, taken in fp32 (as the JAX
+    package's sdpa takes its masks), [B or 1, H or 1, Sq, Sk]. Returns
+    [B, Sq, H, D] in q's dtype."""
     B, Sq, H, D = q.shape
     kvh = k.shape[2]
     qg = q.float().reshape(B, Sq, kvh, H // kvh, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * D**-0.5
+    if bias is not None:
+        bias = bias.float()
+        if bias.shape[1] == H:
+            logits = logits + bias.reshape(bias.shape[0], kvh, H // kvh, *bias.shape[2:])
+        else:
+            logits = logits + bias[:, :, None]
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)

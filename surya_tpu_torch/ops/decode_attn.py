@@ -16,9 +16,9 @@ On the card each (slot, kv head) is split into SPLIT_ROWS cache rows or
 chunk columns, one warp a split, one CTA the kv heads of a (slot, split). A
 split that is the only one of its (slot, kv head) writes the output;
 otherwise it writes its partial softmax state to a workspace from
-``torch.empty`` and counts itself in ``_merge_counts``, and the split that
-counts last merges them. The grid follows from the shapes alone: a call
-does not synchronise with the host.
+``torch.empty`` and counts itself in ``_merge_counts`` (one buffer per
+stream), and the split that counts last merges them. The grid follows from
+the shapes alone: a call does not synchronise with the host.
 """
 
 from __future__ import annotations
@@ -103,17 +103,20 @@ _COUNTS = {}
 
 
 def _merge_counts(dev: torch.device, n: int) -> torch.Tensor:
-    """n int32 zeros on dev, one per (slot, kv head): the kernel counts the
-    splits that have ended in them and sets each back to 0 when it merges,
-    so one buffer serves every call of that size and every replay of a CUDA
-    graph that captured one. Kept for the life of the process (a captured
-    graph holds its address). Calls that share a buffer must not overlap in
-    time: the port issues its decode steps on one stream."""
-    key = (dev.index, n)
+    """n int32 zeros on dev, one per (slot, kv head), for the calls on the
+    current stream: the kernel counts the splits that have ended in them and
+    sets each back to 0 when it merges, so one buffer serves every call of
+    that size on that stream and every replay of a CUDA graph captured on
+    it. Calls on one stream never overlap; each predictor decodes on a
+    stream of its own, so two predictors never share a buffer (a graph that
+    holds one must be captured on its predictor's stream). Kept for the life
+    of the process, since a captured graph holds its address; PyTorch takes
+    streams from a fixed pool, so the buffers are few."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
     if key not in _COUNTS:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("gqa_decode: call it once outside CUDA graph capture first, so that its "
-                               "merge counts are allocated and zeroed")
+            raise RuntimeError("gqa_decode: call it once on the capturing stream outside CUDA graph capture "
+                               "first, so that its merge counts are allocated and zeroed")
         _COUNTS[key] = torch.zeros(n, dtype=torch.int32, device=dev)
     return _COUNTS[key]
 

@@ -1,11 +1,13 @@
-"""Settings of the PyTorch port: read once from the environment.
+"""Settings of the PyTorch port: read once from the environment and local.env.
 
-The names are those the JAX package's recognition path reads, so one
-environment configures both. Device and dtype are explicit: a predictor's
-``device`` argument, else ``TORCH_DEVICE`` ("cuda", "cuda:1", "cpu"), else
-"cuda". The CPU runs only where it is asked for: a CUDA device that is asked
-for, or left as the default, and absent raises; nothing falls back to the
-CPU. The model runs in bfloat16 on CUDA and in float32 on the CPU.
+The names are those the JAX package reads, so one environment configures
+both: ``os.environ`` over a ``local.env`` file in the working directory
+(``KEY=value`` lines), as in the JAX package. Device and dtype are
+explicit: a predictor's ``device`` argument, else ``TORCH_DEVICE`` ("cuda",
+"cuda:1", "cpu"), else "cuda". The CPU runs only where it is asked for: a
+CUDA device that is asked for, or left as the default, and absent raises;
+nothing falls back to the CPU. The model runs in bfloat16 on CUDA and in
+float32 on the CPU.
 
 Where the JAX package's defaults are "auto: on for TPU" (the detection
 device resize and device postprocess), the port's are "auto: on for CUDA":
@@ -15,10 +17,28 @@ None in the field, resolved against the predictor's device when it runs
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Mapping, Optional
+from pathlib import Path
+from typing import Dict, Mapping, Optional
 
 import torch
+
+
+def load_dotenv(path: str = "local.env") -> Dict[str, str]:
+    """``KEY=value`` lines of a dotenv file (none if it is absent): blank
+    lines and ``#`` comments skipped, quotes around a value stripped."""
+    out: Dict[str, str] = {}
+    p = Path(path)
+    if not p.exists():
+        return out
+    for line in p.read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        k, v = line.split("=", 1)
+        out[k.strip()] = v.strip().strip("'\"")
+    return out
 
 
 def _opt_int(env: Mapping[str, str], name: str) -> Optional[int]:
@@ -53,12 +73,20 @@ def _float(env: Mapping[str, str], name: str, default: float) -> float:
     return float(value) if value else default
 
 
-class Settings:
-    """The fields are read from the environment once, at import; code reads
-    them from this object when it runs, so a caller may change a field
-    between calls (as the tests do)."""
+def _json_dict(env: Mapping[str, str], name: str, default: dict) -> dict:
+    value = env.get(name, "").strip()
+    return json.loads(value) if value else dict(default)
 
-    def __init__(self, env: Mapping[str, str] = os.environ):
+
+class Settings:
+    """The fields are read once, at import, from ``env``, by default the
+    environment over the working directory's ``local.env`` (the environment
+    wins); code reads them from this object when it runs, so a caller may
+    change a field between calls (as the tests do)."""
+
+    def __init__(self, env: Optional[Mapping[str, str]] = None):
+        if env is None:
+            env = {**load_dotenv(), **os.environ}
         self.TORCH_DEVICE: Optional[str] = env.get("TORCH_DEVICE") or None
         self.ALLOW_RANDOM_WEIGHTS = _bool(env, "ALLOW_RANDOM_WEIGHTS")
         self.WEIGHT_SEED = int(env.get("WEIGHT_SEED", "0") or 0)
@@ -109,7 +137,21 @@ class Settings:
         # stream(): finished pages held for a slow consumer before the feeder
         # stops taking new pages (None = 4 x the page group)
         self.RECOGNITION_STREAM_BUFFER_PAGES = _opt_int(env, "RECOGNITION_STREAM_BUFFER_PAGES")
-
+        # layout and table recognition (defaults of surya_tpu/settings.py;
+        # the checkpoint, image-size and dataset fields wait for checkpoint
+        # loading and a benchmark, since nothing in the port reads them yet)
+        # pages above these sides are cut into tiles of about these sides
+        self.LAYOUT_SLICE_MIN = _json_dict(env, "LAYOUT_SLICE_MIN", {"height": 1500, "width": 1500})
+        self.LAYOUT_SLICE_SIZE = _json_dict(env, "LAYOUT_SLICE_SIZE", {"height": 1200, "width": 1200})
+        self.LAYOUT_BATCH_SIZE = _opt_int(env, "LAYOUT_BATCH_SIZE")
+        self.LAYOUT_MAX_BOXES = int(env.get("LAYOUT_MAX_BOXES", "") or 100)
+        # tiles per layout dispatch (None = auto: 8 on CUDA, the whole batch
+        # on the CPU), so that a multi-page call keeps one dispatch in flight
+        self.LAYOUT_PIPELINE_BATCH = _opt_int(env, "LAYOUT_PIPELINE_BATCH")
+        self.TABLE_REC_MAX_BOXES = int(env.get("TABLE_REC_MAX_BOXES", "") or 150)
+        self.TABLE_REC_BATCH_SIZE = _opt_int(env, "TABLE_REC_BATCH_SIZE")
+        # widest batch of the cell pass (pass 2): its batch doubles up to this
+        self.TABLE_REC_CELL_BATCH_MAX = int(env.get("TABLE_REC_CELL_BATCH_MAX", "") or 128)
 
 settings = Settings()
 

@@ -9,10 +9,13 @@ import torch
 
 from surya_tpu_torch import settings as settings_module
 from surya_tpu_torch.detection import DetectionPredictor
+from surya_tpu_torch.layout import LayoutPredictor
 from surya_tpu_torch.recognition import RecognitionPredictor
 from surya_tpu_torch.settings import Settings, resolve_device, settings
+from surya_tpu_torch.table_rec import TableRecPredictor
 
-PREDICTORS = {"recognition": RecognitionPredictor, "detection": DetectionPredictor}
+PREDICTORS = {"recognition": RecognitionPredictor, "detection": DetectionPredictor, "layout": LayoutPredictor,
+              "table_rec": TableRecPredictor}
 
 
 @pytest.fixture

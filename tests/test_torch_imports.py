@@ -4,8 +4,9 @@ surya_tpu`` fail, the port's modules import, tiny predictors recognize given
 lines and run a whole-page OCR (detection, then recognition with the int8
 KV cache) on the CPU, then the streaming path (more pages than
 RECOGNITION_DET_PIPELINE_PAGES) and ``stream()`` with detection's device
-resize, device stats and C++ CRAFT op, and no module of either is loaded
-afterwards."""
+resize, device stats and C++ CRAFT op, then layout analysis (a page above
+1500 px, so the slicer runs) and table recognition (with synthetic tables),
+and no module of either is loaded afterwards."""
 
 import os
 import subprocess
@@ -53,6 +54,16 @@ SCRIPT = textwrap.dedent(
     streamed = list(pred.stream(iter(pages), det, group_pages=2))
     assert [i for i, _ in streamed] == [0, 1, 2]
     assert [r.text_lines[0].text for _, r in streamed] == [r.text_lines[0].text for r in results]
+
+    from surya_tpu_torch.layout import LayoutPredictor
+    from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables
+
+    [layout] = LayoutPredictor(device="cpu", tiny=True)([Image.new("RGB", (600, 1800), "white")])
+    assert layout.sliced and layout.image_bbox == [0, 0, 600, 1800]
+    tables = TableRecPredictor(device="cpu", tiny=True)
+    install_synthetic_tables(tables, n_rows=2, n_cols=2, n_cells=1)
+    [table] = tables([img])
+    assert len(table.rows) == 2 and len(table.cols) == 2 and table.cells
 
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert jax_like == ["jax"], jax_like  # only the blocking sentinel
