@@ -58,7 +58,23 @@ where one PyTorch call computes the same function, that call. Then:
   the same two calls one after the other, and the decode kernel's merge
   counts must be a buffer per stream; and K3 on two streams in turn at a
   4096-row cache, so that calls of both run at once, each within tolerance
-  of its plain version.
+  of its plain version;
+- drives ``RecognitionPredictor`` with int8 decoder weights
+  (``RECOGNITION_WEIGHT_QUANTIZE``) over the 8 whole pages with the bf16 and
+  the int8 cache, in turns with the bf16-weight predictor (the same random
+  weights), and shows that it ran on K1, K2 and K3 or K3q; prints walls,
+  the projections' bytes, the token agreement and a decode step's device
+  time with each weight type; and holds the quantized decoder in float32 on
+  the card against the CPU (greedy token ids equal);
+- drives ``OCRErrorPredictor`` at full width over 256 texts, 64 in each of
+  its four sequence buckets, and holds the model in float32 on the card
+  against the CPU (logits within 1e-3 of the largest);
+- runs the five CLIs (``surya_tpu_torch.scripts.*``: detect_text, ocr_text,
+  ocr_latex, detect_layout, table_recognition) through their ``main(argv)``
+  on a folder of 2 pages of bench.py's shape, with the predictors above
+  wrapped in: each writes a results.json in the JAX CLIs' layout, and
+  ocr_text and ocr_latex run on K1, K2 and K3; then ``python -m
+  surya_tpu_torch.scripts.ocr_latex`` as a process of its own.
 
 K3 and K3q are also held against their plain versions, and timed, at the
 free-running path's 512-row cache: ragged lengths at three (step, layer)
@@ -90,9 +106,12 @@ import dataclasses
 import json
 import os
 import subprocess
+import sys
+import tempfile
 import threading
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -119,6 +138,15 @@ from surya_tpu_torch.recognition.loader import DEFAULT_ENCODER  # noqa: E402
 from surya_tpu_torch.models.layout_model import ID_TO_LABEL  # noqa: E402
 from surya_tpu_torch.settings import settings  # noqa: E402
 from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables  # noqa: E402
+from surya_tpu_torch.models.distilbert import DistilBert  # noqa: E402
+from surya_tpu_torch.models.foundation import FoundationModel  # noqa: E402
+from surya_tpu_torch.nn import QuantLinear  # noqa: E402
+from surya_tpu_torch.ocr_error import OCRErrorPredictor  # noqa: E402
+from surya_tpu_torch.ocr_error import random_model as ocr_error_random_model  # noqa: E402
+from surya_tpu_torch.recognition.loader import random_model  # noqa: E402
+from surya_tpu_torch.scripts import (  # noqa: E402
+    detect_layout, detect_text, ocr_latex, ocr_text, table_recognition,
+)
 
 SEED = 0
 N_PAGES, LINES_PER_PAGE, PIN_TOKENS = 4, 8, 40
@@ -153,6 +181,38 @@ TABLE_ROWS, TABLE_COLS, TABLE_CELLS = 14, 8, 8
 # encoder output's relative error (norm of the difference over the norm) at
 # most this; the AR tokens' agreement is printed (random weights flip ties)
 ENCODER_REL_ERR, F32_MAX_BOXES = 1e-3, 8
+# int8 decoder weights (RECOGNITION_WEIGHT_QUANTIZE): the projections a
+# decoder layer quantizes, and the decode step timed with each weight type
+# (slots with the trash slot, cache rows, chunk columns, step, valid rows)
+PROJECTIONS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
+               "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+DECODE_STEP = (129, 256, 64, 31, 64)
+# OCR error: texts a sequence bucket, and the words of a text for each (each
+# word one token of the hash vocabulary, plus CLS and SEP); float32 on the
+# card against the CPU: the logits' largest difference over the largest logit
+OCR_ERROR_TEXTS = 64
+OCR_ERROR_WORDS = {64: (10, 62), 128: (63, 126), 256: (127, 254), 512: (255, 510)}
+LOGITS_REL_ERR = 1e-3
+# the five CLIs on a folder of pages of bench.py's shape: CLI -> (its module,
+# the predictors it builds, extra arguments, the kernels it must launch)
+CLI_PAGES = 2
+RECOGNITION_KERNELS = ["segmented_block_attention", "causal_flash_attention", "gqa_decode"]
+CLIS = {
+    "detect_text": (detect_text, ("DetectionPredictor",), ["--images"], []),
+    "ocr_text": (ocr_text, ("DetectionPredictor", "RecognitionPredictor"), [], RECOGNITION_KERNELS),
+    "ocr_latex": (ocr_latex, ("RecognitionPredictor",), [], RECOGNITION_KERNELS),
+    "detect_layout": (detect_layout, ("LayoutPredictor",), ["--images"], []),
+    "table_recognition": (table_recognition, ("LayoutPredictor", "TableRecPredictor"),
+                          ["--skip_table_detection"], []),
+}
+# the keys of a page's row in each CLI's results.json (the JAX CLIs')
+CLI_KEYS = {
+    "detect_text": {"bboxes", "vertical_lines", "image_bbox", "page"},
+    "ocr_text": {"text_lines", "image_bbox", "page"},
+    "ocr_latex": {"equation", "page"},
+    "detect_layout": {"bboxes", "image_bbox", "sliced", "page"},
+    "table_recognition": {"cells", "unmerged_cells", "rows", "cols", "image_bbox", "page", "table_idx"},
+}
 # kernel vs plain version, elementwise: both round an fp32 result to bf16, so
 # they may differ by one bf16 spacing (2^-7 relative) plus a small floor
 KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 1e-3
@@ -1035,7 +1095,8 @@ def check_layout(pages, power):
     syncs and host enqueue time of each dispatch printed. Run as a user calls
     it, and cap-bound: with no class taken for EOS or PAD, every row decodes
     max_boxes steps (bench.py's layout split is that upper bound). Then the
-    float32 check on one page, cap-bound at F32_MAX_BOXES steps."""
+    float32 check on one page, cap-bound at F32_MAX_BOXES steps. Returns the
+    predictor."""
     t0 = time.perf_counter()
     lay = LayoutPredictor(device="cuda")
     c = lay.config
@@ -1058,6 +1119,7 @@ def check_layout(pages, power):
     float32_against_cpu("layout, one page (2 tiles), cap-bound at 8 steps", LayoutPredictor,
                         dataclasses.replace(capped, max_boxes=F32_MAX_BOXES),
                         np.stack([lay.prepare_image(t) for t in tiles]), layout_tokens)
+    return lay
 
 
 def table_tokens(model, x):
@@ -1077,7 +1139,8 @@ def check_table_rec(pages, power):
     """TableRecPredictor at the JAX package's full default width with random
     bf16 weights and install_synthetic_tables on 4 crops of 768x768 (as
     bench.py makes them): every table has the script's rows and columns, and
-    the passes recorded the script's steps. Then the float32 check on one crop."""
+    the passes recorded the script's steps. Then the float32 check on one
+    crop. Returns the predictor, with the synthetic tables installed."""
     t0 = time.perf_counter()
     tab = TableRecPredictor(device="cuda")
     c = tab.config
@@ -1115,6 +1178,7 @@ def check_table_rec(pages, power):
         raise AssertionError(f"the table-rec path launched {launches}")
     float32_against_cpu("table rec, one crop, the whole-table pass to 8 steps", TableRecPredictor, c,
                         np.stack([tab.prepare_image(crops[0].convert("RGB"))]), table_tokens)
+    return tab
 
 
 def recognized_tokens(pred, pages, bboxes):
@@ -1213,6 +1277,281 @@ def check_decode_on_two_streams(gen, power, reps=20):
           f"{wall * 1e3:.2f} ms, {bad} outside the tolerance, max_abs_err {worst:.3e} [{power}]")
     if bad:
         raise AssertionError(f"{bad} K3 calls on two streams at once disagree with the plain version")
+
+
+def projection_bytes(decoder) -> int:
+    """Bytes of the decoder's seven projections a layer (weights, scales and
+    biases): what a decode step streams for them."""
+    return sum(t.numel() * t.element_size() for layer in decoder.layers for name in PROJECTIONS
+               for m in [layer.get_submodule(name)] for t in (*m.parameters(), *m.buffers()))
+
+
+def decode_step_ms(model, gen) -> float:
+    """Device time of one decode step (all layers, the kernels' path) of the
+    model at DECODE_STEP's shape, bf16 cache, from a CUDA-graph replay."""
+    dec, dtype = model.config.decoder, model.token_embed.weight.dtype
+    B, S, K, step, length = DECODE_STEP
+    cache = qwen_decoder.init_cache(dec, B, S, dtype, "cuda")
+    cache["len"].fill_(length)
+    ck = torch.zeros((dec.num_hidden_layers, B, dec.num_key_value_heads, K, dec.head_dim), dtype=dtype, device="cuda")
+    cv, emb, base = torch.zeros_like(ck), randn(gen, B, dec.hidden_size, scale=1.0).to(dtype), cache["len"].clone()
+    with torch.inference_mode():
+        return cuda_ms(lambda: model.decoder.decode_step_chunked(cache, ck, cv, emb, step, base), reps=10)
+
+
+def greedy_decoder_tokens(model, device, steps=8):
+    """Greedy token ids of the decoder alone (plain attention) over seeded
+    random prompt embeddings: the prefill's token, then `steps` decode
+    steps. Returns (tokens [B, steps + 1], the smallest top-2 logit gap)."""
+    dec = model.config.decoder
+    g = torch.Generator().manual_seed(SEED)
+    B, L = 16, 32
+    embeds = (torch.randn((B, L, dec.hidden_size), generator=g) * 0.5).to(device)
+    seq_lens = torch.randint(8, L + 1, (B,), generator=g).to(device)
+    tokens, gaps = [], []
+
+    def sample(hidden):
+        logits = (hidden @ model.token_embed.weight.T + model.lm_head_bias).float()
+        top2 = logits.topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).min().item())
+        tokens.append(logits.argmax(-1))
+        return tokens[-1]
+
+    with torch.inference_mode():
+        nk, nv, last = model.decoder.prefill(embeds, seq_lens, use_kernels=False)
+        cache = qwen_decoder.init_cache(dec, B, 64, torch.float32, device)
+        qwen_decoder.merge_prefill(cache, nk, nv, seq_lens, torch.arange(B, device=device))
+        ck = torch.zeros((dec.num_hidden_layers, B, dec.num_key_value_heads, steps, dec.head_dim), device=device)
+        cv, base = torch.zeros_like(ck), cache["len"].clone()
+        token = sample(last)
+        for step in range(steps):
+            hidden = model.decoder.decode_step_chunked(cache, ck, cv, model.token_embed(token), step, base,
+                                                       use_kernels=False)
+            token = sample(hidden)
+    return torch.stack(tokens, 1).cpu(), min(gaps)
+
+
+def check_int8_weights(pred, det, pages, gen, power):
+    """RecognitionPredictor with RECOGNITION_WEIGHT_QUANTIZE (int8 decoder
+    projections) at production width, random bf16 weights from the seed of
+    the bf16-weight predictor `pred` (the same weights, quantized): whole-page
+    OCR of the 8 synthetic pages, pinned, with the bf16 and the int8 cache,
+    in turns with `pred` (bf16, int8, int8, bf16 weights). Each run finds
+    every line and decodes 40 tokens a line; the int8-weight runs launch K1,
+    K2 and K3 (bf16 cache) or K3q (int8 cache). Prints walls, lines/s, the
+    projections' bytes, the token agreement with the bf16-weight run (random
+    weights flip near-ties, so it is printed only) and a decode step's device
+    time with each weight type. Then the quantized decoder in float32 on the
+    card (TF32 off) against the CPU at 2 layers: greedy token ids equal."""
+    t0 = time.perf_counter()
+    settings.RECOGNITION_WEIGHT_QUANTIZE = True
+    try:
+        qpred = RecognitionPredictor(device="cuda")
+    finally:
+        settings.RECOGNITION_WEIGHT_QUANTIZE = False
+    swapped = [isinstance(layer.get_submodule(n), QuantLinear) for layer in qpred.model.decoder.layers
+               for n in PROJECTIONS]
+    if not all(swapped):
+        raise AssertionError(f"{swapped.count(False)} decoder projections are not int8")
+    q_bytes, b_bytes = projection_bytes(qpred.model.decoder), projection_bytes(pred.model.decoder)
+    print(f"    int8-weight model built in {time.perf_counter() - t0:.1f} s: {len(swapped)} projections int8; "
+          f"their bytes {q_bytes} against {b_bytes} in bf16 ({q_bytes / b_bytes:.4f})")
+    set_pin(True)
+    for cache in ("bf16", "int8"):
+        settings.RECOGNITION_MODEL_QUANTIZE = cache == "int8"
+        decode = "gqa_decode_int8" if cache == "int8" else "gqa_decode"
+        for p in (pred, qpred):
+            run_pages(p, det, pages, PIPELINE_PAGES)  # warm-up at these shapes
+        walls, tokens = {"bf16": [], "int8": []}, {}
+        for weights, p in [("bf16", pred), ("int8", qpred), ("int8", qpred), ("bf16", pred)]:
+            reset_counts()
+            results, wall, det_calls, tokens[weights] = run_pages(p, det, pages, PIPELINE_PAGES)
+            launches = read_counts()
+            n_l, n_t = check_lines(results, pages, OCR_LINES), sum(len(t) for t in tokens[weights])
+            if n_t != PIN_TOKENS * n_l:
+                raise AssertionError(f"{n_t} tokens for {n_l} lines, want {PIN_TOKENS} a line")
+            walls[weights].append(wall)
+            print(f"    {weights} weights, {cache} cache: {len(pages)} pages, {n_l} lines, {n_t} tokens; wall "
+                  f"{wall:.4f} s (detection {sum(det_calls):.4f} s), {n_l / wall:.2f} lines/s [{power}]")
+            if weights == "int8":
+                assert_launched(f"int8 weights, {cache} cache", launches,
+                                ["segmented_block_attention", "causal_flash_attention", decode],
+                                ["gqa_decode" if cache == "int8" else "gqa_decode_int8"])
+        same, same0, first = agreement(tokens["int8"], tokens["bf16"])
+        print(f"    {cache} cache: int8 against bf16 weights, walls {' '.join(f'{w:.4f}' for w in walls['int8'])} "
+              f"against {' '.join(f'{w:.4f}' for w in walls['bf16'])} s (ratio "
+              f"of the means {np.mean(walls['int8']) / np.mean(walls['bf16']):.4f}); token ids {same:.4f} of the "
+              f"lines the same, {same0:.4f} with the same token 0, the first difference at token {first} (median)")
+    settings.RECOGNITION_MODEL_QUANTIZE = False
+    b_ms, q_ms = decode_step_ms(pred.model, gen), decode_step_ms(qpred.model, gen)
+    B, S, K, step, length = DECODE_STEP
+    print(f"    one decode step, {B} slots, cache {S} rows ({length} valid), step {step} of {K}, device time: bf16 "
+          f"weights {b_ms:.4f} ms, int8 weights {q_ms:.4f} ms ({q_ms / b_ms:.4f}x) [{power}]")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = qpred.config
+    small = dataclasses.replace(config, encoder=dataclasses.replace(config.encoder, depth=1, fullatt_block_indexes=(0,)),
+                                decoder=dataclasses.replace(config.decoder, num_hidden_layers=2))
+    settings.RECOGNITION_WEIGHT_QUANTIZE = True
+    try:
+        gpu = random_model(small, "cuda", dtype=torch.float32)
+        with torch.device("meta"):
+            cpu = FoundationModel(small)
+            qwen_decoder.quantize_weights(cpu.decoder)
+        cpu = cpu.to_empty(device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        (tok_g, gap_g), (tok_c, gap_c) = greedy_decoder_tokens(gpu, "cuda"), greedy_decoder_tokens(cpu.eval(), "cpu")
+    finally:
+        settings.RECOGNITION_WEIGHT_QUANTIZE = False
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    same = int((tok_g == tok_c).sum())
+    print(f"    int8-weight decoder, 2 layers, float32 on the card (TF32 off) against the CPU: {same} of "
+          f"{tok_c.numel()} greedy token ids equal (smallest top-2 logit gap {gap_c:.3e} on the CPU, "
+          f"{gap_g:.3e} on the card)")
+    if same != tok_c.numel():
+        raise AssertionError("the int8-weight decoder gives other token ids on the card than on the CPU")
+
+
+def ocr_error_texts(rng):
+    """OCR_ERROR_TEXTS texts a sequence bucket, in bucket order: texts of
+    random words (each word one token of the hash vocabulary, plus CLS and
+    SEP), so that each batch of 64 fills one bucket."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+    texts, buckets = [], []
+    for bucket, (lo, hi) in OCR_ERROR_WORDS.items():
+        for _ in range(OCR_ERROR_TEXTS):
+            n = int(rng.integers(lo, hi + 1))
+            lengths = rng.integers(2, 9, n)
+            chars = "".join(rng.choice(letters, int(lengths.sum())))
+            ends = np.cumsum(lengths)
+            texts.append(" ".join(chars[e - k:e] for e, k in zip(ends, lengths)))
+            buckets.append(bucket)
+    return texts, buckets
+
+
+def check_ocr_error(power):
+    """OCRErrorPredictor at full width (DistilBERT 6 layers, 768 wide, 12
+    heads), random bf16 weights, on OCR_ERROR_TEXTS texts in each of the four
+    sequence buckets: every text labelled, the batches at the expected rows
+    and buckets, no hand-written kernel launched (the JAX package runs plain
+    attention here). Then the model in float32 on the card (TF32 off)
+    against the CPU on 4 texts a bucket: logits within LOGITS_REL_ERR of the
+    largest. Returns the predictor."""
+    t0 = time.perf_counter()
+    oe = OCRErrorPredictor(device="cuda")
+    c = oe.config
+    print(f"    model built in {time.perf_counter() - t0:.1f} s: {c.n_layers} layers, dim {c.dim}, {c.n_heads} heads, "
+          f"FFN {c.hidden_dim}, vocab {c.vocab_size}; batch {oe.get_batch_size()}; {oe.model.classifier.weight.dtype} "
+          f"[{power}]")
+    texts, buckets = ocr_error_texts(np.random.default_rng(SEED + 3))
+    oe(texts)  # warm-up at these shapes
+    reset_counts()
+    result, wall = synchronised(oe, texts)
+    launches = read_counts()
+    rows = oe.get_batch_size()
+    want = [(rows, b) for b in OCR_ERROR_WORDS for _ in range(-(-OCR_ERROR_TEXTS // rows))]
+    if len(result.labels) != len(texts) or oe.last_run["batches"] != want:
+        raise AssertionError(f"{len(result.labels)} labels for {len(texts)} texts in batches "
+                             f"{oe.last_run['batches']}, want {want}")
+    per_bucket = {b: {lab: sum(1 for x, y in zip(buckets, result.labels) if x == b and y == lab)
+                      for lab in ("good", "bad")} for b in OCR_ERROR_WORDS}
+    print(f"    {len(texts)} texts, batches (rows, bucket) {oe.last_run['batches']}; labels by bucket {per_bucket}; "
+          f"wall {wall:.4f} s, {len(texts) / wall:.1f} texts/s [{power}]")
+    if any(launches[k] for k in COUNTERS):
+        raise AssertionError(f"the OCR error path launched {launches}")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = ocr_error_random_model(c, "cuda", dtype=torch.float32)
+        cpu = DistilBert(c).eval()
+        cpu.load_state_dict(gpu.state_dict())
+        worst = 0.0
+        for b in OCR_ERROR_WORDS:
+            enc = oe.processor([t for t, x in zip(texts, buckets) if x == b][:4])
+            ids = np.pad(np.asarray(enc["input_ids"], np.int32), ((0, 0), (0, b - len(enc["input_ids"][0]))))
+            mask = np.pad(np.asarray(enc["attention_mask"], np.int32), ((0, 0), (0, b - len(enc["input_ids"][0]))))
+            with torch.inference_mode():
+                lg = gpu(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()).cpu()
+                lc = cpu(torch.from_numpy(ids), torch.from_numpy(mask))
+            worst = max(worst, float((lg - lc).abs().max() / lc.abs().max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"    float32 on the card (TF32 off) against the CPU, 4 texts a bucket: logits within {worst:.3e} of the "
+          f"largest (limit {LOGITS_REL_ERR:.0e})")
+    if not worst <= LOGITS_REL_ERR:
+        raise AssertionError(f"the card's float32 logits are {worst:.3e} from the CPU's")
+    return oe
+
+
+def check_clis(pred, det, lay, tab, power):
+    """The five CLIs on a folder of CLI_PAGES pages of bench.py's shape,
+    each called in-process through its main(argv) with the predictors of
+    the earlier phases wrapped in (the detector with the blob hook, the
+    table recognizer with the synthetic tables, as the CPU tests wrap
+    theirs), bf16 cache, 40 pinned tokens a line: each writes a
+    results.json in the JAX CLIs' layout, and ocr_text and ocr_latex launch
+    K1, K2 and K3. Then ocr_latex once more as a subprocess, `python -m
+    surya_tpu_torch.scripts.ocr_latex`, with no wrapper (full width, random
+    weights). ocr_text runs without --images: its text renderer fetches a
+    font from the network."""
+    set_pin(True)
+    settings.RECOGNITION_MODEL_QUANTIZE = False
+    built = {"DetectionPredictor": det, "RecognitionPredictor": pred, "LayoutPredictor": lay,
+             "TableRecPredictor": tab}
+
+    def check_rows(name, out):
+        rows = json.loads((out / "pages" / "results.json").read_text())
+        keys = CLI_KEYS[name]
+        if list(rows) != [f"page_{i}" for i in range(CLI_PAGES)] or any(
+                [r["page"] for r in v] != [1] or set(v[0]) != keys for v in rows.values()):
+            raise AssertionError(f"{name}: results.json is not in the JAX layout: "
+                                 f"{ {k: [sorted(r) for r in v] for k, v in rows.items()} }")
+        return rows
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp) / "pages"
+        folder.mkdir()
+        for i, page in enumerate(bench_pages(CLI_PAGES)):
+            page.save(folder / f"page_{i}.png")
+        for name, (module, classes, extra, launched) in CLIS.items():
+            saved = {cls: getattr(module, cls) for cls in classes}
+            for cls in classes:
+                setattr(module, cls, lambda *a, _p=built[cls], **k: _p)
+            out = Path(tmp) / name
+            reset_counts()
+            try:
+                _, wall = synchronised(module.main, [str(folder), "--output_dir", str(out), *extra])
+            finally:
+                for cls, fn in saved.items():
+                    setattr(module, cls, fn)
+            launches = read_counts()
+            rows = check_rows(name, out)
+            what = {"detect_text": lambda r: f"{len(r['bboxes'])} boxes",
+                    "ocr_text": lambda r: f"{len(r['text_lines'])} lines",
+                    "ocr_latex": lambda r: f"{len(r['equation'])} characters",
+                    "detect_layout": lambda r: f"{len(r['bboxes'])} boxes",
+                    "table_recognition": lambda r: f"{len(r['rows'])} rows, {len(r['cols'])} columns, "
+                                                   f"{len(r['cells'])} cells"}[name]
+            print(f"    {name} {' '.join(extra)}: {', '.join(what(v[0]) for v in rows.values())}; wall {wall:.4f} s "
+                  f"for {CLI_PAGES} pages [{power}]")
+            assert_launched(f"CLI {name}", {k: v for k, v in launches.items() if k != K1_BY_RANGE}, launched,
+                            [k for k in COUNTERS if k not in launched])
+        env = dict(os.environ, RECOGNITION_MAX_TOKENS=str(PIN_TOKENS), RECOGNITION_PIN_DECODE="true")
+        out = Path(tmp) / "ocr_latex_subprocess"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "surya_tpu_torch.scripts.ocr_latex", str(folder),
+                               "--output_dir", str(out)], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"python -m surya_tpu_torch.scripts.ocr_latex exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        rows = check_rows("ocr_latex", out)
+        print(f"    python -m surya_tpu_torch.scripts.ocr_latex (a process of its own, full width, no wrapper): exit "
+              f"0, {[len(v[0]['equation']) for v in rows.values()]} characters; wall {wall:.4f} s with the start, "
+              f"the model build and the kernels' load [{power}]")
 
 
 def assert_launched(label, run_counts, launched, not_launched=()):
@@ -1335,13 +1674,22 @@ def main():
 
     layout_pages = bench_pages(LAYOUT_PAGES)
     print(f"[13] layout analysis at full width, random bf16 weights: {LAYOUT_PAGES} pages of 1240x1754")
-    check_layout(layout_pages, power)
+    lay = check_layout(layout_pages, power)
     print(f"[14] table recognition at full width, random bf16 weights, synthetic {TABLE_ROWS} x {TABLE_COLS} "
           f"tables: {TABLE_CROPS} crops of 768x768")
-    check_table_rec(layout_pages, power)
+    tab = check_table_rec(layout_pages, power)
     print("[15] two RecognitionPredictors decoding at once in two threads, against one after the other")
     check_two_predictors(pred, pages, bboxes, power)
     check_decode_on_two_streams(gen, power)
+    set_pin(False)
+    print(f"[16] int8 decoder weights (RECOGNITION_WEIGHT_QUANTIZE) at production width: whole-page OCR of "
+          f"{OCR_PAGES} pages, bf16 and int8 cache, against bf16 weights")
+    check_int8_weights(pred, det, ocr_pages, gen, power)
+    print(f"[17] OCR error detection at full width, random bf16 weights: {OCR_ERROR_TEXTS} texts in each of the "
+          f"sequence buckets {list(OCR_ERROR_WORDS)}")
+    check_ocr_error(power)
+    print(f"[18] the five CLIs on {CLI_PAGES} pages of 1240x1754, then ocr_latex as a process of its own")
+    check_clis(pred, det, lay, tab, power)
     set_pin(False)
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given

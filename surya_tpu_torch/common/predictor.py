@@ -2,8 +2,11 @@
 surya_tpu/common/predictor.py, without the mesh code).
 
 Construction loads the model on an explicit device; ``__call__`` maps
-images to typed results. Batch-size defaults are keyed by the device type;
-a settings field, read when the batch size is asked for, overrides them.
+images (or texts) to typed results. Every predictor takes the JAX
+package's positional arguments ``(checkpoint=None, tiny=False)``; loading
+a checkpoint is not ported, so a checkpoint that is given raises.
+Batch-size defaults are keyed by the device type; a settings field, read
+when the batch size is asked for, overrides them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,12 @@ class BasePredictor:
     default_batch_sizes: Dict[str, int] = {"cpu": 2, "cuda": 32}
     batch_size_setting: Optional[str] = None  # name of the settings field that overrides the default
 
-    def __init__(self, device=None):
+    def __init__(self, checkpoint: Optional[str] = None, device=None):
+        if checkpoint is not None:
+            raise NotImplementedError(
+                f"checkpoint {checkpoint!r}: the PyTorch port cannot load checkpoints yet; pass "
+                "checkpoint=None for random weights (ALLOW_RANDOM_WEIGHTS=true) or jax_params= for a JAX pytree"
+            )
         self.device = resolve_device(device)
         self.disable_tqdm = settings.DISABLE_TQDM
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None

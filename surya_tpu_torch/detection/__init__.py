@@ -84,13 +84,15 @@ class DetectionPredictor(BasePredictor):
     default_batch_sizes = {"cpu": 8, "cuda": 32}
     resize_cache_entries = 32  # device resize-matrix stacks kept, least recently used evicted first
 
-    def __init__(self, tiny: bool = False, device=None, jax_params: Optional[dict] = None):
-        """tiny: the small test configuration; jax_params: the JAX detection
-        pytree as numpy leaves, whose weights the model takes (random weights
-        from WEIGHT_SEED otherwise)."""
+    def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
+                 jax_params: Optional[dict] = None):
+        """checkpoint: not loadable yet (raises unless None); tiny: the
+        small test configuration; jax_params: the JAX detection pytree as
+        numpy leaves, whose weights the model takes (random weights from
+        WEIGHT_SEED otherwise)."""
         self._tiny = tiny
         self._jax_params = jax_params
-        super().__init__(device)
+        super().__init__(checkpoint, device)
 
     def _load(self):
         self.model, self.config = load_detection_model(self._tiny, self.device, self._jax_params)

@@ -85,17 +85,19 @@ class LayoutPredictor(BasePredictor):
     batch_size_setting = "LAYOUT_BATCH_SIZE"
     default_batch_sizes = {"cpu": 4, "cuda": 16}
 
-    def __init__(self, tiny: bool = False, device=None, jax_params: Optional[dict] = None,
-                 config: Optional[LayoutConfig] = None, dtype: Optional[torch.dtype] = None):
-        """tiny: the small test configuration; config: any other; jax_params:
-        the JAX layout pytree as numpy leaves, whose weights the model takes
-        (random weights from WEIGHT_SEED otherwise); dtype: the model's
-        (default bfloat16 on CUDA, float32 on the CPU)."""
+    def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
+                 jax_params: Optional[dict] = None, config: Optional[LayoutConfig] = None,
+                 dtype: Optional[torch.dtype] = None):
+        """checkpoint: not loadable yet (raises unless None); tiny: the
+        small test configuration; config: any other; jax_params: the JAX
+        layout pytree as numpy leaves, whose weights the model takes (random
+        weights from WEIGHT_SEED otherwise); dtype: the model's (default
+        bfloat16 on CUDA, float32 on the CPU)."""
         self._tiny = tiny
         self._jax_params = jax_params
         self._config = config
         self._dtype = dtype
-        super().__init__(device)
+        super().__init__(checkpoint, device)
 
     def _load(self):
         self.model, self.config = load_layout_model(self._tiny, self.device, self._jax_params, self._config,

@@ -15,6 +15,9 @@ the chunk buffers.
 scale per (layer, slot, head, row) (``RECOGNITION_MODEL_QUANTIZE``); the
 chunk buffers stay in the compute dtype, and rows are quantized when they
 enter the cache (kernel K3q reads them).
+
+``quantize_weights`` swaps the seven projections of every layer for int8
+weights with float32 per-channel scales (``RECOGNITION_WEIGHT_QUANTIZE``).
 """
 
 from __future__ import annotations
@@ -134,6 +137,20 @@ class Decoder(nn.Module):
             x = x + layer.self_attn.o_proj(out.reshape(B, 1, -1))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         return self.norm(x)[:, 0]
+
+
+def quantize_weights(decoder: Decoder) -> Decoder:
+    """Weight-only int8 for every decoder projection (RECOGNITION_WEIGHT_
+    QUANTIZE), in place: q, k, v, o and gate, up, down of every layer become
+    ``nn.QuantLinear``s (surya_tpu qwen_decoder.quantize_weights). The
+    weights are quantized as they are, so after the cast to the model dtype,
+    as the JAX package quantizes its params at MODEL_DTYPE."""
+    for layer in decoder.layers:
+        for block, names in ((layer.self_attn, ("q_proj", "k_proj", "v_proj", "o_proj")),
+                             (layer.mlp, ("gate_proj", "up_proj", "down_proj"))):
+            for name in names:
+                setattr(block, name, pnn.quantize_linear(getattr(block, name)))
+    return decoder
 
 
 def init_cache(config: DecoderConfig, n_slots: int, max_seq: int, dtype, device, quantize: bool = False) -> dict:

@@ -1,0 +1,136 @@
+"""OCR error detection of the PyTorch port: a DistilBERT classifier that
+labels each text "good" or "bad" (counterpart of surya_tpu/ocr_error).
+
+Texts are WordPiece-encoded on the host; each batch is padded to the
+smallest of SEQ_BUCKETS that holds its longest text and its rows to the
+next power of two up to the batch size (the last row repeated), so that a
+partial last batch does not pay for a full one; only the real rows' labels
+are kept. One batch stays in flight: batch k's logits are fetched only
+after batch k + 1 is enqueued (pinned uploads, an event wait). On CUDA the
+predictor runs on a stream of its own.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from tqdm import tqdm
+
+from surya_tpu_torch import nn as pnn
+from surya_tpu_torch.common.predictor import BasePredictor
+from surya_tpu_torch.models.distilbert import ID2LABEL, DistilBert, DistilBertConfig
+from surya_tpu_torch.ocr_error.schema import OCRErrorDetectionResult
+from surya_tpu_torch.ocr_error.tokenizer import WordPieceTokenizer
+from surya_tpu_torch.settings import model_dtype, resolve_device, settings
+
+SEQ_BUCKETS = (64, 128, 256, 512)
+# surya_tpu/ocr_error/__init__.py's tiny config
+TINY = dict(n_layers=2, n_heads=4, dim=64, hidden_dim=128)
+
+
+def ocr_error_config(tiny: bool = False) -> DistilBertConfig:
+    return DistilBertConfig(**TINY) if tiny else DistilBertConfig()
+
+
+def from_jax_params(params: dict, config: DistilBertConfig, device=None,
+                    dtype: Optional[torch.dtype] = None) -> DistilBert:
+    """The port's model with the weights of a JAX DistilBERT pytree given as
+    numpy leaves (``jax.tree.map(np.asarray, params)``)."""
+    device = resolve_device(device)
+    model = DistilBert(config)
+    pnn.load_jax_params(model, params)
+    return model.to(device=device, dtype=dtype or model_dtype(device)).eval().requires_grad_(False)
+
+
+def random_model(config: DistilBertConfig, device=None, dtype: Optional[torch.dtype] = None,
+                 seed: Optional[int] = None) -> DistilBert:
+    """Random weights from `seed` (default WEIGHT_SEED), drawn on the device:
+    linear weights and embeddings ~ N(0, 0.02^2), biases 0, norms identity."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = DistilBert(config)
+    model = model.to_empty(device=device)
+    gen = torch.Generator(device=device).manual_seed(settings.WEIGHT_SEED if seed is None else seed)
+    pnn.init_normal_(model, gen)
+    return model.to(dtype=dtype or model_dtype(device)).eval().requires_grad_(False)
+
+
+def load_ocr_error_model(tiny: bool = False, device=None, jax_params: Optional[dict] = None,
+                         ) -> Tuple[DistilBert, DistilBertConfig, WordPieceTokenizer]:
+    """(model, config, tokenizer): full width (6 layers, 768 wide, 12 heads)
+    or the tiny test config, with the weights of `jax_params` or random ones
+    (ALLOW_RANDOM_WEIGHTS); the tokenizer falls back to its hash vocabulary."""
+    config = ocr_error_config(tiny)
+    if jax_params is not None:
+        return from_jax_params(jax_params, config, device), config, WordPieceTokenizer()
+    if not settings.ALLOW_RANDOM_WEIGHTS:
+        raise FileNotFoundError(
+            "the PyTorch port has no checkpoint loading yet; set ALLOW_RANDOM_WEIGHTS=true "
+            "for random weights (tests and benchmarks only)"
+        )
+    return random_model(config, device), config, WordPieceTokenizer()
+
+
+def row_bucket(current: int, batch_size: int) -> int:
+    """Rows a batch of `current` texts runs at: the next power of two, at
+    most the batch size."""
+    return min(1 << max(current - 1, 0).bit_length(), batch_size)
+
+
+class OCRErrorPredictor(BasePredictor):
+    batch_size_setting = "OCR_ERROR_BATCH_SIZE"
+    default_batch_sizes = {"cpu": 8, "cuda": 64}
+
+    def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
+                 jax_params: Optional[dict] = None):
+        """checkpoint: not loadable yet (raises unless None); tiny: the
+        small test configuration; jax_params: the JAX DistilBERT pytree as
+        numpy leaves, whose weights the model takes (random weights from
+        WEIGHT_SEED otherwise)."""
+        self._tiny = tiny
+        self._jax_params = jax_params
+        super().__init__(checkpoint, device)
+
+    def _load(self):
+        self.model, self.config, self.processor = load_ocr_error_model(self._tiny, self.device, self._jax_params)
+        self._jax_params = None
+        self.last_run: dict = {}  # the last call's batches: (rows, sequence bucket) of each
+
+    def __call__(self, texts: List[str], batch_size: Optional[int] = None) -> OCRErrorDetectionResult:
+        return self.batch_ocr_error_detection(texts, batch_size)
+
+    def batch_ocr_error_detection(self, texts: List[str], batch_size: Optional[int] = None
+                                  ) -> OCRErrorDetectionResult:
+        if batch_size is None:
+            batch_size = self.get_batch_size()
+        run = self.last_run = {"batches": []}
+        predictions: List[int] = []
+        inflight = None
+        for lo in tqdm(range(0, len(texts), batch_size), total=math.ceil(len(texts) / batch_size),
+                       desc="Running OCR Error Detection", disable=self.disable_tqdm):
+            encoded = self.processor(texts[lo:lo + batch_size], max_length=self.config.max_position_embeddings)
+            ids = np.asarray(encoded["input_ids"], np.int32)
+            mask = np.asarray(encoded["attention_mask"], np.int32)
+            current = ids.shape[0]
+            L = next(b for b in SEQ_BUCKETS if b >= ids.shape[1])
+            rows = row_bucket(current, batch_size)
+            ids = np.pad(ids, ((0, 0), (0, L - ids.shape[1])))
+            mask = np.pad(mask, ((0, 0), (0, L - mask.shape[1])))
+            ids, mask = (np.pad(a, ((0, rows - current), (0, 0)), mode="edge") for a in (ids, mask))
+            run["batches"].append((rows, L))
+            with self._on_stream(), torch.inference_mode():
+                handle = self._fetch(self.model(self._upload(ids), self._upload(mask)))
+            # fetch the previous batch only now that this one is enqueued
+            if inflight is not None:
+                predictions.extend(self._finish(*inflight))
+            inflight = (handle, current)
+        if inflight is not None:
+            predictions.extend(self._finish(*inflight))
+        return OCRErrorDetectionResult(texts=texts, labels=[ID2LABEL[p] for p in predictions])
+
+    def _finish(self, handle, current: int) -> List[int]:
+        [logits] = self._wait(handle)
+        return logits.argmax(axis=1)[:current].tolist()

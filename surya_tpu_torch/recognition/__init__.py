@@ -100,13 +100,15 @@ class RecognitionPredictor(BasePredictor):
         TaskNames.block_without_boxes: {"img_size": (1024, 512), "max_tokens": 768},
     }
 
-    def __init__(self, tiny: bool = False, device=None, jax_params: Optional[dict] = None):
-        """tiny: the small test configuration; jax_params: the JAX foundation
-        pytree as numpy leaves, whose weights the model takes (random weights
-        from WEIGHT_SEED otherwise)."""
+    def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
+                 jax_params: Optional[dict] = None):
+        """checkpoint: not loadable yet (raises unless None); tiny: the
+        small test configuration; jax_params: the JAX foundation pytree as
+        numpy leaves, whose weights the model takes (random weights from
+        WEIGHT_SEED otherwise)."""
         self._tiny = tiny
         self._jax_params = jax_params
-        super().__init__(device)
+        super().__init__(checkpoint, device)
 
     def _load(self):
         self.model, self.config, self.processor = load_recognition_model(

@@ -5,6 +5,12 @@ default production widths (``tiny=True``: the JAX package's tiny test
 config) with random weights drawn from ``WEIGHT_SEED``, or, given the JAX
 foundation pytree, with exactly its weights (``from_jax_params``). Loading a
 real checkpoint is not ported yet.
+
+With ``RECOGNITION_WEIGHT_QUANTIZE`` the decoder's projections are int8
+(``qwen_decoder.quantize_weights``), quantized after the cast to the model
+dtype as the JAX loader quantizes its params at MODEL_DTYPE; a JAX pytree
+that holds ``kernel_q`` leaves (quantized by the JAX loader) is carried
+over as it is, whatever the setting.
 """
 
 from __future__ import annotations
@@ -59,8 +65,14 @@ def from_jax_params(params: dict, config: FoundationConfig, device=None,
     surya_tpu.models.foundation.init_params is carried over."""
     device = resolve_device(device)
     model = FoundationModel(config)
+    quantized = "kernel_q" in params["decoder"]["layers"][0]["self_attn"]["q_proj"]
+    if quantized:
+        qwen_decoder.quantize_weights(model.decoder)  # the leaves fill the int8 buffers
     pnn.load_jax_params(model, params)
-    return model.to(device=device, dtype=dtype or model_dtype(device)).eval().requires_grad_(False)
+    model = model.to(device=device, dtype=dtype or model_dtype(device))
+    if settings.RECOGNITION_WEIGHT_QUANTIZE and not quantized:
+        qwen_decoder.quantize_weights(model.decoder)
+    return model.eval().requires_grad_(False)
 
 
 def random_model(config: FoundationConfig, device=None, dtype: Optional[torch.dtype] = None,
@@ -75,7 +87,10 @@ def random_model(config: FoundationConfig, device=None, dtype: Optional[torch.dt
     pnn.init_normal_(model, gen)
     with torch.no_grad():
         model.lm_head_bias.zero_()
-    return model.to(dtype=dtype or model_dtype(device)).eval().requires_grad_(False)
+    model = model.to(dtype=dtype or model_dtype(device))
+    if settings.RECOGNITION_WEIGHT_QUANTIZE:
+        qwen_decoder.quantize_weights(model.decoder)
+    return model.eval().requires_grad_(False)
 
 
 def load_recognition_model(

@@ -23,6 +23,7 @@ from pathlib import Path
 from typing import Dict, Mapping, Optional
 
 import torch
+from platformdirs import user_cache_dir
 
 
 def load_dotenv(path: str = "local.env") -> Dict[str, str]:
@@ -91,6 +92,22 @@ class Settings:
         self.ALLOW_RANDOM_WEIGHTS = _bool(env, "ALLOW_RANDOM_WEIGHTS")
         self.WEIGHT_SEED = int(env.get("WEIGHT_SEED", "0") or 0)
         self.DISABLE_TQDM = _bool(env, "DISABLE_TQDM")
+        # input pages: detection and layout at IMAGE_DPI, OCR's and table
+        # rec's slices at IMAGE_DPI_HIGHRES (PDF rasterization)
+        self.IMAGE_DPI = int(env.get("IMAGE_DPI", "") or 96)
+        self.IMAGE_DPI_HIGHRES = int(env.get("IMAGE_DPI_HIGHRES", "") or 192)
+        self.RESULT_DIR = env.get("RESULT_DIR") or "results"
+        # Noto fonts of the debug text renderer, fetched at first use; PIL's
+        # own font where they cannot be
+        self.FONT_DIR = env.get("FONT_DIR") or str(Path(user_cache_dir("surya_tpu_torch")) / "fonts")
+        self.RECOGNITION_RENDER_FONTS = _json_dict(env, "RECOGNITION_RENDER_FONTS", {
+            "all": "GoNotoCurrent-Regular.ttf",
+            "zh": "GoNotoCJKCore.ttf",
+            "ja": "GoNotoCJKCore.ttf",
+            "ko": "GoNotoCJKCore.ttf",
+        })
+        self.RECOGNITION_FONT_DL_BASE = (env.get("RECOGNITION_FONT_DL_BASE")
+                                         or "https://github.com/satbyy/go-noto-universal/releases/download/v7.0")
         # detection (defaults of surya_tpu/settings.py)
         self.DETECTOR_BATCH_SIZE = _opt_int(env, "DETECTOR_BATCH_SIZE")
         self.DETECTOR_IMAGE_CHUNK_HEIGHT = int(env.get("DETECTOR_IMAGE_CHUNK_HEIGHT", "1400") or 1400)
@@ -119,6 +136,8 @@ class Settings:
         self.DETECTOR_GRAYSCALE_SHIP = _opt_bool(env, "DETECTOR_GRAYSCALE_SHIP")
         # recognition
         self.RECOGNITION_MODEL_QUANTIZE = _bool(env, "RECOGNITION_MODEL_QUANTIZE")  # int8 KV cache
+        # int8 decoder projections, one float32 scale an output channel
+        self.RECOGNITION_WEIGHT_QUANTIZE = _bool(env, "RECOGNITION_WEIGHT_QUANTIZE")
         self.RECOGNITION_PAD_VALUE = int(env.get("RECOGNITION_PAD_VALUE", "255") or 255)
         self.RECOGNITION_MAX_TOKENS = _opt_int(env, "RECOGNITION_MAX_TOKENS")
         self.RECOGNITION_DECODE_CHUNK = int(env.get("RECOGNITION_DECODE_CHUNK", "64") or 64)
@@ -152,6 +171,8 @@ class Settings:
         self.TABLE_REC_BATCH_SIZE = _opt_int(env, "TABLE_REC_BATCH_SIZE")
         # widest batch of the cell pass (pass 2): its batch doubles up to this
         self.TABLE_REC_CELL_BATCH_MAX = int(env.get("TABLE_REC_CELL_BATCH_MAX", "") or 128)
+        # OCR error detection
+        self.OCR_ERROR_BATCH_SIZE = _opt_int(env, "OCR_ERROR_BATCH_SIZE")
 
 settings = Settings()
 

@@ -6,7 +6,8 @@ KV cache) on the CPU, then the streaming path (more pages than
 RECOGNITION_DET_PIPELINE_PAGES) and ``stream()`` with detection's device
 resize, device stats and C++ CRAFT op, then layout analysis (a page above
 1500 px, so the slicer runs) and table recognition (with synthetic tables),
-and no module of either is loaded afterwards."""
+OCR error detection, recognition with int8 decoder weights and the LaTeX
+CLI's ``main()``; no module of either is loaded afterwards, nor click."""
 
 import os
 import subprocess
@@ -64,6 +65,31 @@ SCRIPT = textwrap.dedent(
     install_synthetic_tables(tables, n_rows=2, n_cols=2, n_cells=1)
     [table] = tables([img])
     assert len(table.rows) == 2 and len(table.cols) == 2 and table.cells
+
+    # OCR error detection, int8 decoder weights, and one CLI end to end
+    from surya_tpu_torch.nn import QuantLinear
+    from surya_tpu_torch.ocr_error import OCRErrorPredictor
+
+    result = OCRErrorPredictor(None, True, device="cpu")(["Hello world.", "H3ll0 w0rld", "ok"])
+    assert len(result.labels) == 3 and set(result.labels) <= {"good", "bad"}
+    settings.RECOGNITION_WEIGHT_QUANTIZE = True
+    qpred = RecognitionPredictor(None, True, device="cpu")
+    settings.RECOGNITION_WEIGHT_QUANTIZE = False
+    assert isinstance(qpred.model.decoder.layers[0].self_attn.q_proj, QuantLinear)
+    [page] = qpred([img], bboxes=[[[0, 0, 300, 60]]])
+    assert len(page.text_lines) == 1 and qpred.last_decoded_tokens > 0
+
+    import json, pathlib, tempfile
+    import surya_tpu_torch.scripts.ocr_latex as ocr_latex
+    ocr_latex.RecognitionPredictor = lambda *args, **kwargs: qpred  # the tiny int8-weight model
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = pathlib.Path(tmp) / "pages"
+        folder.mkdir()
+        img.save(folder / "a.png")
+        ocr_latex.main([str(folder), "--output_dir", str(pathlib.Path(tmp) / "out")])
+        rows = json.loads((pathlib.Path(tmp) / "out" / "pages" / "results.json").read_text())
+        assert list(rows) == ["a"] and set(rows["a"][0]) == {"equation", "page"}
+    assert "click" not in sys.modules
 
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert jax_like == ["jax"], jax_like  # only the blocking sentinel
