@@ -74,7 +74,23 @@ where one PyTorch call computes the same function, that call. Then:
   on a folder of 2 pages of bench.py's shape, with the predictors above
   wrapped in: each writes a results.json in the JAX CLIs' layout, and
   ocr_text and ocr_latex run on K1, K2 and K3; then ``python -m
-  surya_tpu_torch.scripts.ocr_latex`` as a process of its own.
+  surya_tpu_torch.scripts.ocr_latex`` as a process of its own;
+- writes each of the five models above as an upstream checkpoint directory
+  (``write_checkpoint``: upstream's torch key names and layouts, bf16
+  storage, config.json, a small Qwen2 BPE or a WordPiece vocab.txt) and
+  builds its predictor from it twice, converting and then reading the
+  converted-weight cache: every parameter bitwise equal to the source
+  model's, the outputs equal to the source predictor's (token ids of 8
+  whole pages of bench.py's shape, detection heatmaps, layout and table
+  boxes, OCR error labels), and the checkpoint-loaded recognition path on
+  K1, K2 and K3; each write and load timed.
+
+The random-weight phases point the five ``*_MODEL_CHECKPOINT`` settings at
+a path that does not exist, so that no predictor resolves or fetches a
+default ``s3://`` checkpoint. The exporter (``upstream_state_dict``,
+``write_checkpoint``) also serves tests/test_torch_checkpoint.py, which
+holds its key set to what the JAX package's ``convert_torch`` reads; the
+module imports without a card, and only running it needs one.
 
 K3 and K3q are also held against their plain versions, and timed, at the
 free-running path's 512-row cache: ragged lengths at three (step, layer)
@@ -105,6 +121,8 @@ import copy
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -118,11 +136,19 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-if not torch.cuda.is_available():
-    raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the GPU")
+# the five checkpoint settings; the random-weight phases point them at a path
+# that does not exist, so that no predictor resolves (or fetches) a default
+# s3:// checkpoint, nor the process that phase 18 starts
+CHECKPOINT_SETTINGS = ("DETECTOR_MODEL_CHECKPOINT", "RECOGNITION_MODEL_CHECKPOINT", "LAYOUT_MODEL_CHECKPOINT",
+                       "TABLE_REC_MODEL_CHECKPOINT", "OCR_ERROR_MODEL_CHECKPOINT")
 
-os.environ.setdefault("ALLOW_RANDOM_WEIGHTS", "true")
-os.environ.setdefault("DISABLE_TQDM", "true")
+if __name__ == "__main__":  # the settings are read when the port is first imported
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the GPU")
+    os.environ.setdefault("ALLOW_RANDOM_WEIGHTS", "true")
+    os.environ.setdefault("DISABLE_TQDM", "true")
+    for _name in CHECKPOINT_SETTINGS:
+        os.environ[_name] = os.devnull
 
 from PIL import Image, ImageDraw  # noqa: E402
 
@@ -130,6 +156,7 @@ from surya_tpu_torch.detection import DetectionPredictor, resize_on_device  # no
 from surya_tpu_torch.layout import LayoutPredictor  # noqa: E402
 from surya_tpu_torch.layout.slicer import ImageSlicer  # noqa: E402
 from surya_tpu_torch.models import qwen_decoder  # noqa: E402
+from surya_tpu_torch.models.adetr import DoneWatch  # noqa: E402
 from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
 from surya_tpu_torch.models.qwen_encoder import EncoderConfig, plan_layout  # noqa: E402
 from surya_tpu_torch.ops import _build, decode_attn, flash  # noqa: E402
@@ -140,7 +167,12 @@ from surya_tpu_torch.settings import settings  # noqa: E402
 from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables  # noqa: E402
 from surya_tpu_torch.models.distilbert import DistilBert  # noqa: E402
 from surya_tpu_torch.models.foundation import FoundationModel  # noqa: E402
+from surya_tpu_torch import nn as pnn  # noqa: E402
+from surya_tpu_torch.common.checkpoint import cache_path  # noqa: E402
+from surya_tpu_torch.common.weights import fold_batchnorm  # noqa: E402
 from surya_tpu_torch.nn import QuantLinear  # noqa: E402
+from surya_tpu_torch.ocr_error.tokenizer import WordPieceTokenizer  # noqa: E402
+from surya_tpu_torch.recognition.tokenizer import DEFAULT_SPECIAL_TOKENS  # noqa: E402
 from surya_tpu_torch.ocr_error import OCRErrorPredictor  # noqa: E402
 from surya_tpu_torch.ocr_error import random_model as ocr_error_random_model  # noqa: E402
 from surya_tpu_torch.recognition.loader import random_model  # noqa: E402
@@ -1554,6 +1586,292 @@ def check_clis(pred, det, lay, tab, power):
               f"the model build and the kernels' load [{power}]")
 
 
+# -- checkpoints under the upstream key names ----------------------------------
+# The round-trip phase (and tests/test_torch_checkpoint.py) writes a port model
+# as upstream ships its checkpoint: the torch key names and layouts that the
+# JAX package's convert_torch functions read (surya_tpu/models/*.py), stored
+# in the model's own dtype (bf16 on the card), with a config.json in the JAX
+# loaders' keys and the tokenizer files (a Qwen2 BPE for recognition, a
+# WordPiece vocab.txt for OCR error).
+
+_SWIN_NAMES = [  # DonutSwin encoder + ADETR decoder (layout and table rec)
+    (r"^encoder\.patch_embed\.", "encoder.embeddings.patch_embeddings.projection."),
+    (r"^encoder\.embed_norm\.", "encoder.embeddings.norm."),
+    (r"^encoder\.position_embeddings$", "encoder.position_embeddings"),
+    (r"^encoder\.stages\.(\d+)\.downsample\.", r"encoder.encoder.layers.\1.downsample."),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.norm1\.", r"encoder.encoder.layers.\1.blocks.\2.layernorm_before."),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.norm2\.", r"encoder.encoder.layers.\1.blocks.\2.layernorm_after."),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.attn\.(query|key|value)\.",
+     r"encoder.encoder.layers.\1.blocks.\2.attention.self.\3."),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.attn\.proj\.", r"encoder.encoder.layers.\1.blocks.\2.attention.output.dense."),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.attn\.rel_bias$",
+     r"encoder.encoder.layers.\1.blocks.\2.attention.self.relative_position_bias_table"),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.mlp\.fc1\.", r"encoder.encoder.layers.\1.blocks.\2.intermediate.dense."),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.mlp\.fc2\.", r"encoder.encoder.layers.\1.blocks.\2.output.dense."),
+    (r"^decoder\.", "decoder.model."),
+    (r"^embedder\.", "decoder.model.embed_tokens."),
+    (r"^heads\.", "decoder.box_property_heads."),
+    (r"^(pre_output_norm|lm_head|bbox_head)\.", r"decoder.\1."),
+]
+# port parameter name -> upstream key: the first rule that matches rewrites it
+UPSTREAM_NAMES = {
+    "detection": [
+        (r"^stem\.in_conv\.", "vit.stem.in_conv."),
+        (r"^stem\.(res\d+)\.", r"vit.stem.\1.main."),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.(?:down|fused|mb)\.", r"vit.stages.\1.blocks.\2.main."),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.vit\.attn\.aggreg_dw\.", r"vit.stages.\1.blocks.\2.context_module.main.aggreg.0.0."),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.vit\.attn\.aggreg_pw\.", r"vit.stages.\1.blocks.\2.context_module.main.aggreg.0.1."),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.vit\.attn\.", r"vit.stages.\1.blocks.\2.context_module.main."),
+        (r"^stages\.(\d+)\.blocks\.(\d+)\.vit\.mlp\.", r"vit.stages.\1.blocks.\2.local_module.main."),
+        (r"^head\.linear_c\.(\d+)\.", r"decode_head.linear_c.\1.proj."),
+        (r"^head\.", "decode_head."),
+    ],
+    "recognition": [
+        (r"^vision_encoder\.patch_embed\.weight$", "vision_encoder.patch_embed.proj.weight"),
+        (r"^vision_encoder\.merger\.mlp(\d)\.", r"vision_encoder.merger.mlp.\1."),
+        (r"^token_embed\.", "embedder.token_embed."),
+        (r"^lm_head_bias$", "lm_head.bias"),
+        (r"^(vision_encoder|decoder|img_w_embed|img_h_embed|bbox_head)\.", r"\1."),
+    ],
+    "layout": _SWIN_NAMES,
+    "table_rec": _SWIN_NAMES,
+    "ocr_error": [
+        (r"^(word_embeddings|position_embeddings)\.", r"distilbert.embeddings.\1."),
+        (r"^embed_layer_norm\.", "distilbert.embeddings.LayerNorm."),
+        (r"^layers\.(\d+)\.(q_lin|k_lin|v_lin|out_lin)\.", r"distilbert.transformer.layer.\1.attention.\2."),
+        (r"^layers\.(\d+)\.(lin1|lin2)\.", r"distilbert.transformer.layer.\1.ffn.\2."),
+        (r"^layers\.(\d+)\.", r"distilbert.transformer.layer.\1."),
+        (r"^(pre_classifier|classifier)\.", r"\1."),
+    ],
+}
+
+
+def upstream_name(kind: str, name: str) -> str:
+    for pattern, repl in UPSTREAM_NAMES[kind]:
+        new, n = re.subn(pattern, repl, name, count=1)
+        if n:
+            return new
+    raise KeyError(f"{kind}: no upstream key for the port's parameter {name}")
+
+
+def swin_relative_position_index(window: int) -> torch.Tensor:
+    """A Swin block's relative_position_index buffer (the loaders recompute it)."""
+    coords = torch.stack(torch.meshgrid(torch.arange(window), torch.arange(window), indexing="ij")).flatten(1)
+    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0) + (window - 1)
+    return rel[..., 0] * (2 * window - 1) + rel[..., 1]
+
+
+def upstream_state_dict(kind: str, model, config, gen: torch.Generator) -> dict:
+    """The port `model` of `kind` as upstream's torch state dict: CPU tensors
+    in the model's dtype under the upstream keys and layouts (the Conv3d
+    patch embed, the [1, L, D] position embeddings, the Swin index buffers).
+    A folded batch-norm is written as weight, bias, running_mean,
+    running_var and num_batches_tracked: its scale and bias as weight and
+    bias, random statistics (var in [0.5, 1.5)) drawn from `gen`. The fold
+    cannot be inverted, so the model's folded scale and bias are then set,
+    in place, to the fold of what was written (the loaders' arithmetic): the
+    model is the one the checkpoint holds."""
+    out = {}
+    norms = {n: m for n, m in model.named_modules() if isinstance(m, pnn.FoldedBatchNorm)}
+    for name, bn in norms.items():
+        up = upstream_name(kind, f"{name}.weight").removesuffix(".weight")
+        eps = 1e-5 if name == "head.batch_norm" else config.layer_norm_eps  # as efficientvit.convert_torch
+        n, dt = bn.weight.numel(), bn.weight.dtype
+        stats = (torch.randn(n, generator=gen, device=gen.device) * 0.1).to(dt), \
+            (torch.rand(n, generator=gen, device=gen.device) + 0.5).to(dt)
+        written = [t.detach().cpu().clone() for t in (bn.weight, bn.bias, *stats)]
+        out.update(zip((f"{up}.weight", f"{up}.bias", f"{up}.running_mean", f"{up}.running_var"), written))
+        out[f"{up}.num_batches_tracked"] = torch.tensor(0)
+        folded = fold_batchnorm(*(t.float().numpy() for t in written), eps=eps)
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(folded["scale"]))
+            bn.bias.copy_(torch.from_numpy(folded["bias"]))
+    skip = {f"{n}.{p}" for n in norms for p in ("weight", "bias")}
+    for name, t in model.state_dict().items():
+        if name in skip:
+            continue
+        t = t.detach().cpu()
+        if kind == "recognition" and name == "vision_encoder.patch_embed.weight":
+            e = config.encoder  # [out, in*t*p*p] -> the Conv3d's [out, in, t, p, p]
+            t = t.reshape(t.shape[0], e.in_channels, e.temporal_patch_size, e.patch_size, e.patch_size)
+        elif name == "encoder.position_embeddings":
+            t = t[None]
+        out[upstream_name(kind, name)] = t.clone()
+    if kind in ("layout", "table_rec"):
+        for i, depth in enumerate(config.encoder.depths):
+            for b in range(depth):
+                out[f"encoder.encoder.layers.{i}.blocks.{b}.attention.self.relative_position_index"] = \
+                    swin_relative_position_index(config.encoder.window_size)
+    return out
+
+
+def upstream_config(kind: str, config) -> dict:
+    """config.json in the keys the JAX package's loaders read."""
+    c = dataclasses.asdict(config)
+    if kind == "detection":
+        c["image_size"] = {"height": config.image_size[0], "width": config.image_size[1]}
+    elif kind == "recognition":
+        c["vision_encoder"] = c.pop("encoder")
+        c["special_ocr_tokens"] = DEFAULT_SPECIAL_TOKENS
+    elif kind == "layout":
+        c["decoder"].update(vocab_size=config.vocab_size, bbox_size=config.bbox_size,
+                            skew_scaler=config.skew_scaler, label_count=config.label_count)
+    elif kind == "table_rec":
+        c["decoder"].update(property_embed_size=config.property_embed_size, box_embed_size=config.box_embed_size)
+    return c
+
+
+def write_qwen2_tokenizer(path: Path) -> None:
+    """A byte-level BPE in Qwen2's files (vocab.json, merges.txt) that
+    ``transformers.Qwen2Tokenizer`` loads offline: the 248 byte values UTF-8
+    uses, 7 merges and <|endoftext|>, 256 entries in all, so that the OCR
+    tokenizer's ids are those of the random-weight byte fallback."""
+    printable = [*range(ord("!"), ord("~") + 1), *range(ord("¡"), ord("¬") + 1), *range(ord("®"), ord("ÿ") + 1)]
+    rest = [b for b in range(256) if b not in printable]
+    char = {b: chr(b) for b in printable} | {b: chr(256 + i) for i, b in enumerate(rest)}  # GPT-2's byte map
+    merges = [("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("Ġ", "a"), ("e", "r"), ("o", "n")]
+    tokens = [char[b] for b in range(0xF8)] + [a + b for a, b in merges] + ["<|endoftext|>"]
+    (path / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(tokens)}, ensure_ascii=False),
+                                     encoding="utf-8")
+    (path / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges), encoding="utf-8")
+
+
+def write_wordpiece_vocab(path: Path, size: int) -> None:
+    """A WordPiece vocab.txt of `size` lines in BERT's layout ([PAD] 0, [UNK]
+    100, [CLS] 101, [SEP] 102, [MASK] 103): letters, digits and punctuation,
+    the same as ## pieces, then unused slots."""
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789.,;:!?'\"()-")
+    tokens = ["[PAD]", *(f"[unused{i}]" for i in range(99)), "[UNK]", "[CLS]", "[SEP]", "[MASK]",
+              *chars, *("##" + c for c in chars)]
+    tokens += [f"[unused{i}]" for i in range(99, 99 + size - len(tokens))]
+    (path / "vocab.txt").write_text("\n".join(tokens) + "\n", encoding="utf-8")
+
+
+def write_checkpoint(path: Path, kind: str, model, config, gen: torch.Generator) -> int:
+    """Write `model` (of `kind`) into `path` as an upstream checkpoint
+    directory: model.safetensors, config.json and the tokenizer files.
+    Returns the safetensors file's size in bytes."""
+    from safetensors.torch import save_file
+
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(upstream_state_dict(kind, model, config, gen), str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(upstream_config(kind, config)))
+    if kind == "recognition":
+        write_qwen2_tokenizer(path)
+    elif kind == "ocr_error":
+        write_wordpiece_vocab(path, config.vocab_size)
+    return (path / "model.safetensors").stat().st_size
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().contiguous().flatten().view(torch.uint8), b.detach().contiguous().flatten().view(torch.uint8))
+
+
+def check_checkpoints(pred, det, lay, tab, oe, power):
+    """The checkpoint round trip at full width. Each of the five models of
+    the earlier phases (random bf16 weights on the card) is written as an
+    upstream checkpoint directory (upstream key names and layouts, bf16
+    storage, config.json, tokenizer files; ``write_checkpoint``), and its
+    predictor is built from that directory twice: the first build converts
+    and writes the converted-weight cache, the second reads the cache. Every
+    parameter of both must equal the source model's bit for bit, and the
+    outputs must equal the source predictor's: the token ids of 8 whole
+    pages of bench.py's shape (bf16 cache, pinned, through the detection
+    predictor above), on which the checkpoint-loaded recognition predictor
+    must launch K1, K2 and K3; detection's heatmaps; layout's boxes
+    (cap-bound) and table recognition's (synthetic tables); OCR error's
+    labels. The directory is deleted at the end."""
+    settings.RECOGNITION_WEIGHT_QUANTIZE = settings.RECOGNITION_MODEL_QUANTIZE = False
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    root = Path(tempfile.mkdtemp(prefix="surya_checkpoints_"))
+    sources = {"recognition": (pred, RecognitionPredictor), "detection": (det, DetectionPredictor),
+               "layout": (lay, LayoutPredictor), "table_rec": (tab, TableRecPredictor),
+               "ocr_error": (oe, OCRErrorPredictor)}
+    loaded = {}
+    try:
+        for kind, (src, cls) in sources.items():
+            path = root / kind
+            t0 = time.perf_counter()
+            size = write_checkpoint(path, kind, src.model, src.config, gen)
+            t_write = time.perf_counter() - t0
+            first, t_first = synchronised(cls, str(path))
+            cache = cache_path(str(path), kind, next(src.model.parameters()).dtype)
+            if not cache.exists():
+                raise AssertionError(f"{kind}: no converted-weight cache at {cache}")
+            second, t_second = synchronised(cls, str(path))
+            want = src.model.state_dict()
+            for label, p in (("converted", first), ("cached", second)):
+                got = p.model.state_dict()
+                bad = [k for k in want if k not in got or not bitwise_equal(got[k], want[k])]
+                if list(got) != list(want) or bad or p.config != src.config:
+                    raise AssertionError(f"{kind}, {label}: {len(bad)} tensors differ from the source model, "
+                                         f"e.g. {bad[:3]}; config equal: {p.config == src.config}")
+            n = sum(t.numel() for t in want.values())
+            print(f"    {kind}: {len(want)} tensors, {n} parameters; {size / 1e6:.1f} MB of safetensors "
+                  f"written in {t_write:.2f} s; built from the checkpoint in {t_first:.2f} s (conversion and "
+                  f"the cache's write), from the cache ({cache.stat().st_size / 1e6:.1f} MB) in {t_second:.2f} s; "
+                  f"every parameter of both bitwise equal to the source [{power}]")
+            loaded[kind] = first
+            del second
+
+        pages = bench_pages(OCR_PAGES)
+        set_pin(True)
+        _, wall_src, _, want = run_pages(pred, det, pages, 0)
+        reset_counts()
+        _, wall_ck, _, got = run_pages(loaded["recognition"], det, pages, 0)
+        counts = read_counts()
+        print(f"    recognition, {OCR_PAGES} whole pages of 1240x1754 (bf16 cache, pinned {PIN_TOKENS}): {len(got)} "
+              f"lines, {sum(map(len, got))} tokens; source {wall_src:.3f} s, checkpoint-loaded {wall_ck:.3f} s "
+              f"[{power}]")
+        assert_launched("checkpoint-loaded recognition", counts, RECOGNITION_KERNELS, ["gqa_decode_int8"])
+        if got != want or not got:
+            same = sum(a == b for a, b in zip(got, want))
+            raise AssertionError(f"token ids differ from the source predictor's: {same} of {len(want)} lines equal")
+        set_pin(False)
+
+        x = torch.from_numpy(np.stack([det.prepare_image(p.convert("RGB")) for p in pages[:4]]))
+        x = x.cuda().permute(0, 3, 1, 2).to(det.dtype) / 255.0
+        with torch.inference_mode():
+            heat, heat_ck = det.model.apply_heat(x), loaded["detection"].model.apply_heat(x)
+        if not torch.equal(heat, heat_ck):
+            raise AssertionError(f"detection heatmaps differ by {(heat - heat_ck).abs().max().item():.3e}")
+
+        llay = loaded["layout"]
+        capped = dataclasses.replace(lay.config, eos_token_id=-1, pad_token_id=-1)
+        tiles, _ = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE).slice([pages[0]])
+        tile_pixels = torch.from_numpy(np.stack([lay.prepare_image(t) for t in tiles])).cuda()
+        lay.model.config = llay.model.config = capped
+        try:
+            boxes, boxes_ck = (p([q.copy() for q in pages[:2]]) for p in (lay, llay))
+            with torch.inference_mode():  # the box loop's raw outputs: boxes, class logits, valid flags
+                steps, steps_ck = (p._generate(tile_pixels, DoneWatch(p.device)) for p in (lay, llay))
+        finally:
+            lay.model.config, llay.model.config = lay.config, llay.config
+        if [r.model_dump() for r in boxes] != [r.model_dump() for r in boxes_ck] or not torch.equal(steps, steps_ck):
+            raise AssertionError("layout boxes differ from the source predictor's")
+
+        install_synthetic_tables(loaded["table_rec"], TABLE_ROWS, TABLE_COLS, TABLE_CELLS)
+        crops = [p.crop((100, 100, 868, 868)) for p in pages[:TABLE_CROPS]]
+        tables, tables_ck = (p([c.copy() for c in crops]) for p in (tab, loaded["table_rec"]))
+        if [r.model_dump() for r in tables] != [r.model_dump() for r in tables_ck]:
+            raise AssertionError("table recognition's boxes differ from the source predictor's")
+
+        texts = ocr_error_texts(np.random.default_rng(SEED + 6))[0][:OCR_ERROR_TEXTS]
+        oe.processor = WordPieceTokenizer.from_pretrained(str(root / "ocr_error"))  # the checkpoint's vocab.txt
+        labels, labels_ck = (p(texts).labels for p in (oe, loaded["ocr_error"]))
+        if labels != labels_ck:
+            raise AssertionError("OCR error labels differ from the source predictor's")
+        print(f"    outputs equal to the source predictors': detection heatmaps {tuple(heat.shape)}; layout "
+              f"{sum(len(r.bboxes) for r in boxes)} boxes on 2 pages and the box loop's {int(steps[..., -1].sum())} "
+              f"valid steps of {len(tiles)} tiles (cap-bound); {len(tables)} tables of "
+              f"{[len(r.cells) for r in tables]} cells; {len(labels)} OCR error labels; the phase "
+              f"{time.perf_counter() - t_phase:.1f} s [{power}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def assert_launched(label, run_counts, launched, not_launched=()):
     print(f"    {label}: {run_counts}")
     for n in launched:
@@ -1687,10 +2005,13 @@ def main():
     check_int8_weights(pred, det, ocr_pages, gen, power)
     print(f"[17] OCR error detection at full width, random bf16 weights: {OCR_ERROR_TEXTS} texts in each of the "
           f"sequence buckets {list(OCR_ERROR_WORDS)}")
-    check_ocr_error(power)
+    oe = check_ocr_error(power)
     print(f"[18] the five CLIs on {CLI_PAGES} pages of 1240x1754, then ocr_latex as a process of its own")
     check_clis(pred, det, lay, tab, power)
     set_pin(False)
+    print("[19] checkpoint round trip at full width: the five models written as upstream checkpoints (bf16), "
+          "their predictors built from them twice (conversion, then the cache)")
+    check_checkpoints(pred, det, lay, tab, oe, power)
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and

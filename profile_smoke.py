@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from collections import defaultdict
 
@@ -42,13 +43,22 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke
-from surya_tpu_torch.detection import DetectionPredictor
-from surya_tpu_torch.layout import LayoutPredictor
-from surya_tpu_torch.models.efficientvit import install_blob_detector
-from surya_tpu_torch.recognition import RecognitionPredictor
-from surya_tpu_torch.settings import settings
-from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables
+if not torch.cuda.is_available():
+    raise SystemExit("profile_smoke.py: no CUDA device; this script runs only on the GPU")
+# random weights, and no default s3:// checkpoint resolved or fetched (the
+# port's settings are read when it is first imported, by chip_smoke below)
+os.environ.setdefault("ALLOW_RANDOM_WEIGHTS", "true")
+os.environ.setdefault("DISABLE_TQDM", "true")
+for _name in ("DETECTOR", "RECOGNITION", "LAYOUT", "TABLE_REC", "OCR_ERROR"):
+    os.environ[f"{_name}_MODEL_CHECKPOINT"] = os.devnull
+
+import chip_smoke  # noqa: E402
+from surya_tpu_torch.detection import DetectionPredictor  # noqa: E402
+from surya_tpu_torch.layout import LayoutPredictor  # noqa: E402
+from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
+from surya_tpu_torch.recognition import RecognitionPredictor  # noqa: E402
+from surya_tpu_torch.settings import settings  # noqa: E402
+from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables  # noqa: E402
 
 REPS = 3
 TOP = 10

@@ -3,8 +3,9 @@ surya_tpu/common/predictor.py, without the mesh code).
 
 Construction loads the model on an explicit device; ``__call__`` maps
 images (or texts) to typed results. Every predictor takes the JAX
-package's positional arguments ``(checkpoint=None, tiny=False)``; loading
-a checkpoint is not ported, so a checkpoint that is given raises.
+package's positional arguments ``(checkpoint=None, tiny=False)``: the
+checkpoint (a local directory or an ``s3://`` name, default the model's
+``*_MODEL_CHECKPOINT`` setting) goes to the model's loader.
 Batch-size defaults are keyed by the device type; a settings field, read
 when the batch size is asked for, overrides them.
 """
@@ -25,11 +26,7 @@ class BasePredictor:
     batch_size_setting: Optional[str] = None  # name of the settings field that overrides the default
 
     def __init__(self, checkpoint: Optional[str] = None, device=None):
-        if checkpoint is not None:
-            raise NotImplementedError(
-                f"checkpoint {checkpoint!r}: the PyTorch port cannot load checkpoints yet; pass "
-                "checkpoint=None for random weights (ALLOW_RANDOM_WEIGHTS=true) or jax_params= for a JAX pytree"
-            )
+        self.checkpoint = checkpoint
         self.device = resolve_device(device)
         self.disable_tqdm = settings.DISABLE_TQDM
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None

@@ -45,6 +45,7 @@ from PIL import Image
 from tqdm import tqdm
 
 from surya_tpu_torch.common.predictor import BasePredictor
+from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.detection.heatmap import get_boxes_from_stats_result, parallel_get_boxes
 from surya_tpu_torch.detection.loader import load_detection_model
 from surya_tpu_torch.detection.parallel import FakeExecutor
@@ -86,16 +87,16 @@ class DetectionPredictor(BasePredictor):
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
                  jax_params: Optional[dict] = None):
-        """checkpoint: not loadable yet (raises unless None); tiny: the
-        small test configuration; jax_params: the JAX detection pytree as
-        numpy leaves, whose weights the model takes (random weights from
-        WEIGHT_SEED otherwise)."""
+        """checkpoint: a local directory or ``s3://`` name (default
+        DETECTOR_MODEL_CHECKPOINT); tiny: the small test configuration of
+        random weights; jax_params: the JAX detection pytree as numpy
+        leaves, whose weights the model takes (no checkpoint is resolved)."""
         self._tiny = tiny
         self._jax_params = jax_params
         super().__init__(checkpoint, device)
 
     def _load(self):
-        self.model, self.config = load_detection_model(self._tiny, self.device, self._jax_params)
+        self.model, self.config = load_detection_model(self.checkpoint, self._tiny, self.device, self._jax_params)
         self._jax_params = None
         self.dtype = self.model.head.classifier.weight.dtype
         self.processor_size = self.config.image_size  # (h, w)
@@ -118,7 +119,8 @@ class DetectionPredictor(BasePredictor):
                         futures.append(pool.submit(get_boxes_from_stats_result, pred, size))
                     else:
                         futures.append(pool.submit(parallel_get_boxes, pred, size, include_maps))
-            return [f.result() for f in futures]
+            with stage("detection.postprocess_wait"):
+                return [f.result() for f in futures]
 
     def prepare_image(self, img: Image.Image) -> np.ndarray:
         """Double-LANCZOS resize to the processor size (the reference notes
@@ -240,16 +242,17 @@ class DetectionPredictor(BasePredictor):
                 bucket *= 2
             rows = min(max(bucket, n_real), max(batch_size, n_real))
 
-            if device_resize:
-                pixels, resize_host = self._canvas(image_splits, rows)
-            else:
-                pixels, resize_host = self._prepared(image_splits, rows), None
+            with stage("detection.prepare"):
+                if device_resize:
+                    pixels, resize_host = self._canvas(image_splits, rows)
+                else:
+                    pixels, resize_host = self._prepared(image_splits, rows), None
             device_stats = on_for_cuda(settings.DETECTOR_ON_DEVICE_POSTPROCESS, self.device) and not include_maps
             rec = {
                 "batch_image_idxs": batch_image_idxs, "split_index": split_index, "split_heights": split_heights,
                 "n_real": n_real, "n_pages": len(batch_image_idxs),
             }
-            with self._on_stream(), torch.inference_mode():
+            with stage("detection.forward"), self._on_stream(), torch.inference_mode():
                 # one upload; the stats program and the maps program (the main
                 # path or the overflow route) read the same device pixels
                 rec["pixels"] = self._upload(pixels)
@@ -343,7 +346,8 @@ class DetectionPredictor(BasePredictor):
         sizes_out = [orig_sizes[j] for j in rec["batch_image_idxs"]]
         proc_h, proc_w = self.processor_size
         if rec["mode"] == "stats":
-            [out] = self._wait(rec["out"])
+            with stage("detection.device_get"):
+                [out] = self._wait(rec["out"])
             max_comps, n_pages = rec["max_comps"], rec["n_pages"]
             n_raw = out[:n_pages, -2].astype(np.int64)
             if (n_raw <= max_comps).all():
@@ -362,20 +366,22 @@ class DetectionPredictor(BasePredictor):
             # path on the pixels already on the device, so no box is lost
             logger.warning("page exceeded DETECTOR_MAX_COMPONENTS=%d (%d components); the maps path for "
                            "this batch", max_comps, int(n_raw.max()))
-            with self._on_stream(), torch.inference_mode():
+            with stage("detection.forward"), self._on_stream(), torch.inference_mode():
                 rec["out"] = self._fetch(self._maps_program(rec["pixels"], rec["resize"], rec["n_real"], 1))
             rec["n_maps"] = 1
         self.maps_batches += 1
-        [compact] = self._wait(rec["out"])
+        with stage("detection.device_get"):
+            [compact] = self._wait(rec["out"])
         preds: List[List[np.ndarray]] = []
-        for i, (idx, height) in enumerate(zip(rec["split_index"], rec["split_heights"])):
-            # host bilinear upsample of the uint8 1/4-resolution maps
-            maps = [cv2.resize(compact[i, k], (proc_w, proc_h), interpolation=cv2.INTER_LINEAR)
-                    for k in range(rec["n_maps"])]
-            if len(preds) <= idx:
-                preds.append(maps)
-            else:
-                if height < proc_h:
-                    maps = [m[:height, :] for m in maps]
-                preds[idx] = [np.vstack([old, new]) for old, new in zip(preds[idx], maps)]
+        with stage("detection.stitch"):
+            for i, (idx, height) in enumerate(zip(rec["split_index"], rec["split_heights"])):
+                # host bilinear upsample of the uint8 1/4-resolution maps
+                maps = [cv2.resize(compact[i, k], (proc_w, proc_h), interpolation=cv2.INTER_LINEAR)
+                        for k in range(rec["n_maps"])]
+                if len(preds) <= idx:
+                    preds.append(maps)
+                else:
+                    if height < proc_h:
+                        maps = [m[:height, :] for m in maps]
+                    preds[idx] = [np.vstack([old, new]) for old, new in zip(preds[idx], maps)]
         return preds, sizes_out

@@ -1,10 +1,15 @@
-"""Detection model construction for the port.
+"""Detection model loading for the port (counterpart of
+surya_tpu/detection/loader.py).
 
-``load_detection_model`` builds the EfficientViT at the JAX package's default
-widths (``tiny=True``: the JAX package's tiny test config, same stages,
-strides and processor size) with random weights drawn from ``WEIGHT_SEED``,
-or, given the JAX detection pytree, with exactly its weights
-(``from_jax_params``). Loading a real checkpoint is not ported yet.
+``load_detection_model`` reads the checkpoint that ``checkpoint`` (else
+``DETECTOR_MODEL_CHECKPOINT``) resolves to: config.json with the JAX
+loader's defaults, the upstream torch tensors through ``convert_torch`` and
+the converted-weight cache. When none resolves, random weights drawn from
+``WEIGHT_SEED`` at the JAX package's default widths (``tiny=True``: its tiny
+test config, same stages, strides and processor size), only under
+``ALLOW_RANDOM_WEIGHTS``. Given the JAX detection pytree (``jax_params``),
+the model takes exactly its weights (``from_jax_params``) and nothing is
+resolved.
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ from typing import Optional, Tuple
 import torch
 
 from surya_tpu_torch import nn as pnn
+from surya_tpu_torch.common.checkpoint import checkpoint_dir, load_model
+from surya_tpu_torch.common.weights import load_config_json
+from surya_tpu_torch.models import efficientvit
 from surya_tpu_torch.models.efficientvit import EfficientViT, EfficientViTConfig
 from surya_tpu_torch.settings import model_dtype, resolve_device, settings
 
@@ -52,14 +60,33 @@ def random_model(config: EfficientViTConfig, device=None, dtype: Optional[torch.
     return model.to(dtype=dtype or model_dtype(device)).eval().requires_grad_(False)
 
 
-def load_detection_model(tiny: bool = False, device=None,
+def config_from_json(raw: dict) -> EfficientViTConfig:
+    """A checkpoint's config.json with surya_tpu/detection/loader.py's defaults."""
+    size_cfg = raw.get("image_size") or {}
+    return EfficientViTConfig(
+        num_classes=raw.get("num_classes", 2),
+        widths=tuple(raw.get("widths", (32, 64, 128, 256, 512))),
+        head_dim=raw.get("head_dim", 32),
+        depths=tuple(raw.get("depths", (1, 1, 1, 6, 6))),
+        strides=tuple(raw.get("strides", (2, 2, 2, 2, 2))),
+        layer_norm_eps=raw.get("layer_norm_eps", 1e-6),
+        decoder_layer_hidden_size=raw.get("decoder_layer_hidden_size", 128),
+        decoder_hidden_size=raw.get("decoder_hidden_size", 512),
+        image_size=(size_cfg.get("height", 896), size_cfg.get("width", 896)),
+    )
+
+
+def load_detection_model(checkpoint: Optional[str] = None, tiny: bool = False, device=None,
                          jax_params: Optional[dict] = None) -> Tuple[EfficientViT, EfficientViTConfig]:
-    config = detection_config(tiny)
     if jax_params is not None:
+        config = detection_config(tiny)
         return from_jax_params(jax_params, config, device), config
-    if not settings.ALLOW_RANDOM_WEIGHTS:
-        raise FileNotFoundError(
-            "the PyTorch port has no checkpoint loading yet; set ALLOW_RANDOM_WEIGHTS=true "
-            "for random weights (tests and benchmarks only)"
-        )
+    device = resolve_device(device)
+    ckpt_dir = checkpoint_dir(checkpoint or settings.DETECTOR_MODEL_CHECKPOINT, "detection")
+    if ckpt_dir is not None:
+        config = config_from_json(load_config_json(ckpt_dir))
+        model = load_model(ckpt_dir, "detection", lambda: EfficientViT(config),
+                           lambda t: efficientvit.convert_torch(t, config), device, model_dtype(device))
+        return model, config
+    config = detection_config(tiny)
     return random_model(config, device), config

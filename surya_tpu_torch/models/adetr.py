@@ -245,3 +245,40 @@ class DoneWatch:
         else:
             self.pending = (done.all(), None)
         return False
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(bag, config: ADETRConfig, prefix: str) -> dict:
+    """The upstream torch ADETR decoder's tensors as surya_tpu adetr's pytree
+    (numpy leaves, JAX layout; surya_tpu adetr.convert_torch)."""
+    pre = f"{prefix}." if prefix else ""
+    layers = []
+    for li in range(config.num_hidden_layers):
+        b = f"{pre}layers.{li}"
+        layer = {
+            "cross_pre_norm": {"scale": bag.raw(f"{b}.cross_pre_norm.weight")},
+            "temporal_pre_norm": {"scale": bag.raw(f"{b}.temporal_pre_norm.weight")},
+            "channel_pre_norm": {"scale": bag.raw(f"{b}.channel_pre_norm.weight")},
+            "mlp_block": {
+                "gate_proj": bag.linear(f"{b}.mlp_block.gate_proj", bias=False),
+                "up_proj": bag.linear(f"{b}.mlp_block.up_proj", bias=False),
+                "down_proj": bag.linear(f"{b}.mlp_block.down_proj", bias=False),
+            },
+        }
+        if li in config.cross_attn_layers:
+            layer["cross_attn_block"] = {
+                "q_proj": bag.linear(f"{b}.cross_attn_block.q_proj"),
+                "k_proj": bag.linear(f"{b}.cross_attn_block.k_proj"),
+                "v_proj": bag.linear(f"{b}.cross_attn_block.v_proj"),
+                "o_proj": bag.linear(f"{b}.cross_attn_block.o_proj"),
+            }
+        if li in config.self_attn_layers:
+            layer["temporal_block"] = {
+                "q_proj": bag.linear(f"{b}.temporal_block.q_proj"),
+                "k_proj": bag.linear(f"{b}.temporal_block.k_proj"),
+                "v_proj": bag.linear(f"{b}.temporal_block.v_proj"),
+                "o_proj": bag.linear(f"{b}.temporal_block.o_proj"),
+            }
+        layers.append(layer)
+    return {"layers": layers, "final_norm": {"scale": bag.raw(f"{pre}final_norm.weight")}}

@@ -79,3 +79,39 @@ class DistilBert(nn.Module):
             x = layer.output_layer_norm(x + layer.lin2(F.gelu(layer.lin1(x), approximate="none")))
         h = F.relu(self.pre_classifier(x[:, 0]))
         return self.classifier(h).float()
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(tensors, config: DistilBertConfig) -> dict:
+    """The upstream torch checkpoint (DistilBertForSequenceClassification) as
+    surya_tpu distilbert's pytree (numpy leaves, JAX layout; surya_tpu
+    distilbert.convert_torch)."""
+    from surya_tpu_torch.common.weights import TensorBag
+
+    bag = tensors if isinstance(tensors, TensorBag) else TensorBag(tensors)
+    layers = []
+    for i in range(config.n_layers):
+        b = f"distilbert.transformer.layer.{i}"
+        layers.append(
+            {
+                "q_lin": bag.linear(f"{b}.attention.q_lin"),
+                "k_lin": bag.linear(f"{b}.attention.k_lin"),
+                "v_lin": bag.linear(f"{b}.attention.v_lin"),
+                "out_lin": bag.linear(f"{b}.attention.out_lin"),
+                "sa_layer_norm": bag.layernorm(f"{b}.sa_layer_norm"),
+                "lin1": bag.linear(f"{b}.ffn.lin1"),
+                "lin2": bag.linear(f"{b}.ffn.lin2"),
+                "output_layer_norm": bag.layernorm(f"{b}.output_layer_norm"),
+            }
+        )
+    params = {
+        "word_embeddings": bag.embedding("distilbert.embeddings.word_embeddings"),
+        "position_embeddings": bag.embedding("distilbert.embeddings.position_embeddings"),
+        "embed_layer_norm": bag.layernorm("distilbert.embeddings.LayerNorm"),
+        "layers": layers,
+        "pre_classifier": bag.linear("pre_classifier"),
+        "classifier": bag.linear("classifier"),
+    }
+    bag.warn_unused("ocr_error")
+    return params

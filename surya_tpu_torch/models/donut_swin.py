@@ -243,3 +243,51 @@ def zero_tables_(model: DonutSwin) -> None:
         for stage in model.stages:
             for block in stage.blocks:
                 block.attn.rel_bias.zero_()
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(bag, config: DonutSwinConfig, prefix: str = "encoder") -> dict:
+    """The upstream torch DonutSwin's tensors as surya_tpu donut_swin's pytree
+    (numpy leaves, JAX layout; surya_tpu donut_swin.convert_torch). The
+    position embeddings are stored [1, L, D]; the ``relative_position_index``
+    buffers are marked used and recomputed (``_table``), not loaded."""
+    pre = f"{prefix}." if prefix else ""
+    params = {
+        "patch_embed": bag.conv(f"{pre}embeddings.patch_embeddings.projection"),
+        "embed_norm": bag.layernorm(f"{pre}embeddings.norm"),
+        "position_embeddings": bag.raw(f"{pre}position_embeddings")[0],
+        "stages": [],
+    }
+    for i, depth in enumerate(config.depths):
+        blocks = []
+        for b in range(depth):
+            base = f"{pre}encoder.layers.{i}.blocks.{b}"
+            blocks.append(
+                {
+                    "norm1": bag.layernorm(f"{base}.layernorm_before"),
+                    "norm2": bag.layernorm(f"{base}.layernorm_after"),
+                    "attn": {
+                        "query": bag.linear(f"{base}.attention.self.query"),
+                        "key": bag.linear(f"{base}.attention.self.key"),
+                        "value": bag.linear(f"{base}.attention.self.value"),
+                        "proj": bag.linear(f"{base}.attention.output.dense"),
+                        "rel_bias": bag.raw(f"{base}.attention.self.relative_position_bias_table"),
+                    },
+                    "mlp": {
+                        "fc1": bag.linear(f"{base}.intermediate.dense"),
+                        "fc2": bag.linear(f"{base}.output.dense"),
+                    },
+                }
+            )
+        stage = {"blocks": blocks}
+        if i < len(config.depths) - 1:
+            stage["downsample"] = {
+                "norm": bag.layernorm(f"{pre}encoder.layers.{i}.downsample.norm"),
+                "reduction": bag.linear(f"{pre}encoder.layers.{i}.downsample.reduction", bias=False),
+            }
+        params["stages"].append(stage)
+    for i, depth in enumerate(config.depths):
+        for b in range(depth):
+            bag.used.add(f"{pre}encoder.layers.{i}.blocks.{b}.attention.self.relative_position_index")
+    return params

@@ -244,6 +244,77 @@ class EfficientViT(nn.Module):
         return torch.sigmoid(self.forward_logits(pixel_values).float())
 
 
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(tensors, config: EfficientViTConfig) -> dict:
+    """The upstream torch checkpoint (EfficientViTForSemanticSegmentation's
+    state dict) as surya_tpu efficientvit.init_params' pytree, numpy leaves
+    in the JAX layout (surya_tpu efficientvit.convert_torch). Backbone BN
+    uses eps=layer_norm_eps, the decode head's BN torch's default 1e-5."""
+    from surya_tpu_torch.common.weights import TensorBag
+
+    bag = tensors if isinstance(tensors, TensorBag) else TensorBag(tensors)
+    eps = config.layer_norm_eps
+
+    def cna(prefix, norm=True):
+        p = {"conv": bag.conv(f"{prefix}.conv")}
+        if norm:
+            p["norm"] = bag.batchnorm(f"{prefix}.norm", eps=eps)
+        return p
+
+    def fused_mbconv(prefix):
+        return {"spatial_conv": cna(f"{prefix}.spatial_conv"), "point_conv": cna(f"{prefix}.point_conv")}
+
+    def mbconv(prefix):
+        return {
+            "inverted_conv": cna(f"{prefix}.inverted_conv", norm=False),
+            "depth_conv": cna(f"{prefix}.depth_conv", norm=False),
+            "point_conv": cna(f"{prefix}.point_conv"),
+        }
+
+    def lite_mla(prefix):
+        return {
+            "qkv": cna(f"{prefix}.qkv", norm=False),
+            "aggreg_dw": bag.conv(f"{prefix}.aggreg.0.0"),
+            "aggreg_pw": bag.conv(f"{prefix}.aggreg.0.1"),
+            "proj": cna(f"{prefix}.proj"),
+        }
+
+    stem = {"in_conv": cna("vit.stem.in_conv")}
+    for d in range(config.depths[0]):
+        pfx = f"vit.stem.res{d}.main"
+        stem[f"res{d}"] = {"conv1": cna(f"{pfx}.conv1"), "conv2": cna(f"{pfx}.conv2")}
+
+    stages = []
+    for i, depth in enumerate(config.depths[1:]):
+        vit_stage = i >= 3
+        fewer_norm = i >= 2
+        blocks = []
+        down_pfx = f"vit.stages.{i}.blocks.0.main"
+        blocks.append({"down": mbconv(down_pfx) if fewer_norm else fused_mbconv(down_pfx)})
+        for b in range(1, depth + 1):
+            pfx = f"vit.stages.{i}.blocks.{b}"
+            if vit_stage:
+                blocks.append({"vit": {
+                    "attn": lite_mla(f"{pfx}.context_module.main"),
+                    "mlp": mbconv(f"{pfx}.local_module.main"),
+                }})
+            elif fewer_norm:
+                blocks.append({"mb": mbconv(f"{pfx}.main")})
+            else:
+                blocks.append({"fused": fused_mbconv(f"{pfx}.main")})
+        stages.append({"blocks": blocks})
+
+    head = {
+        "linear_c": [bag.linear(f"decode_head.linear_c.{k}.proj") for k in range(4)],
+        "linear_fuse": bag.conv("decode_head.linear_fuse", bias=False),
+        "batch_norm": bag.batchnorm("decode_head.batch_norm", eps=1e-5),
+        "classifier": bag.conv("decode_head.classifier"),
+    }
+    bag.warn_unused("detection")
+    return {"stem": stem, "stages": stages, "head": head}
+
+
 def install_blob_detector(det) -> None:
     """Replace a DetectionPredictor's heatmap tail with a line detector
     driven by input darkness, on top of a bias-blanked classifier, keeping

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -27,11 +28,14 @@ from surya_tpu_torch.models import qwen_decoder, qwen_encoder
 class FoundationConfig:
     vocab_size: int = 65536
     bbox_size: int = 1025
+    bos_token_id: int = 0
     eos_token_id: int = 1
     pad_token_id: int = 2
+    image_token_id: int = 3
     max_sequence_length: int = 1536
     num_register_tokens: int = 4
     image_embed_encoding_size: int = 1024
+    image_embed_encoding_multiplier: int = 256
     encoder: qwen_encoder.EncoderConfig = field(default_factory=qwen_encoder.EncoderConfig)
     decoder: qwen_decoder.DecoderConfig = field(default_factory=qwen_decoder.DecoderConfig)
 
@@ -138,3 +142,30 @@ class FoundationModel(nn.Module):
 
         qwen_decoder.commit_chunk(cache, chunk_k, chunk_v, base_len, advance)
         return tokens_buf, scores_buf, bbox_buf, last_token, active, run
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(tensors, config: FoundationConfig) -> dict:
+    """The upstream torch checkpoint as surya_tpu foundation.init_params'
+    pytree (numpy leaves, JAX layout; surya_tpu foundation.convert_torch).
+    ``lm_head.weight`` is tied to the token embedding; ``lm_head.bias`` is
+    optional (zeros without it)."""
+    from surya_tpu_torch.common.weights import TensorBag
+
+    bag = tensors if isinstance(tensors, TensorBag) else TensorBag(tensors)
+    params = {
+        "vision_encoder": qwen_encoder.convert_torch(bag, config.encoder, "vision_encoder"),
+        "decoder": qwen_decoder.convert_torch(bag, config.decoder, "decoder"),
+        "token_embed": bag.embedding("embedder.token_embed"),
+        "img_w_embed": bag.embedding("img_w_embed"),
+        "img_h_embed": bag.embedding("img_h_embed"),
+        "bbox_head": bag.linear("bbox_head"),
+    }
+    if "lm_head.bias" in bag.tensors:
+        params["lm_head_bias"] = bag.raw("lm_head.bias")
+    else:
+        params["lm_head_bias"] = np.zeros((config.vocab_size,), np.float32)
+    bag.used.add("lm_head.weight")  # tied to the embedding
+    bag.warn_unused("foundation")
+    return params

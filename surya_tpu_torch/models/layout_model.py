@@ -181,3 +181,28 @@ class LayoutModel(nn.Module):
             if watch.poll(done):
                 break
         return boxes_buf, logits_buf, valid_buf
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(tensors, config: LayoutConfig) -> dict:
+    """The upstream torch checkpoint as surya_tpu layout_model's pytree (numpy
+    leaves, JAX layout; surya_tpu layout_model.convert_torch)."""
+    from surya_tpu_torch.common.weights import TensorBag
+
+    bag = tensors if isinstance(tensors, TensorBag) else TensorBag(tensors)
+    embed = {
+        f"{f}_embed": bag.embedding(f"decoder.model.embed_tokens.{f}_embed")
+        for f in _BOX_FIELDS + _CORNER_FIELDS
+    }
+    embed["label_embed"] = bag.embedding("decoder.model.embed_tokens.label_embed")
+    params = {
+        "encoder": donut_swin.convert_torch(bag, config.encoder, "encoder"),
+        "decoder": adetr.convert_torch(bag, config.decoder, "decoder.model"),
+        "embedder": embed,
+        "pre_output_norm": bag.layernorm("decoder.pre_output_norm"),
+        "lm_head": bag.linear("decoder.lm_head", bias=False),
+        "bbox_head": bag.linear("decoder.bbox_head"),
+    }
+    bag.warn_unused("layout")
+    return params

@@ -222,3 +222,31 @@ def commit_chunk(cache: dict, chunk_k, chunk_v, base_len, advance) -> dict:
     _store(cache, (slice(None), slots, heads, rows), chunk_k, chunk_v)
     cache["len"] += advance.to(torch.int32)
     return cache
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(bag, config: DecoderConfig, prefix: str = "decoder") -> dict:
+    """The upstream torch decoder's tensors as surya_tpu qwen_decoder's pytree
+    (numpy leaves, JAX layout; surya_tpu qwen_decoder.convert_torch)."""
+    layers = []
+    for i in range(config.num_hidden_layers):
+        b = f"{prefix}.layers.{i}"
+        layers.append(
+            {
+                "input_layernorm": bag.rmsnorm(f"{b}.input_layernorm"),
+                "post_attention_layernorm": bag.rmsnorm(f"{b}.post_attention_layernorm"),
+                "self_attn": {
+                    "q_proj": bag.linear(f"{b}.self_attn.q_proj"),
+                    "k_proj": bag.linear(f"{b}.self_attn.k_proj"),
+                    "v_proj": bag.linear(f"{b}.self_attn.v_proj"),
+                    "o_proj": bag.linear(f"{b}.self_attn.o_proj", bias=False),
+                },
+                "mlp": {
+                    "gate_proj": bag.linear(f"{b}.mlp.gate_proj", bias=False),
+                    "up_proj": bag.linear(f"{b}.mlp.up_proj", bias=False),
+                    "down_proj": bag.linear(f"{b}.mlp.down_proj", bias=False),
+                },
+            }
+        )
+    return {"layers": layers, "norm": bag.rmsnorm(f"{prefix}.norm")}

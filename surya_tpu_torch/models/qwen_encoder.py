@@ -306,3 +306,44 @@ class VisionEncoder(nn.Module):
         cells = m.ln_q(x).reshape(-1, cfg.merge_unit * cfg.hidden_size)
         merged = m.mlp2(F.gelu(m.mlp0(cells), approximate="none"))  # exact (erf) GELU
         return merged[unscatter.long()]  # window order -> original order
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(bag, config: EncoderConfig, prefix: str = "vision_encoder") -> dict:
+    """The upstream torch encoder's tensors as surya_tpu qwen_encoder's pytree
+    (numpy leaves, JAX layout; surya_tpu qwen_encoder.convert_torch). The
+    Conv3d patch embed [out, in, t, p, p] flattens to a [in*t*p*p, out]
+    kernel (kernel == stride, so the conv is a per-patch linear) in the
+    (channel, t, row, column) order the processor packs a patch in."""
+    pre = f"{prefix}." if prefix else ""
+    w = bag.raw(f"{pre}patch_embed.proj.weight")
+    patch_kernel = w.reshape(w.shape[0], -1).T  # [in*t*p*p, out]
+
+    blocks = []
+    for i in range(config.depth):
+        b = f"{pre}blocks.{i}"
+        blocks.append(
+            {
+                "norm1": bag.rmsnorm(f"{b}.norm1"),
+                "norm2": bag.rmsnorm(f"{b}.norm2"),
+                "attn": {
+                    "qkv": bag.linear(f"{b}.attn.qkv"),
+                    "proj": bag.linear(f"{b}.attn.proj"),
+                },
+                "mlp": {
+                    "gate_proj": bag.linear(f"{b}.mlp.gate_proj"),
+                    "up_proj": bag.linear(f"{b}.mlp.up_proj"),
+                    "down_proj": bag.linear(f"{b}.mlp.down_proj"),
+                },
+            }
+        )
+    return {
+        "patch_embed": {"kernel": patch_kernel},
+        "blocks": blocks,
+        "merger": {
+            "ln_q": bag.rmsnorm(f"{pre}merger.ln_q"),
+            "mlp0": bag.linear(f"{pre}merger.mlp.0"),
+            "mlp2": bag.linear(f"{pre}merger.mlp.2"),
+        },
+    }

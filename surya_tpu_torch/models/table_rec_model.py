@@ -189,3 +189,32 @@ class TableRecModel(nn.Module):
             done, vec = process(hidden, i)
             i += 1
         return bufs
+
+
+# -- checkpoint conversion ----------------------------------------------------
+
+def convert_torch(tensors, config: TableRecConfig) -> dict:
+    """The upstream torch checkpoint as surya_tpu table_rec_model's pytree
+    (numpy leaves, JAX layout; surya_tpu table_rec_model.convert_torch)."""
+    from surya_tpu_torch.common.weights import TensorBag
+
+    bag = tensors if isinstance(tensors, TensorBag) else TensorBag(tensors)
+    embed = {
+        f"{f}_embed": bag.embedding(f"decoder.model.embed_tokens.{f}_embed")
+        for f in _BOX_FIELDS + _CORNER_FIELDS
+    }
+    embed["category_embed"] = bag.embedding("decoder.model.embed_tokens.category_embed")
+    embed["merge_embed"] = bag.embedding("decoder.model.embed_tokens.merge_embed")
+    embed["colspan_embed"] = bag.embedding("decoder.model.embed_tokens.colspan_embed")
+    heads = {
+        k: bag.linear(f"decoder.box_property_heads.{k}", bias=False) for k, _, _ in BOX_PROPERTIES
+    }
+    params = {
+        "encoder": donut_swin.convert_torch(bag, config.encoder, "encoder"),
+        "decoder": adetr.convert_torch(bag, config.decoder, "decoder.model"),
+        "embedder": embed,
+        "pre_output_norm": bag.layernorm("decoder.pre_output_norm"),
+        "heads": heads,
+    }
+    bag.warn_unused("table_rec")
+    return params

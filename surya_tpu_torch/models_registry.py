@@ -8,8 +8,8 @@ from typing import Optional
 def load_predictors(checkpoints: Optional[dict] = None, *, device=None, tiny: bool = False) -> dict:
     """Build all five predictors on `device`, under the JAX package's keys
     (detection, recognition, layout, table_rec, ocr_error). checkpoints: an
-    optional checkpoint per key; loading one is not ported yet, so a given
-    checkpoint raises NotImplementedError."""
+    optional checkpoint per key (a local directory or an ``s3://`` name),
+    passed to its predictor; the others load their default checkpoints."""
     from surya_tpu_torch.detection import DetectionPredictor
     from surya_tpu_torch.layout import LayoutPredictor
     from surya_tpu_torch.ocr_error import OCRErrorPredictor

@@ -20,7 +20,10 @@ import torch
 from tqdm import tqdm
 
 from surya_tpu_torch import nn as pnn
+from surya_tpu_torch.common.checkpoint import checkpoint_dir, load_model
 from surya_tpu_torch.common.predictor import BasePredictor
+from surya_tpu_torch.common.weights import load_config_json
+from surya_tpu_torch.models import distilbert
 from surya_tpu_torch.models.distilbert import ID2LABEL, DistilBert, DistilBertConfig
 from surya_tpu_torch.ocr_error.schema import OCRErrorDetectionResult
 from surya_tpu_torch.ocr_error.tokenizer import WordPieceTokenizer
@@ -58,19 +61,36 @@ def random_model(config: DistilBertConfig, device=None, dtype: Optional[torch.dt
     return model.to(dtype=dtype or model_dtype(device)).eval().requires_grad_(False)
 
 
-def load_ocr_error_model(tiny: bool = False, device=None, jax_params: Optional[dict] = None,
-                         ) -> Tuple[DistilBert, DistilBertConfig, WordPieceTokenizer]:
-    """(model, config, tokenizer): full width (6 layers, 768 wide, 12 heads)
-    or the tiny test config, with the weights of `jax_params` or random ones
-    (ALLOW_RANDOM_WEIGHTS); the tokenizer falls back to its hash vocabulary."""
-    config = ocr_error_config(tiny)
+def config_from_json(raw: dict) -> DistilBertConfig:
+    """A checkpoint's config.json with surya_tpu/ocr_error's defaults."""
+    return DistilBertConfig(
+        vocab_size=raw.get("vocab_size", 30522),
+        max_position_embeddings=raw.get("max_position_embeddings", 512),
+        n_layers=raw.get("n_layers", 6),
+        n_heads=raw.get("n_heads", 12),
+        dim=raw.get("dim", 768),
+        hidden_dim=raw.get("hidden_dim", 3072),
+    )
+
+
+def load_ocr_error_model(checkpoint: Optional[str] = None, tiny: bool = False, device=None,
+                         jax_params: Optional[dict] = None) -> Tuple[DistilBert, DistilBertConfig, WordPieceTokenizer]:
+    """(model, config, tokenizer): the checkpoint that ``checkpoint`` (else
+    OCR_ERROR_MODEL_CHECKPOINT) resolves to, with its WordPiece vocabulary;
+    else full width (6 layers, 768 wide, 12 heads) or the tiny test config,
+    with the weights of `jax_params` (nothing resolved) or random ones
+    (ALLOW_RANDOM_WEIGHTS) and the tokenizer's hash vocabulary."""
     if jax_params is not None:
+        config = ocr_error_config(tiny)
         return from_jax_params(jax_params, config, device), config, WordPieceTokenizer()
-    if not settings.ALLOW_RANDOM_WEIGHTS:
-        raise FileNotFoundError(
-            "the PyTorch port has no checkpoint loading yet; set ALLOW_RANDOM_WEIGHTS=true "
-            "for random weights (tests and benchmarks only)"
-        )
+    device = resolve_device(device)
+    ckpt_dir = checkpoint_dir(checkpoint or settings.OCR_ERROR_MODEL_CHECKPOINT, "ocr_error")
+    if ckpt_dir is not None:
+        config = config_from_json(load_config_json(ckpt_dir))
+        model = load_model(ckpt_dir, "ocr_error", lambda: DistilBert(config),
+                           lambda t: distilbert.convert_torch(t, config), device, model_dtype(device))
+        return model, config, WordPieceTokenizer.from_pretrained(ckpt_dir)
+    config = ocr_error_config(tiny)
     return random_model(config, device), config, WordPieceTokenizer()
 
 
@@ -86,16 +106,17 @@ class OCRErrorPredictor(BasePredictor):
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
                  jax_params: Optional[dict] = None):
-        """checkpoint: not loadable yet (raises unless None); tiny: the
-        small test configuration; jax_params: the JAX DistilBERT pytree as
-        numpy leaves, whose weights the model takes (random weights from
-        WEIGHT_SEED otherwise)."""
+        """checkpoint: a local directory or ``s3://`` name (default
+        OCR_ERROR_MODEL_CHECKPOINT); tiny: the small test configuration of
+        random weights; jax_params: the JAX DistilBERT pytree as numpy
+        leaves, whose weights the model takes (no checkpoint is resolved)."""
         self._tiny = tiny
         self._jax_params = jax_params
         super().__init__(checkpoint, device)
 
     def _load(self):
-        self.model, self.config, self.processor = load_ocr_error_model(self._tiny, self.device, self._jax_params)
+        self.model, self.config, self.processor = load_ocr_error_model(self.checkpoint, self._tiny, self.device,
+                                                                       self._jax_params)
         self._jax_params = None
         self.last_run: dict = {}  # the last call's batches: (rows, sequence bucket) of each
 

@@ -45,6 +45,7 @@ from tqdm import tqdm
 
 from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.common.predictor import BasePredictor
+from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
 from surya_tpu_torch.models import qwen_decoder
 from surya_tpu_torch.recognition.loader import load_recognition_model
@@ -102,17 +103,17 @@ class RecognitionPredictor(BasePredictor):
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
                  jax_params: Optional[dict] = None):
-        """checkpoint: not loadable yet (raises unless None); tiny: the
-        small test configuration; jax_params: the JAX foundation pytree as
-        numpy leaves, whose weights the model takes (random weights from
-        WEIGHT_SEED otherwise)."""
+        """checkpoint: a local directory or ``s3://`` name (default
+        RECOGNITION_MODEL_CHECKPOINT); tiny: the small test configuration of
+        random weights; jax_params: the JAX foundation pytree as numpy
+        leaves, whose weights the model takes (no checkpoint is resolved)."""
         self._tiny = tiny
         self._jax_params = jax_params
         super().__init__(checkpoint, device)
 
     def _load(self):
         self.model, self.config, self.processor = load_recognition_model(
-            self._tiny, self.device, self._jax_params
+            self.checkpoint, self._tiny, self.device, self._jax_params
         )
         self._jax_params = None
         self.last_decoded_tokens = 0  # tokens decoded by the last __call__ or stream()
@@ -204,21 +205,23 @@ class RecognitionPredictor(BasePredictor):
                                 highres_images=None):
         """Detect the lines of each page and slice them; with a highres page,
         the polygons are scaled to it and the slices cut from it."""
-        det_predictions = det_predictor(images, batch_size=detection_batch_size)
+        with stage("recognition.detect"):
+            det_predictions = det_predictor(images, batch_size=detection_batch_size)
         if highres_images is None:
             highres_images = [None] * len(images)
         all_slices, slice_map, all_polygons, all_task_names, all_res_scales = [], [], [], [], []
         for det_pred, image, highres, task_name in zip(det_predictions, images, highres_images, task_names):
             polygons = [p.polygon for p in det_pred.bboxes]
-            if highres is not None:
-                sx = highres.size[0] / image.size[0]
-                sy = highres.size[1] / image.size[1]
-                scaled = [[[int(p[0] * sx), int(p[1] * sy)] for p in poly] for poly in polygons]
-                slices = slice_polys_from_image(np.asarray(highres), scaled)
-                res_scales = [(sx, sy)] * len(slices)
-            else:
-                slices = slice_polys_from_image(np.asarray(image), polygons)
-                res_scales = [(1, 1)] * len(slices)
+            with stage("recognition.slice"):
+                if highres is not None:
+                    sx = highres.size[0] / image.size[0]
+                    sy = highres.size[1] / image.size[1]
+                    scaled = [[[int(p[0] * sx), int(p[1] * sy)] for p in poly] for poly in polygons]
+                    slices = slice_polys_from_image(np.asarray(highres), scaled)
+                    res_scales = [(sx, sy)] * len(slices)
+                else:
+                    slices = slice_polys_from_image(np.asarray(image), polygons)
+                    res_scales = [(1, 1)] * len(slices)
             slice_map.append(len(slices))
             all_slices.extend(slices)
             all_polygons.extend(polygons)
@@ -454,16 +457,17 @@ class RecognitionPredictor(BasePredictor):
             if not round_prompts:
                 return None
             batch_rows = next(b for b in self.prefill_row_buckets if b >= len(round_prompts))
-            batch = self.processor.build_prefill_batch(
-                imgs,
-                [p.task_name for p in round_prompts],
-                [p.text for p in round_prompts],
-                [p.math_mode for p in round_prompts],
-                cfg.encoder,
-                batch_rows=batch_rows,
-                seq_buckets=self.seq_buckets,
-                patch_caps=self.patch_caps,
-            )
+            with stage("recognition.prefill_build"):
+                batch = self.processor.build_prefill_batch(
+                    imgs,
+                    [p.task_name for p in round_prompts],
+                    [p.text for p in round_prompts],
+                    [p.math_mode for p in round_prompts],
+                    cfg.encoder,
+                    batch_rows=batch_rows,
+                    seq_buckets=self.seq_buckets,
+                    patch_caps=self.patch_caps,
+                )
             return round_prompts, batch, batch_rows
 
         def seed_from_prefill(packed, target_slots, round_prompts):
@@ -487,7 +491,8 @@ class RecognitionPredictor(BasePredictor):
             if inflight is None:
                 return
             rec, inflight = inflight, None
-            packed = self._wait(rec["handle"])
+            with stage(f"recognition.drain_{rec['kind']}"):
+                packed = self._wait(rec["handle"])
             if rec["kind"] == "prefill":
                 seed_from_prefill(packed[0], rec["slots"], rec["prompts"])
             if len(packed) > 1 or rec["kind"] == "decode":
@@ -533,8 +538,9 @@ class RecognitionPredictor(BasePredictor):
                     fuse = self.fuse_decode and (
                         not queue or (len(frees) - len(round_prompts)) / n_slots <= self.min_prefill_ratio
                     )
-                    handle, state = self._dispatch_prefill(cache, batch, slot_idx, row_valid, state, take_kill(),
-                                                           pin, fuse)
+                    with stage("recognition.prefill"):
+                        handle, state = self._dispatch_prefill(cache, batch, slot_idx, row_valid, state,
+                                                               take_kill(), pin, fuse)
                     # the dispatch is in flight: build the next wave meanwhile,
                     # sized to this one (at steady state its slots free up)
                     if queue and pending is None:
@@ -569,7 +575,8 @@ class RecognitionPredictor(BasePredictor):
                             drain_inflight()
                             continue
                     # decode chunk N + 1 is enqueued before chunk N is read
-                    handle, state = self._dispatch_decode(cache, state, take_kill(), pin)
+                    with stage("recognition.decode"):
+                        handle, state = self._dispatch_decode(cache, state, take_kill(), pin)
                     drain_inflight()
                     inflight = {"kind": "decode", "handle": handle}
                 else:

@@ -6,9 +6,10 @@ Token id space (low → high):
   [qwen_offset, qwen_offset + n_spec)   special tags (system/formatting/math)
   [qwen_offset + n_spec, ... + 65536)   UTF-16 code units for general text
 
-The port runs random weights only, so a byte-level fallback stands in for
-the checkpoint's Qwen2 BPE and the default special-token list is used; the id
-arithmetic is the JAX package's.
+The real id layout comes from the checkpoint: its Qwen2 tokenizer files
+(``QwenMathTokenizer``) and config.json's special_ocr_tokens. With random
+weights a byte-level fallback stands in for the Qwen2 BPE and the default
+special-token list is used; the id arithmetic is the JAX package's.
 """
 
 from __future__ import annotations
@@ -86,6 +87,25 @@ class ByteFallbackMathTokenizer:
 
     def decode(self, ids: List[int]) -> str:
         return bytes(max(0, min(i, 255)) for i in ids).decode("utf-8", errors="ignore")
+
+
+class QwenMathTokenizer:
+    """The HF Qwen2 tokenizer shipped inside the checkpoint directory
+    (``vocab.json``, ``merges.txt``); ``transformers`` is imported only here."""
+
+    def __init__(self, ckpt_dir: str):
+        from transformers import Qwen2Tokenizer
+
+        self._tok = Qwen2Tokenizer.from_pretrained(ckpt_dir)
+
+    def __len__(self):
+        return len(self._tok)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok(text)["input_ids"]
+
+    def decode(self, ids: List[int]) -> str:
+        return self._tok.decode(ids)
 
 
 class OCRTokenizer:

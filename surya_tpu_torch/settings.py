@@ -97,6 +97,21 @@ class Settings:
         self.IMAGE_DPI = int(env.get("IMAGE_DPI", "") or 96)
         self.IMAGE_DPI_HIGHRES = int(env.get("IMAGE_DPI_HIGHRES", "") or 192)
         self.RESULT_DIR = env.get("RESULT_DIR") or "results"
+        self.LOGLEVEL = env.get("LOGLEVEL") or "INFO"
+        # checkpoints: an ``s3://<path>`` name is fetched by its manifest from
+        # S3_BASE_URL/<path> into MODEL_CACHE_DIR/<path> (common/s3.py); a
+        # local directory is read as it is
+        self.S3_BASE_URL = env.get("S3_BASE_URL") or "https://models.datalab.to"
+        self.PARALLEL_DOWNLOAD_WORKERS = int(env.get("PARALLEL_DOWNLOAD_WORKERS", "") or 10)
+        self.MODEL_CACHE_DIR = env.get("MODEL_CACHE_DIR") or str(Path(user_cache_dir("surya_tpu_torch")) / "models")
+        self.DETECTOR_MODEL_CHECKPOINT = env.get("DETECTOR_MODEL_CHECKPOINT") or "s3://text_detection/2025_05_07"
+        self.RECOGNITION_MODEL_CHECKPOINT = (env.get("RECOGNITION_MODEL_CHECKPOINT")
+                                             or "s3://text_recognition/2025_05_16")
+        self.LAYOUT_MODEL_CHECKPOINT = env.get("LAYOUT_MODEL_CHECKPOINT") or "s3://layout/2025_02_18"
+        self.TABLE_REC_MODEL_CHECKPOINT = (env.get("TABLE_REC_MODEL_CHECKPOINT")
+                                           or "s3://table_recognition/2025_02_18")
+        self.OCR_ERROR_MODEL_CHECKPOINT = (env.get("OCR_ERROR_MODEL_CHECKPOINT")
+                                           or "s3://ocr_error_detection/2025_02_18")
         # Noto fonts of the debug text renderer, fetched at first use; PIL's
         # own font where they cannot be
         self.FONT_DIR = env.get("FONT_DIR") or str(Path(user_cache_dir("surya_tpu_torch")) / "fonts")
@@ -157,8 +172,8 @@ class Settings:
         # stops taking new pages (None = 4 x the page group)
         self.RECOGNITION_STREAM_BUFFER_PAGES = _opt_int(env, "RECOGNITION_STREAM_BUFFER_PAGES")
         # layout and table recognition (defaults of surya_tpu/settings.py;
-        # the checkpoint, image-size and dataset fields wait for checkpoint
-        # loading and a benchmark, since nothing in the port reads them yet)
+        # the image-size and dataset fields wait for a benchmark, since
+        # nothing in the port reads them yet)
         # pages above these sides are cut into tiles of about these sides
         self.LAYOUT_SLICE_MIN = _json_dict(env, "LAYOUT_SLICE_MIN", {"height": 1500, "width": 1500})
         self.LAYOUT_SLICE_SIZE = _json_dict(env, "LAYOUT_SLICE_SIZE", {"height": 1200, "width": 1200})

@@ -84,11 +84,12 @@ class TableRecPredictor(BasePredictor):
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
                  jax_params: Optional[dict] = None, config: Optional[TableRecConfig] = None,
                  dtype: Optional[torch.dtype] = None):
-        """checkpoint: not loadable yet (raises unless None); tiny: the
-        small test configuration; config: any other; jax_params: the JAX
-        table-rec pytree as numpy leaves, whose weights the model takes
-        (random weights from WEIGHT_SEED otherwise); dtype: the model's
-        (default bfloat16 on CUDA, float32 on the CPU)."""
+        """checkpoint: a local directory or ``s3://`` name (default
+        TABLE_REC_MODEL_CHECKPOINT); tiny: the small test configuration of
+        random weights; config: any other; jax_params: the JAX table-rec
+        pytree as numpy leaves, whose weights the model takes (no checkpoint
+        is resolved); dtype: the model's (default bfloat16 on CUDA, float32
+        on the CPU)."""
         self._tiny = tiny
         self._jax_params = jax_params
         self._config = config
@@ -96,8 +97,8 @@ class TableRecPredictor(BasePredictor):
         super().__init__(checkpoint, device)
 
     def _load(self):
-        self.model, self.config = load_table_rec_model(self._tiny, self.device, self._jax_params, self._config,
-                                                        self._dtype)
+        self.model, self.config = load_table_rec_model(self.checkpoint, self._tiny, self.device, self._jax_params,
+                                                        self._config, self._dtype)
         self._jax_params = None
         self.dtype = self.model.pre_output_norm.weight.dtype
         self.shaper = LabelShaper()

@@ -45,6 +45,21 @@ from surya_tpu_torch.scripts.config import CLILoader, parse_range_str, write_res
 from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_default_checkpoints():
+    """Port predictors built with checkpoint=None resolve no s3:// default
+    (no download): every *_MODEL_CHECKPOINT setting names a path that does
+    not exist."""
+    from surya_tpu_torch.settings import settings as port_settings
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in [n for n in vars(port_settings) if n.endswith("_MODEL_CHECKPOINT")]:
+            mp.setattr(port_settings, name, os.devnull)
+        yield
+
+
 PIXEL_KEYS = {"polygon", "bbox", "image_bbox"}  # within 1 px
 SCORE_KEYS = {"confidence", "top_k"}  # within 1e-3
 # module name -> (the JAX CLI's module, its click command, the predictors it builds, extra arguments)

@@ -32,6 +32,19 @@ from surya_tpu_torch.settings import settings
 torch.set_num_threads(1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def no_default_checkpoints():
+    """Port predictors built with checkpoint=None resolve no s3:// default
+    (no download): every *_MODEL_CHECKPOINT setting names a path that does
+    not exist."""
+    from surya_tpu_torch.settings import settings as port_settings
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in [n for n in vars(port_settings) if n.endswith("_MODEL_CHECKPOINT")]:
+            mp.setattr(port_settings, name, os.devnull)
+        yield
+
+
 @pytest.mark.parametrize("batch", [1, 2])
 def test_apply_heat_matches_jax(batch):
     cfg = detection_config(tiny=True)

@@ -7,7 +7,11 @@ RECOGNITION_DET_PIPELINE_PAGES) and ``stream()`` with detection's device
 resize, device stats and C++ CRAFT op, then layout analysis (a page above
 1500 px, so the slicer runs) and table recognition (with synthetic tables),
 OCR error detection, recognition with int8 decoder weights and the LaTeX
-CLI's ``main()``; no module of either is loaded afterwards, nor click."""
+CLI's ``main()``, and a recognition predictor loaded from a checkpoint
+directory (upstream key names, config.json, Qwen2 tokenizer files, the
+converted-weight cache); no module of either is loaded afterwards, nor
+click. The checkpoint settings name a path that does not exist, so nothing
+is downloaded."""
 
 import os
 import subprocess
@@ -91,6 +95,18 @@ SCRIPT = textwrap.dedent(
         assert list(rows) == ["a"] and set(rows["a"][0]) == {"equation", "page"}
     assert "click" not in sys.modules
 
+    # a recognition predictor from a checkpoint directory, as upstream ships one
+    import chip_smoke
+    with tempfile.TemporaryDirectory() as tmp:
+        chip_smoke.write_checkpoint(pathlib.Path(tmp), "recognition", pred.model, pred.config,
+                                    torch.Generator().manual_seed(0))
+        loaded = RecognitionPredictor(tmp, device="cpu")
+        assert (pathlib.Path(tmp) / ".torch_cache_recognition_float32_v1.safetensors").exists()
+        assert all(torch.equal(a, b) for a, b in zip(loaded.model.state_dict().values(),
+                                                     pred.model.state_dict().values()))
+        [page] = loaded([img], bboxes=[[[0, 0, 300, 60]]])
+        assert len(page.text_lines) == 1 and loaded.last_decoded_tokens > 0
+
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert jax_like == ["jax"], jax_like  # only the blocking sentinel
     jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "surya_tpu")
@@ -102,6 +118,8 @@ SCRIPT = textwrap.dedent(
 
 def test_port_runs_without_jax():
     env = dict(os.environ, ALLOW_RANDOM_WEIGHTS="true", RECOGNITION_MAX_TOKENS="8", DISABLE_TQDM="true")
+    for name in ("DETECTOR", "RECOGNITION", "LAYOUT", "TABLE_REC", "OCR_ERROR"):
+        env[f"{name}_MODEL_CHECKPOINT"] = os.devnull  # no default s3:// checkpoint is fetched
     env.pop("TORCH_DEVICE", None)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(

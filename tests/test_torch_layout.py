@@ -18,6 +18,8 @@ accepted only where the top-2 logit gap at that step is below 1e-4, and the
 rest of that row is then not compared (the AR loop has forked).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,21 @@ from surya_tpu_torch.models import adetr, donut_swin, layout_model
 from surya_tpu_torch.settings import settings
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_default_checkpoints():
+    """Port predictors built with checkpoint=None resolve no s3:// default
+    (no download): every *_MODEL_CHECKPOINT setting names a path that does
+    not exist."""
+    from surya_tpu_torch.settings import settings as port_settings
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in [n for n in vars(port_settings) if n.endswith("_MODEL_CHECKPOINT")]:
+            mp.setattr(port_settings, name, os.devnull)
+        yield
+
+
 ATOL = RTOL = 1e-4
 GAP = 1e-4
 

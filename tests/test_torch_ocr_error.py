@@ -30,6 +30,21 @@ from surya_tpu_torch.ocr_error import SEQ_BUCKETS, OCRErrorPredictor, from_jax_p
 from surya_tpu_torch.ocr_error.tokenizer import WordPieceTokenizer
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_default_checkpoints():
+    """Port predictors built with checkpoint=None resolve no s3:// default
+    (no download): every *_MODEL_CHECKPOINT setting names a path that does
+    not exist."""
+    from surya_tpu_torch.settings import settings as port_settings
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in [n for n in vars(port_settings) if n.endswith("_MODEL_CHECKPOINT")]:
+            mp.setattr(port_settings, name, os.devnull)
+        yield
+
+
 TINY = dict(n_layers=2, n_heads=4, dim=64, hidden_dim=128)
 WORDS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "quick", "brown", "fox", "jump", "##s", "over", "lazy", "dog",
          "th", "##3", "qu", "##1", "##ck", "br", "##0", "##wn", "f", "##x", "0", "##v", "##r", ".", ",", "!",

@@ -17,6 +17,8 @@ distance of its value to the rounding boundary) is below 1e-4 at that step,
 and the rest of that row is then not compared.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,21 @@ from surya_tpu_torch.table_rec.loader import from_jax_params
 from surya_tpu_torch.table_rec.shaper import LabelShaper
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_default_checkpoints():
+    """Port predictors built with checkpoint=None resolve no s3:// default
+    (no download): every *_MODEL_CHECKPOINT setting names a path that does
+    not exist."""
+    from surya_tpu_torch.settings import settings as port_settings
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in [n for n in vars(port_settings) if n.endswith("_MODEL_CHECKPOINT")]:
+            mp.setattr(port_settings, name, os.devnull)
+        yield
+
+
 ATOL = RTOL = 1e-4
 GAP = 1e-4
 DISCRETE = ("valid", "category", "merges", "colspan", "is_header")
