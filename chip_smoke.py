@@ -83,7 +83,24 @@ where one PyTorch call computes the same function, that call. Then:
   model's, the outputs equal to the source predictor's (token ids of 8
   whole pages of bench.py's shape, detection heatmaps, layout and table
   boxes, OCR error labels), and the checkpoint-loaded recognition path on
-  K1, K2 and K3; each write and load timed.
+  K1, K2 and K3; each write and load timed;
+- (phases 20 to 23) the mesh (surya_tpu_torch/parallel/mesh.py) on logical
+  meshes of cuda:0 (a device repeated): given-lines recognition, pinned, on
+  2x2, 1x2 and 2x1 meshes with the bf16 and the int8 KV cache, on the
+  unsharded predictor's weights; each mesh wrapper of the path (K1-mesh on
+  the 1x2 mesh, K2-mesh and K3-mesh or K3q-mesh on all) launched on every
+  shard, nothing through the gathered path, no plain version on the card;
+  the wall and the launches a decode step against the unsharded run's, the
+  token agreement with it (printed only); the first wave's prefill and one
+  decode step held against the unsharded path by relative error, as phase 5
+  holds the kernels. Then the three wrappers on a 2x2 logical mesh at the
+  shapes those runs gave them, each held against its plain version on the
+  gathered inputs and timed a shard beside one shard's bound, plain version
+  and library call; detection, layout, table recognition and OCR error on a
+  2x1 logical mesh against the unsharded predictors; and, on a machine of
+  more than one card, the recognition meshes and the batch predictors'
+  2x1 mesh over distinct cards (a line says when that is not run). A logical mesh measures the sharded code
+  path, not multi-card scaling.
 
 The random-weight phases point the five ``*_MODEL_CHECKPOINT`` settings at
 a path that does not exist, so that no predictor resolves or fetches a
@@ -109,6 +126,10 @@ the kernel's span rule) against the pairs the plan needs. K1 is also held
 against its plain version where no layout plan takes it: query rows outside
 their window, clamped window starts, and a window that is no multiple of its
 64-key tile.
+
+The kernels line also lists the three mesh wrappers (K3-mesh twice, bf16
+and int8 cache), each with its launches in the meshed run of its path and by
+shard, and its times a shard.
 
 Exits non-zero on any failure and when no CUDA device is present. Prints the
 card's name and power limit, one JSON line with the kernels' results, and as
@@ -154,8 +175,11 @@ from PIL import Image, ImageDraw  # noqa: E402
 
 from surya_tpu_torch.detection import DetectionPredictor, resize_on_device  # noqa: E402
 from surya_tpu_torch.layout import LayoutPredictor  # noqa: E402
+from surya_tpu_torch.layout.loader import layout_config  # noqa: E402
 from surya_tpu_torch.layout.slicer import ImageSlicer  # noqa: E402
-from surya_tpu_torch.models import qwen_decoder  # noqa: E402
+from surya_tpu_torch.models import qwen_decoder, qwen_encoder  # noqa: E402
+from surya_tpu_torch.models.foundation import prefill_routes  # noqa: E402
+from surya_tpu_torch.parallel.mesh import Sharded, make_mesh, split_range  # noqa: E402
 from surya_tpu_torch.models.adetr import DoneWatch  # noqa: E402
 from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
 from surya_tpu_torch.models.qwen_encoder import EncoderConfig, plan_layout  # noqa: E402
@@ -260,14 +284,25 @@ KERNELS = {
     "segmented_block_attention[window]": ("surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:215"),
     "causal_flash_attention": ("surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:64"),
     "gqa_decode": ("surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:187"),
-    "gqa_decode_int8": ("surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:167"),
+    "gqa_decode_int8": ("surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:187"),
+    # the mesh wrappers: the same kernels, launched once a shard
+    "segmented_block_attention_shard_map": ("surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:130"),
+    "causal_flash_attention_shard_map": ("surya_tpu_torch/csrc/flash_attn.cu", "surya_tpu/ops/flash.py:159"),
+    "gqa_decode_shard_map": ("surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:301"),
+    "gqa_decode_shard_map_int8": ("surya_tpu_torch/csrc/decode_attn.cu", "surya_tpu/ops/decode_attn.py:301"),
 }
 COUNTERS = {  # kernel -> (wrapper, its launch counter)
     "segmented_block_attention": (flash.segmented_block_attention, "launches"),
     "causal_flash_attention": (flash.causal_flash_attention, "launches"),
     "gqa_decode": (decode_attn.gqa_decode, "launches"),
     "gqa_decode_int8": (decode_attn.gqa_decode, "launches_q"),
+    "segmented_block_attention_shard_map": (flash.segmented_block_attention_shard_map, "launches"),
+    "causal_flash_attention_shard_map": (flash.causal_flash_attention_shard_map, "launches"),
+    "gqa_decode_shard_map": (decode_attn.gqa_decode_shard_map, "launches"),
+    "gqa_decode_shard_map_int8": (decode_attn.gqa_decode_shard_map, "launches_q"),
 }
+MESH_WRAPPERS = (flash.segmented_block_attention_shard_map, flash.causal_flash_attention_shard_map,
+                 decode_attn.gqa_decode_shard_map)
 K1_BY_RANGE = "segmented_block_attention by kv_range"
 # K3's library call: the first of these SDPA backends that takes a boolean
 # mask with enable_gqa (the fused ones first)
@@ -278,11 +313,18 @@ def reset_counts():
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     flash.segmented_block_attention.launches_by_range = {}
+    for fn in MESH_WRAPPERS:
+        fn.launches_by_shard, fn.launches_gathered = {}, 0
 
 
 def read_counts() -> dict:
+    """The launch counts; and for each mesh wrapper its launches by shard
+    ("<name> by shard") and the gathered path's ("gathered", all three)."""
     counts = {n: getattr(fn, attr) for n, (fn, attr) in COUNTERS.items()}
     counts[K1_BY_RANGE] = dict(flash.segmented_block_attention.launches_by_range)
+    for fn in MESH_WRAPPERS:
+        counts[f"{fn.__name__} by shard"] = dict(fn.launches_by_shard)
+    counts["gathered"] = sum(fn.launches_gathered for fn in MESH_WRAPPERS)
     return counts
 
 
@@ -335,23 +377,39 @@ def compare(name, kernel, plain, results, work, library=None, reps=20, cold=Fals
     times, bound and library time go in the kernels line; entry: that
     line's entry (default: the name up to "["). Returns the case's times."""
     out, ref = kernel(), plain()
+    return timed_case(name, hold(name, out, ref), kernel, plain, results, work, library, reps, cold, report, entry)
+
+
+def hold(name, out, ref) -> float:
+    """A kernel's output against its plain version's, elementwise within
+    KERNEL_RTOL * |ref| + KERNEL_ATOL; returns the largest difference."""
     torch.cuda.synchronize()
     if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
         raise AssertionError(f"{name}: non-finite output")
     diff, mag = (out.float() - ref.float()).abs(), ref.float().abs()
     err = diff.max().item()
     n_bad = int((diff > KERNEL_RTOL * mag + KERNEL_ATOL).sum())
-    ms, plain_ms = cuda_ms(kernel, reps, cold), cuda_ms(plain, max(2, reps // 4), cold)
+    print(f"  {name}: max_abs_err {err:.3e} (|ref| max {mag.max().item():.3f}; tol {KERNEL_RTOL:.4g}*|ref| "
+          f"+ {KERNEL_ATOL}: {n_bad} outside)")
+    if n_bad:
+        raise AssertionError(f"{name}: {n_bad} elements of the kernel's output disagree with its plain version")
+    return err
+
+
+def timed_case(name, err, kernel, plain, results, work, library=None, reps=20, cold=False, report=False,
+               entry=None, calls=1):
+    """Time a held case: the kernel's, the plain version's and the library
+    call's device time (kernel's over `calls` launches: a mesh wrapper's
+    shards run one after another on one card), the bound of the work one
+    launch needs; record err and, with report, the times in results."""
+    ms, plain_ms = cuda_ms(kernel, reps, cold) / calls, cuda_ms(plain, max(2, reps // 4), cold)
     flops, nbytes = work
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     library_ms = cuda_ms(library, max(2, reps // 4), cold) if library is not None else None
-    print(f"  {name}: max_abs_err {err:.3e} (|ref| max {mag.max().item():.3f}; tol {KERNEL_RTOL:.4g}*|ref| "
-          f"+ {KERNEL_ATOL}: {n_bad} outside); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({flops:.4g} ops, {nbytes:.4g} bytes: {100 * bound_ms / ms:.1f} % of the bound)"
+    print(f"    {name}: kernel {ms:.4f} ms{' a launch' if calls > 1 else ''}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({flops:.4g} ops, {nbytes:.4g} bytes: {100 * bound_ms / ms:.1f} % of the bound)"
           + (f", library call {library_ms:.4f} ms" if library is not None else ""))
-    if n_bad:
-        raise AssertionError(f"{name}: {n_bad} elements of the kernel's output disagree with its plain version")
     res = results.setdefault(entry or name.split("[")[0], {"max_abs_err": 0.0})
     res["max_abs_err"] = max(res["max_abs_err"], err)
     timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
@@ -680,10 +738,11 @@ def check_decode_main_path(results, gen, shapes, long_cache):
               f"({100 * res['bound_ms'] / res['ms']:.1f} %)")
 
 
-def first_wave(pred, flat):
+def first_wave(pred, flat, n_shards: int = 1):
     """The prefill batch of the predictor's first wave over flat's lines, as
-    its scheduler builds it: widest line first, the row bucket that fits.
-    Returns (batch, number of lines)."""
+    its scheduler builds it: widest line first, the row bucket that fits
+    (n_shards: the data-sharded build of a mesh). Returns (batch, number of
+    lines)."""
     order = sorted(range(len(flat["slices"])), key=lambda j: -flat["slices"][j].shape[1])
     if len(order) > pred.prefill_row_buckets[-1]:
         raise ValueError(f"{len(order)} lines do not fit one wave")
@@ -691,7 +750,7 @@ def first_wave(pred, flat):
     batch = pred.processor.build_prefill_batch(
         imgs, [flat["task_names"][j] for j in order], [flat["input_text"][j] for j in order], [True] * len(imgs),
         pred.config.encoder, batch_rows=next(b for b in pred.prefill_row_buckets if b >= len(imgs)),
-        seq_buckets=pred.seq_buckets, patch_caps=pred.patch_caps,
+        seq_buckets=pred.seq_buckets, patch_caps=pred.patch_caps, n_shards=n_shards,
     )
     return batch, len(imgs)
 
@@ -983,6 +1042,39 @@ def check_stream(pred, det, pages, batch_results, power):
           f"{first:.4f} s, all after {wall:.4f} s, {len(pages) / wall:.2f} pages/s [{power}]")
 
 
+def rel(a, b) -> float:
+    """The relative error of a against b: the norm of the difference over b's."""
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def model_path_outputs(pred, batch, model, use_kernels: bool, dtype, quantize: bool) -> dict:
+    """One prefill wave (batch) through `model`, then one decode step over
+    the cache it filled (bf16, or int8 with quantize), every row a slot and
+    its first input id the step's token: the image tokens, the prefill's
+    last hidden states and the step's hidden states."""
+    proc = pred.processor
+    rows, L = batch.input_ids.shape
+    lay = batch.layout
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(pred.device)
+
+    dec = pred.config.decoder
+    patches = proc.normalize_patch_rows(t(batch.patches), dtype)
+    img = model.encode_images(patches, tuple(t(a) for a in lay.device_args), t(lay.llm_h_idx), t(lay.llm_w_idx),
+                              lay.kv_range, lay.win_range, use_kernels=use_kernels)
+    embeds = model.embed_prompt_tokens(t(batch.input_ids), t(batch.img_gather), img)
+    nk, nv, last = model.decoder.prefill(embeds, t(batch.seq_lens), use_kernels=use_kernels)
+    cache = qwen_decoder.init_cache(dec, rows, -(-L // 256) * 256, dtype, pred.device, quantize=quantize)
+    qwen_decoder.merge_prefill(cache, nk, nv, t(batch.seq_lens), torch.arange(rows, device=pred.device))
+    ck = torch.zeros((dec.num_hidden_layers, rows, dec.num_key_value_heads, 8, dec.head_dim),
+                     dtype=dtype, device=pred.device)
+    emb = model.token_embed(t(batch.input_ids[:, 0].astype(np.int64)))
+    hid = model.decoder.decode_step_chunked(cache, ck, torch.zeros_like(ck), emb, 0,
+                                            cache["len"].clone(), use_kernels=use_kernels)
+    return {"image tokens": img[: lay.n_llm_tokens], "prefill hidden": last, "decode hidden": hid}
+
+
 def check_model_paths(pred, flat, quantize: bool):
     """One prefill wave over flat's lines (the first_wave batch), then one
     decode step over the cache it filled (bf16, or int8 with quantize), run
@@ -990,43 +1082,17 @@ def check_model_paths(pred, flat, quantize: bool):
     bf16 through the plain versions, and float32 through the plain versions.
     The kernel path must be no further from the float32 run than MODEL_RATIO
     times the plain bf16 path is."""
-    proc = pred.processor
     batch, _ = first_wave(pred, flat)
-    rows, L = batch.input_ids.shape
-    lay = batch.layout
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(pred.device)
-
-    enc_args = tuple(t(a) for a in lay.device_args)
-    dec = pred.config.decoder
-    slots = torch.arange(rows, device=pred.device)
-
-    def run(model, use_kernels, dtype):
-        patches = proc.normalize_patch_rows(t(batch.patches), dtype)
-        img = model.encode_images(patches, enc_args, t(lay.llm_h_idx), t(lay.llm_w_idx),
-                                  lay.kv_range, lay.win_range, use_kernels=use_kernels)
-        embeds = model.embed_prompt_tokens(t(batch.input_ids), t(batch.img_gather), img)
-        nk, nv, last = model.decoder.prefill(embeds, t(batch.seq_lens), use_kernels=use_kernels)
-        cache = qwen_decoder.init_cache(dec, rows, -(-L // 256) * 256, dtype, pred.device, quantize=quantize)
-        qwen_decoder.merge_prefill(cache, nk, nv, t(batch.seq_lens), slots)
-        ck = torch.zeros((dec.num_hidden_layers, rows, dec.num_key_value_heads, 8, dec.head_dim),
-                         dtype=dtype, device=pred.device)
-        emb = model.token_embed(t(batch.input_ids[:, 0].astype(np.int64)))
-        hid = model.decoder.decode_step_chunked(cache, ck, torch.zeros_like(ck), emb, 0,
-                                                cache["len"].clone(), use_kernels=use_kernels)
-        return {"image tokens": img[: lay.n_llm_tokens], "prefill hidden": last, "decode hidden": hid}
-
-    def rel(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm()).item()
-
     with torch.inference_mode():
         before = read_counts()
-        kern = run(pred.model, True, pred.dtype)
+        kern = model_path_outputs(pred, batch, pred.model, True, pred.dtype, quantize)
         used = {n: c - before[n] for n, c in read_counts().items() if n in COUNTERS}
-        plain = run(pred.model, False, pred.dtype)
+        plain = model_path_outputs(pred, batch, pred.model, False, pred.dtype, quantize)
         model32 = copy.deepcopy(pred.model).float()
-        ref = run(model32, False, torch.float32)
+        ref = model_path_outputs(pred, batch, model32, False, torch.float32, quantize)
         del model32
+    rows = batch.input_ids.shape[0]
+    dec = pred.config.decoder
     decode_kernel = "gqa_decode_int8" if quantize else "gqa_decode"
     other = "gqa_decode" if quantize else "gqa_decode_int8"
     if used[decode_kernel] != dec.num_hidden_layers or used[other]:
@@ -1872,6 +1938,441 @@ def check_checkpoints(pred, det, lay, tab, oe, power):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the mesh (phases 20 to 23) --------------------------------------------------
+# A logical mesh repeats cuda:0; its shards run one after another on one card,
+# so it measures the sharded code path (per-shard launches, the row-parallel
+# sums, the data-sharded encoder, the slot interleave), not multi-card scaling.
+
+MESH_SHAPES = [(2, 2), (1, 2), (2, 1)]  # (data, model): data + TP, pure TP (K1-mesh), data
+PLAIN_VERSIONS = [(flash, "segmented_block_attention_reference"), (flash, "causal_flash_attention_reference"),
+                  (decode_attn, "gqa_decode_reference")]
+
+
+class PlainCalls:
+    """In the block, the plain versions of K1, K2 and K3 (the module
+    attributes through which the wrappers and the models call them) count
+    their calls on CUDA tensors in `calls`."""
+
+    def __enter__(self):
+        self.calls, self.saved = {name: 0 for _, name in PLAIN_VERSIONS}, []
+        for module, name in PLAIN_VERSIONS:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                self.calls[_name] += args[0].device.type == "cuda"
+                return _fn(*args, **kwargs)
+
+            setattr(module, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+class MeshShapes:
+    """For one meshed predictor run, what its first prefill and first decode
+    step give the kernel wrappers (stand-ins, in this script only, for its
+    ShardedDecoder's two methods and for qwen_encoder.encode_on_mesh): the
+    prefill's rows and bucket by shard; the decode step's lengths by shard (a
+    device copy), cache and chunk shapes; the replicated encoder's plan."""
+
+    def __init__(self, mp):
+        self.decoder, self.first = mp.meshed.decoder, {}
+
+    def __enter__(self):
+        dec, first = self.decoder, self.first
+        prefill, step, encode = dec.prefill, dec.decode_step_chunked, qwen_encoder.encode_on_mesh
+
+        # each records at its first call only, so that later calls do no
+        # more work than the unwrapped methods
+        def rec_prefill(embeds, seq_lens):
+            if "prefill" not in first:
+                first["prefill"] = {dm: tuple(e.shape[:2]) for dm, e in embeds.items()}
+            return prefill(embeds, seq_lens)
+
+        def rec_step(cache, chunk_k, chunk_v, embeds, i, base_len):
+            if "decode" not in first:
+                first["decode"] = dict(lengths={dm: t.clone() for dm, t in base_len.shards.items()},
+                                       cache={dm: tuple(t.shape) for dm, t in cache["k"].shards.items()},
+                                       K=chunk_k[0, 0].shape[3])
+            return step(cache, chunk_k, chunk_v, embeds, i, base_len)
+
+        def rec_encode(encoders, args, kv_range, win_range, mesh):
+            if "encoder" not in first:
+                # args[(0, 0)]: patches, patch_gather, pos_hw, seg_id, win_id, unscatter, kv_starts, win_starts
+                a = args[0, 0]
+                first["encoder"] = dict(full=(a[3], a[6], kv_range), window=(a[4], a[7], win_range))
+            return encode(encoders, args, kv_range, win_range, mesh)
+
+        dec.prefill, dec.decode_step_chunked, qwen_encoder.encode_on_mesh = rec_prefill, rec_step, rec_encode
+        self.encode = encode
+        return self
+
+    def __exit__(self, *exc):
+        del self.decoder.prefill, self.decoder.decode_step_chunked
+        qwen_encoder.encode_on_mesh = self.encode
+
+
+def same_weights(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(bitwise_equal(sa[k], sb[k]) for k in sa)
+
+
+def mesh_path_outputs(mp, batch, n: int, quantize: bool) -> dict:
+    """model_path_outputs on mp's mesh, through the wrappers: the wave's
+    prefill (batch: its data-sharded build), then one decode step with
+    prompt i in slot i and its first input id as the token. Returns the
+    prefill's last hidden and the step's hidden states of the n prompts, in
+    prompt order, gathered on the mesh's first device."""
+    mesh, meshed, dec = mp.mesh, mp.meshed, mp.config.decoder
+    rows, L = batch.input_ids.shape
+    lay = batch.layout
+    inputs, seq_lens, sharded = mp._mesh_inputs(batch)
+    embeds = meshed.encode_embed(inputs, lay.kv_range, lay.win_range, sharded)
+    nk, nv, last = meshed.decoder.prefill(embeds, seq_lens)
+    valid = torch.from_numpy(batch.valid_rows.astype(np.int64)).to(mesh.first)
+    prefill_hidden = torch.cat([last[d, 0].to(mesh.first) for d in range(mesh.n_data)])[valid]
+    n_slots = mp.round_batch(n)
+    cache = qwen_decoder.init_cache(dec, n_slots, -(-L // 256) * 256, mp.dtype, None, quantize, mesh=mesh)
+    slot_idx, row_valid = np.zeros(rows, np.int32), np.zeros(rows, bool)
+    slot_idx[batch.valid_rows], row_valid[batch.valid_rows] = np.arange(n), True
+    meshed.merge_prefill(cache, nk, nv, seq_lens, prefill_routes(slot_idx, row_valid, n_slots, mesh, mp._upload))
+    first_ids = np.full(n_slots, mp.config.pad_token_id, np.int64)
+    first_ids[:n] = batch.input_ids[batch.valid_rows, 0]
+    emb, chunk = {}, {}
+    for d, m in mesh.coords():
+        lo, hi = split_range(n_slots, mesh.n_data, d)
+        dev = mesh.device(d, m)
+        emb[d, m] = meshed.model((d, m)).token_embed(mp._upload(first_ids[lo:hi], dev))
+        chunk[d, m] = torch.zeros((dec.num_hidden_layers, hi - lo, meshed.decoder.shards[d, m].n_kv_heads, 8,
+                                   dec.head_dim), dtype=mp.dtype, device=dev)
+    chunks = [Sharded(mesh, qwen_decoder.CHUNK_SPEC, {dm: c.clone() for dm, c in chunk.items()}) for _ in range(2)]
+    base_len = Sharded(mesh, qwen_decoder.ROWS_SPEC, {dm: t.clone() for dm, t in cache["len"].shards.items()})
+    hid = meshed.decoder.decode_step_chunked(cache, *chunks, emb, 0, base_len)
+    decode_hidden = torch.cat([hid[d, 0].to(mesh.first) for d in range(mesh.n_data)])[:n]
+    return {"prefill hidden": prefill_hidden, "decode hidden": decode_hidden}
+
+
+def check_mesh_model_paths(pred, mp, flat, quantize: bool, unsharded: dict):
+    """The first wave's prefill and one decode step on mp's mesh (the
+    wrappers, bf16) against the same unsharded (the kernels, the plain
+    versions in bf16 and in float32; kept in `unsharded` by cache type), by
+    relative error: the meshed path no further from the float32 run than
+    MODEL_RATIO times the plain bf16 path (check_model_paths' rule)."""
+    batch, n = first_wave(pred, flat)
+    mbatch, _ = first_wave(mp, flat, mp.n_data)
+    with torch.inference_mode():
+        meshed = mesh_path_outputs(mp, mbatch, n, quantize)
+        if quantize not in unsharded:
+            model32 = copy.deepcopy(pred.model).float()
+            unsharded[quantize] = (
+                model_path_outputs(pred, batch, pred.model, True, pred.dtype, quantize),
+                model_path_outputs(pred, batch, pred.model, False, pred.dtype, quantize),
+                model_path_outputs(pred, batch, model32, False, torch.float32, quantize),
+            )
+            del model32
+    kern, plain, ref = unsharded[quantize]
+    for key in meshed:
+        e_m, e_k, e_p = (rel(x[key][:n], ref[key][:n]) for x in (meshed, kern, plain))
+        print(f"    {n} prompts, {'int8' if quantize else 'bf16'} cache, {key}: rel err vs float32 plain: meshed "
+              f"{e_m:.3e}, unsharded kernels {e_k:.3e}, plain bf16 {e_p:.3e}; meshed vs unsharded kernels "
+              f"{rel(meshed[key], kern[key][:n]):.3e}")
+        if not (np.isfinite(e_m) and e_m <= MODEL_RATIO * e_p):
+            raise AssertionError(f"{key}: the meshed path is further from float32 than {MODEL_RATIO}x the plain path")
+
+
+def assert_mesh_launches(label, counts, plain_calls, mesh, quantize: bool):
+    """The wrappers of the meshed path launched on every shard, nothing
+    through the gathered path, no single-device K2, K3 or K3q, and no plain
+    version on the card; K1 single-device on a data-sharded mesh (each data
+    shard's own encoder), K1-mesh on every shard of a one-data-row mesh."""
+    decode = "gqa_decode_shard_map_int8" if quantize else "gqa_decode_shard_map"
+    other = "gqa_decode_shard_map" if quantize else "gqa_decode_shard_map_int8"
+    k1 = "segmented_block_attention" if mesh.n_data > 1 else "segmented_block_attention_shard_map"
+    k1_not = "segmented_block_attention_shard_map" if mesh.n_data > 1 else "segmented_block_attention"
+    assert_launched(label, {k: v for k, v in counts.items() if k != K1_BY_RANGE},
+                    [k1, "causal_flash_attention_shard_map", decode],
+                    [k1_not, other, "causal_flash_attention", "gqa_decode", "gqa_decode_int8", "gathered"])
+    shards = set(mesh.coords())
+    wrappers = ["causal_flash_attention_shard_map", "gqa_decode_shard_map"]
+    if mesh.n_data == 1:
+        wrappers.append("segmented_block_attention_shard_map")
+    for name in wrappers:
+        by_shard = counts[f"{name} by shard"]
+        if set(by_shard) != shards or min(by_shard.values()) <= 0:
+            raise AssertionError(f"{label}: {name} launched on shards {by_shard}, want every shard of {sorted(shards)}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{label}: plain versions ran on the card: {plain_calls}")
+
+
+def check_mesh_recognition(pred, pages, bboxes, devices, shapes, caches, power, tag):
+    """Given-lines recognition, pinned to PIN_TOKENS a line, on each mesh
+    shape over `devices`, bf16 and int8 KV cache, on pred's weights: the
+    launches of assert_mesh_launches, the wall and launches per decode step
+    against the unsharded predictor's, the token agreement with it (printed,
+    not gated: random weights' near-ties flip under other GEMM shapes), and
+    check_mesh_model_paths. Returns {(shape, quantize): (counts, MeshShapes
+    record)}."""
+    flat = pred.slice_bboxes(pages[:1], ["ocr_with_boxes"], bboxes=bboxes[:1])
+    dec = pred.config.decoder
+    base, paths = {}, {}
+    for quantize in caches:
+        settings.RECOGNITION_MODEL_QUANTIZE = quantize
+        set_pin(True)
+        recognized_tokens(pred, pages[:1], bboxes[:1])  # warm-up
+        reset_counts()
+        tokens, wall = synchronised(recognized_tokens, pred, pages, bboxes)
+        base[quantize] = (tokens, wall, read_counts())
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh(*shape, devices)
+        t0 = time.perf_counter()
+        mp = RecognitionPredictor(mesh=mesh)
+        built = time.perf_counter() - t0
+        if not same_weights(mp.model, pred.model):
+            raise AssertionError("the meshed predictor's random weights differ from the unsharded one's")
+        print(f"    {tag} {shape[0]}x{shape[1]} mesh {[[str(x) for x in row] for row in mesh.devices]}: built in "
+              f"{built:.1f} s; {mp.n_slots} slots + trash, prefill rows {mp.prefill_row_buckets}; decoder shard "
+              f"{mp.meshed.decoder.shards[0, 0].n_heads}/{mp.meshed.decoder.shards[0, 0].n_kv_heads} heads")
+        for quantize in caches:
+            settings.RECOGNITION_MODEL_QUANTIZE = quantize
+            set_pin(True)
+            recognized_tokens(mp, pages[:1], bboxes[:1])  # warm-up
+            reset_counts()
+            with PlainCalls() as plain, MeshShapes(mp) as rec:
+                tokens, wall = synchronised(recognized_tokens, mp, pages, bboxes)
+            counts = read_counts()
+            label = f"{tag} {shape[0]}x{shape[1]}, {'int8' if quantize else 'bf16'} cache"
+            base_tokens, base_wall, base_counts = base[quantize]
+            n_t = sum(map(len, tokens))
+            if len(tokens) != len(base_tokens) or n_t != PIN_TOKENS * len(tokens):
+                raise AssertionError(f"{label}: {len(tokens)} lines, {n_t} tokens; want {len(base_tokens)} lines of "
+                                     f"{PIN_TOKENS}")
+            decode = "gqa_decode_shard_map_int8" if quantize else "gqa_decode_shard_map"
+            steps = counts[decode] // (dec.num_hidden_layers * len(mesh.coords()))
+            base_k3 = base_counts["gqa_decode_int8" if quantize else "gqa_decode"]
+            same, same0, first_diff = agreement(tokens, base_tokens)
+            print(f"    {label}: {len(tokens)} lines, {n_t} tokens; wall {wall:.4f} s against {base_wall:.4f} s "
+                  f"unsharded ({wall / base_wall:.2f} x); {steps} decode steps, K3-mesh launches {counts[decode]} "
+                  f"({counts[decode] // max(steps, 1)} a step, unsharded K3 {base_k3 // max(steps, 1)} a step); "
+                  f"token ids equal to the unsharded run's on {same:.4f} of the lines ({same0:.4f} the same token "
+                  f"0, median first difference at {first_diff}) [{power}]")
+            assert_mesh_launches(label, counts, plain.calls, mesh, quantize)
+            check_mesh_model_paths(pred, mp, flat, quantize, paths)
+            out[shape, quantize] = (counts, rec.first)
+        del mp
+        torch.cuda.empty_cache()
+    set_pin(False)
+    settings.RECOGNITION_MODEL_QUANTIZE = False
+    return out
+
+
+def check_mesh_wrappers(results, gen, records, mesh):
+    """K1-mesh, K2-mesh and K3-mesh (bf16 and int8 cache) on `mesh` at the
+    shapes the meshed runs gave them (K2-mesh and K3-mesh: the 2x2 run's
+    first prefill and decode step, K3q-mesh the int8 one's; K1-mesh the 1x2
+    run's plan, replicated), each held against its plain version on the
+    gathered inputs; timed a shard (the wrapper's time over its launches,
+    one after another on the card) beside one shard's bound, plain version
+    and library call."""
+    coords = mesh.coords()
+    n = len(coords)
+    spec = qwen_decoder.PREFILL_SPEC
+
+    # K2-mesh: rows over data, heads over model
+    prefill = records[(2, 2), False][1]["prefill"]
+    R = sum(prefill[d, 0][0] for d in range(mesh.n_data))
+    L = prefill[0, 0][1]
+    qg, kg, vg = randn(gen, R, L, 12, 128, scale=1.0), randn(gen, R, L, 4, 128), randn(gen, R, L, 4, 128)
+    q, k, v = (Sharded.split(x, mesh, spec) for x in (qg, kg, vg))
+    q0, k0, v0 = q[0, 0], k[0, 0], v[0, 0]
+    B0, _, H0, _ = q0.shape
+    print(f"  K2-mesh {mesh.n_data}x{mesh.n_model}: {R} rows of bucket {L}; a shard {tuple(q0.shape)} q, "
+          f"{tuple(k0.shape)} k/v")
+    name = "causal_flash_attention_shard_map"
+    err = hold(name, flash.causal_flash_attention_shard_map(q, k, v, mesh).gather(),
+               flash.causal_flash_attention_reference(qg, kg, vg))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q0, k0, v0))
+    timed_case(name, err, lambda: flash.causal_flash_attention_shard_map(q, k, v, mesh),
+               lambda: flash.causal_flash_attention_reference(q0, k0, v0), results,
+               work=(4 * B0 * H0 * 128 * (L * (L + 1) // 2), 2 * nbytes(q0) + nbytes(k0, v0)),
+               library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+               report=True, calls=n)
+    results[name]["per_shard"] = dict(q=list(q0.shape), kv=list(k0.shape))
+
+    # K3-mesh and K3q-mesh: slots over data, kv heads over model
+    for quantize, name in ((False, "gqa_decode_shard_map"), (True, "gqa_decode_shard_map_int8")):
+        rec = records[(2, 2), quantize][1]["decode"]
+        lens_np = torch.cat([rec["lengths"][d, 0] for d in range(mesh.n_data)]).cpu().numpy().astype(np.int32)
+        layers, _, _, S, _ = rec["cache"][0, 0]
+        K = rec["K"]
+        B = lens_np.size
+        qd, (kc, vc), (kq, vq, ks, vs), (ck, cv) = decode_inputs(gen, B, S, K, layers)
+        cs = qwen_decoder.CACHE_SPECS
+        args = dict(q=Sharded.split(qd, mesh, qwen_decoder.DECODE_Q_SPEC),
+                    lengths=Sharded.split(to_cuda(lens_np), mesh, cs["len"]),
+                    chunk=[Sharded.split(x, mesh, qwen_decoder.CHUNK_SPEC) for x in (ck, cv)])
+        if quantize:
+            cache = [Sharded.split(x, mesh, cs["k"]) for x in (kq, vq)]
+            scales = [Sharded.split(x, mesh, cs["k_scale"]) for x in (ks, vs)]
+            gathered = (kq, vq, ks, vs)
+        else:
+            cache = [Sharded.split(x, mesh, cs["k"]) for x in (kc, vc)]
+            scales = [None, None]
+            gathered = (kc, vc, None, None)
+        q0, l0 = args["q"][0, 0], args["lengths"][0, 0]
+        c0 = [x[0, 0] for x in cache]
+        s0 = [x[0, 0] if x is not None else None for x in scales]
+        ck0, cv0 = (x[0, 0] for x in args["chunk"])
+        B0, H0, D = q0.shape
+        kvh0 = c0[0].shape[2]
+        rows0 = int(l0.sum())
+        print(f"  {'K3q' if quantize else 'K3'}-mesh {mesh.n_data}x{mesh.n_model}: {B} slots, S={S}, K={K}; a shard "
+              f"{B0} slots, {H0}/{kvh0} heads, {rows0} valid cache rows a kv head (lengths "
+              f"{int(lens_np.min())} to {int(lens_np.max())})")
+        by_step = {}
+        for step in (0, K // 2 - 1, K - 1):
+            layer = layers - 1
+            err = hold(f"{name}[{step}]",
+                       decode_attn.gqa_decode_shard_map(args["q"], *cache, args["lengths"], *args["chunk"], step,
+                                                        layer, *scales, mesh=mesh).gather(),
+                       decode_attn.gqa_decode_reference(qd, gathered[0], gathered[1], to_cuda(lens_np), ck, cv, step,
+                                                        layer, gathered[2], gathered[3]))
+            row_bytes = 128 * 2 if not quantize else 128 + 2
+            work = (4 * H0 * D * (rows0 + B0 * (step + 1)),
+                    2 * rows0 * kvh0 * row_bytes + 2 * B0 * kvh0 * (step + 1) * D * 2 + 2 * nbytes(q0) + nbytes(l0))
+            lib = None if quantize else decode_library(q0, c0[0], c0[1], l0, ck0, cv0, step, layer)[0]
+            by_step[str(step)] = timed_case(
+                f"{name}[{step}]", err,
+                lambda: decode_attn.gqa_decode_shard_map(args["q"], *cache, args["lengths"], *args["chunk"], step,
+                                                         layer, *scales, mesh=mesh),
+                lambda: decode_attn.gqa_decode_reference(q0, c0[0], c0[1], l0, ck0, cv0, step, layer, *s0),
+                results, work=work, library=lib, cold=True, calls=n)
+        res = results[name]
+        res.update({key: float(np.mean([t[key] for t in by_step.values()])) for key in ("ms", "plain_ms", "bound_ms")})
+        res["library_ms"] = None if quantize else float(np.mean([t["library_ms"] for t in by_step.values()]))
+        res.update(bound_by=by_step[str(K - 1)]["bound_by"], by_step=by_step,
+                   per_shard=dict(slots=B0, heads=H0, kv_heads=kvh0, S=S, K=K))
+
+    # K1-mesh: every shard the whole packed sequence (the encoder is not partitioned)
+    cfg = EncoderConfig(**DEFAULT_ENCODER)
+    plan = records[(1, 2), False][1]["encoder"]
+    for label, (gid_t, starts_t, rng_len) in (("full", plan["full"]), ("window", plan["window"])):
+        S = gid_t.numel()
+        qg, kg, vg = segmented_inputs(gen, S, cfg.num_heads, cfg.head_dim)
+        rep = [Sharded.split(x.contiguous(), mesh, (None,) * x.ndim) for x in (qg, kg, vg, gid_t, starts_t)]
+        gid = gid_t.cpu().numpy()
+        _, sizes = np.unique(gid[gid >= 0], return_counts=True)
+        pairs = int((sizes.astype(np.int64) ** 2).sum())
+        name = f"segmented_block_attention_shard_map[{label}]"
+        print(f"  K1-mesh {mesh.n_data}x{mesh.n_model} [{label}]: S={S}, kv_range {rng_len}, {len(sizes)} groups, "
+              f"on every shard")
+        out = flash.segmented_block_attention_shard_map(*rep, rng_len, mesh)
+        ref = flash.segmented_block_attention_reference(qg, kg, vg, gid_t, starts_t, rng_len)
+        err = hold(name, torch.stack([out[dm] for dm in coords]), ref.expand(n, *ref.shape))
+        q0, k0, v0, g0, st0 = (x[0, 0] for x in rep)
+        qh, kh, vh = (x.transpose(0, 1)[None] for x in (q0, k0, v0))
+        mask = (g0[:, None] == g0[None, :])[None, None]
+
+        def library():
+            with sdpa_kernel([SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        timed_case(name, err, lambda: flash.segmented_block_attention_shard_map(*rep, rng_len, mesh),
+                   lambda: flash.segmented_block_attention_reference(q0, k0, v0, g0, st0, rng_len),
+                   results, work=(4 * pairs * cfg.num_heads * cfg.head_dim, 4 * nbytes(q0)), library=library,
+                   report=label == "full", entry="segmented_block_attention_shard_map", calls=n)
+    results["segmented_block_attention_shard_map"]["per_shard"] = dict(S=int(plan["full"][0].numel()),
+                                                                        kv_range=plan["full"][2])
+
+
+def check_mesh_batch_predictors(det, pages, power, devices=None):
+    """Detection, layout, table recognition and OCR error on a 2x1 mesh of
+    `devices` (default a logical one of cuda:0; rows over the data axis)
+    give the unsharded predictors' results on
+    the same weights: detection (bf16, the blob detector, det's weights
+    copied in) boxes by the IoU rule of hold_boxes; layout labels, table
+    rows, columns and cells (row boxes within 1 px) and OCR error labels
+    equal, in float32 with TF32 off, so that the row split's other GEMM
+    shapes cannot flip a random-weight near-tie (layout cap-bound at
+    F32_MAX_BOXES boxes a tile, and its box loop's raw steps held too: the
+    same recorded steps and classes, box values within 1). None launches a
+    hand-written kernel."""
+    mesh = make_mesh(2, 1, devices or [torch.device("cuda", 0)] * 2)
+    mdet = DetectionPredictor(mesh=mesh)
+    install_blob_detector(mdet)
+    mdet.model.load_state_dict(det.model.state_dict())  # phase 19 folded other batch-norm statistics into det's
+    reset_counts()
+    got, wall = synchronised(mdet, [p.copy() for p in pages])
+    base, base_wall = synchronised(det, [p.copy() for p in pages])
+    for b, g in zip(base, got):
+        hold_boxes(b, g)
+    print(f"    detection: {len(pages)} pages, {sum(len(r.bboxes) for r in got)} boxes (unsharded "
+          f"{sum(len(r.bboxes) for r in base)}), every page within the IoU rule; wall {wall:.4f} s against "
+          f"{base_wall:.4f} s unsharded [{power}]")
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lay_pages = bench_pages(2)
+        # cap-bound (no class taken for EOS or PAD): every tile records its F32_MAX_BOXES boxes
+        capped = dataclasses.replace(layout_config(), eos_token_id=-1, pad_token_id=-1, max_boxes=F32_MAX_BOXES)
+        lays = [LayoutPredictor(device="cuda", dtype=torch.float32, config=capped),
+                LayoutPredictor(mesh=mesh, dtype=torch.float32, config=capped)]
+        tabs = [TableRecPredictor(device="cuda", dtype=torch.float32),
+                TableRecPredictor(mesh=mesh, dtype=torch.float32)]
+        oes = [OCRErrorPredictor(device="cuda"), OCRErrorPredictor(mesh=mesh)]
+        for p in oes:
+            p.model.float()
+        for a, b in (lays, tabs, oes):
+            if not same_weights(a.model, b.model):
+                raise AssertionError(f"the meshed {type(b).__name__}'s weights differ")
+        labels = [[[b.label for b in r.bboxes] for r in p([pg.copy() for pg in lay_pages])] for p in lays]
+        # and the box loop's raw outputs (random weights' labels are mostly
+        # special classes, which the clean-up drops)
+        tiles, _ = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE).slice(
+            [pg.convert("RGB") for pg in lay_pages])
+        px = np.stack([lays[0].prepare_image(t) for t in tiles])
+        with torch.inference_mode():
+            raw = [lays[0]._generate(lays[0]._upload(px), DoneWatch(lays[0].device)).cpu(),
+                   lays[1].data_parallel(lambda model, x: lays[1]._generate(x, DoneWatch(x.device), model),
+                                         lays[1]._upload(px)).cpu()]
+        crops = [pg.crop((100, 100, 868, 868)) for pg in lay_pages]
+        tables = []
+        for p in tabs:
+            install_synthetic_tables(p, TABLE_ROWS, TABLE_COLS, TABLE_CELLS)
+            tables.append(p([c.copy() for c in crops]))
+        texts = ocr_error_texts(np.random.default_rng(SEED + 3))[0][::4]
+        err_labels = [p(texts).labels for p in oes]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = read_counts()
+    if labels[0] != labels[1]:
+        raise AssertionError(f"layout labels differ on the mesh: {labels[1]} against {labels[0]}")
+    valid = raw[0][..., -1] > 0.5
+    box_diff = float((raw[0][..., :6] - raw[1][..., :6]).abs()[valid].max()) if valid.any() else 0.0
+    if not (torch.equal(valid, raw[1][..., -1] > 0.5) and torch.equal(raw[0][..., 6][valid], raw[1][..., 6][valid])
+            and box_diff < 1.0):
+        raise AssertionError(f"layout's box loop differs on the mesh (box values up to {box_diff} apart)")
+    for t0, t1 in zip(*tables):
+        if (len(t0.rows), len(t0.cols), len(t0.cells)) != (len(t1.rows), len(t1.cols), len(t1.cells)):
+            raise AssertionError("a table's rows, columns or cells differ on the mesh")
+        worst = max(np.abs(np.asarray(a.polygon) - np.asarray(b.polygon)).max() for a, b in zip(t0.rows, t1.rows))
+        if worst >= 1.0:
+            raise AssertionError(f"a table row box moved {worst} px on the mesh")
+    if err_labels[0] != err_labels[1]:
+        raise AssertionError("OCR error labels differ on the mesh")
+    if any(launches[k] for k in COUNTERS):
+        raise AssertionError(f"the batch predictors launched {launches}")
+    print(f"    float32: layout {sum(map(len, labels[1]))} boxes on {len(lay_pages)} pages, labels equal, the box "
+          f"loop's {int(valid.sum())} recorded steps of {len(tiles)} tiles with equal classes, box values within "
+          f"{box_diff:.3e}; tables "
+          f"{[(len(t.rows), len(t.cols), len(t.cells)) for t in tables[1]]} (rows, columns, cells) equal, row boxes "
+          f"within 1 px; {len(texts)} OCR error labels equal [{power}]")
+
+
+
 def assert_launched(label, run_counts, launched, not_launched=()):
     print(f"    {label}: {run_counts}")
     for n in launched:
@@ -1883,7 +2384,7 @@ def assert_launched(label, run_counts, launched, not_launched=()):
 
 
 def main():
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     power = card()
     print(f"[1] card: {power}")
     lib = _build.library()
@@ -2013,6 +2514,26 @@ def main():
           "their predictors built from them twice (conversion, then the cache)")
     check_checkpoints(pred, det, lay, tab, oe, power)
 
+    logical = [torch.device("cuda", 0)] * 4
+    print(f"[20] the mesh: given-lines recognition at production width ({N_PAGES} pages of {LINES_PER_PAGE} lines, "
+          f"pinned {PIN_TOKENS} tokens), bf16 and int8 cache, on logical meshes of cuda:0 "
+          f"{['x'.join(map(str, m)) for m in MESH_SHAPES]}, against the unsharded predictor")
+    records = check_mesh_recognition(pred, pages, bboxes, logical, MESH_SHAPES, (False, True), power, "logical")
+    print("[21] the mesh wrappers on a 2x2 logical mesh at the meshed runs' shapes, against their plain versions")
+    check_mesh_wrappers(results, gen, records, make_mesh(2, 2, logical))
+    print("[22] detection, layout, table recognition and OCR error on a 2x1 logical mesh, against unsharded")
+    check_mesh_batch_predictors(det, north_pages[:4], power)
+    n_cards = torch.cuda.device_count()
+    print(f"[23] the mesh over distinct cards ({n_cards} on this machine)")
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(min(n_cards, 4))]
+        shapes = ([(2, 2)] if len(cards) == 4 else []) + [(1, 2), (2, 1)]
+        check_mesh_recognition(pred, pages, bboxes, cards, shapes, (False,), power, "cards")
+        print(f"    the batch predictors on a 2x1 mesh of {cards[0]} and {cards[1]}")
+        check_mesh_batch_predictors(det, north_pages[:4], power, cards[:2])
+    else:
+        print("    not run: one card (phases 20 to 22 ran on logical meshes of cuda:0)")
+
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and
     # windowed blocks differ in window length (the wave's plan has both).
@@ -2027,8 +2548,20 @@ def main():
         "gqa_decode": counts["pinned 40"]["gqa_decode"],
         "gqa_decode_int8": page["gqa_decode_int8"],
     }
+    # the mesh wrappers: K1-mesh in the 1x2 run, the others in the 2x2 runs (bf16, int8 cache)
+    for wrapper, run, counter in [
+        ("segmented_block_attention_shard_map", ((1, 2), False), "segmented_block_attention_shard_map"),
+        ("causal_flash_attention_shard_map", ((2, 2), False), "causal_flash_attention_shard_map"),
+        ("gqa_decode_shard_map", ((2, 2), False), "gqa_decode_shard_map"),
+        ("gqa_decode_shard_map_int8", ((2, 2), True), "gqa_decode_shard_map"),
+    ]:
+        run_counts = records[run][0]
+        launches[wrapper] = run_counts[wrapper]
+        results[wrapper]["launches_by_shard"] = {f"{d},{m}": c for (d, m), c in
+                                                 run_counts[f"{counter} by shard"].items()}
+        results[wrapper]["mesh"] = f"{run[0][0]}x{run[0][1]} of cuda:0"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "main_path", "by_step",
-            "long_cache")
+            "long_cache", "mesh", "per_shard", "launches_by_shard")
     report = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": launches[n],
          **{key: results[n][key] for key in keys if key in results[n]}}
@@ -2036,7 +2569,7 @@ def main():
     ]}
     print(json.dumps(report))
     print(power)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -86,27 +86,30 @@ class DetectionPredictor(BasePredictor):
     resize_cache_entries = 32  # device resize-matrix stacks kept, least recently used evicted first
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
-                 jax_params: Optional[dict] = None):
+                 jax_params: Optional[dict] = None, mesh=None):
         """checkpoint: a local directory or ``s3://`` name (default
         DETECTOR_MODEL_CHECKPOINT); tiny: the small test configuration of
         random weights; jax_params: the JAX detection pytree as numpy
-        leaves, whose weights the model takes (no checkpoint is resolved)."""
+        leaves, whose weights the model takes (no checkpoint is resolved);
+        mesh: a data mesh the chunk rows split over (default: with USE_MESH
+        on and more than one card, every card)."""
         self._tiny = tiny
         self._jax_params = jax_params
-        super().__init__(checkpoint, device)
+        super().__init__(checkpoint, device, mesh)
 
     def _load(self):
         self.model, self.config = load_detection_model(self.checkpoint, self._tiny, self.device, self._jax_params)
         self._jax_params = None
         self.dtype = self.model.head.classifier.weight.dtype
         self.processor_size = self.config.image_size  # (h, w)
-        # the heatmap tail: float32 sigmoid maps [B, C, H/4, W/4] from pixels
-        # in [0, 1] (models.efficientvit.install_blob_detector replaces it)
-        self._apply_heat = self.model.apply_heat
+        # the heatmap tail: (model, pixels in [0, 1]) -> float32 sigmoid maps
+        # [B, C, H/4, W/4] (models.efficientvit.install_blob_detector replaces it)
+        self._apply_heat = type(self.model).apply_heat
         # device resize-matrix stacks by (source sizes, groups, canvas)
         self._resize_mat_cache: OrderedDict = OrderedDict()
         self.stats_batches = 0
         self.maps_batches = 0
+        self.setup_mesh()  # a mesh: the chunk rows split over its data axis
 
     def __call__(self, images: List[Image.Image], batch_size=None, include_maps=False) -> List[TextDetectionResult]:
         parallel = len(images) >= settings.DETECTOR_MIN_PARALLEL_THRESH and (os.cpu_count() or 1) > 1
@@ -157,10 +160,16 @@ class DetectionPredictor(BasePredictor):
     def _heat(self, pixels: torch.Tensor, resize) -> torch.Tensor:
         """Float32 heatmaps [B, C, H/4, W/4] of uint8 pixels: [B, Hb, Wb, C]
         chunks with resize = (Vs, Hs, gid), or [B, H, W, C] at the processor
-        size without."""
-        x = resize_on_device(pixels, *resize, self.dtype) if resize is not None else pixels.permute(0, 3, 1, 2)
-        B, _, H, W = x.shape
-        return self._apply_heat(x.expand(B, 3, H, W).to(self.dtype) / 255.0)
+        size without. On a mesh each data shard runs its block of rows."""
+        def heat(model, px, *gid):
+            if resize is None:
+                x = px.permute(0, 3, 1, 2)
+            else:
+                x = resize_on_device(px, resize[0].to(px.device), resize[1].to(px.device), *gid, self.dtype)
+            B, _, H, W = x.shape
+            return self._apply_heat(model, x.expand(B, 3, H, W).to(self.dtype) / 255.0)
+
+        return self.data_parallel(heat, pixels, *(resize[2:] if resize is not None else ()))
 
     def _maps_program(self, pixels: torch.Tensor, resize, n_real: int, n_maps: int) -> torch.Tensor:
         """uint8 maps [n_real, n_maps, H/4, W/4] (heat rounded to 1/255)."""
@@ -240,7 +249,7 @@ class DetectionPredictor(BasePredictor):
             bucket = 1
             while bucket < min(n_real, batch_size):
                 bucket *= 2
-            rows = min(max(bucket, n_real), max(batch_size, n_real))
+            rows = self.round_batch(min(max(bucket, n_real), max(batch_size, n_real)))  # even blocks on a mesh
 
             with stage("detection.prepare"):
                 if device_resize:

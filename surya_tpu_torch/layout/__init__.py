@@ -87,18 +87,19 @@ class LayoutPredictor(BasePredictor):
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
                  jax_params: Optional[dict] = None, config: Optional[LayoutConfig] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh=None):
         """checkpoint: a local directory or ``s3://`` name (default
         LAYOUT_MODEL_CHECKPOINT); tiny: the small test configuration of
         random weights; config: any other; jax_params: the JAX layout pytree
         as numpy leaves, whose weights the model takes (no checkpoint is
         resolved); dtype: the model's (default bfloat16 on CUDA, float32 on
-        the CPU)."""
+        the CPU); mesh: a data mesh the tiles split over (default: with
+        USE_MESH on and more than one card, every card)."""
         self._tiny = tiny
         self._jax_params = jax_params
         self._config = config
         self._dtype = dtype
-        super().__init__(checkpoint, device)
+        super().__init__(checkpoint, device, mesh)
 
     def _load(self):
         self.model, self.config = load_layout_model(self.checkpoint, self._tiny, self.device, self._jax_params,
@@ -109,18 +110,20 @@ class LayoutPredictor(BasePredictor):
         # (the loop's event waits and the output's), and the host time spent
         # enqueuing them
         self.last_run: dict = {}
+        self.setup_mesh()  # a mesh: the tiles split over its data axis
 
     def prepare_image(self, img: Image.Image) -> np.ndarray:
         """Squish-resize to the encoder size (no aspect kept), HWC uint8."""
         size = self.config.encoder.image_size
         return cv2.resize(np.asarray(img, dtype=np.uint8), (size[1], size[0]), interpolation=cv2.INTER_LANCZOS4)
 
-    def _generate(self, pixels: torch.Tensor, watch: DoneWatch) -> torch.Tensor:
+    def _generate(self, pixels: torch.Tensor, watch: DoneWatch, model=None) -> torch.Tensor:
         """uint8 tiles [B, H, W, 1 or 3] -> one float32 array [B, MAX, 7 +
-        label_count + 1]: boxes, class logits and the valid flag."""
+        label_count + 1]: boxes, class logits and the valid flag (through
+        `model`, default the predictor's)."""
         x = pixels.expand(*pixels.shape[:-1], 3).to(self.dtype) / 255.0
         x = (x - IMAGE_MEAN) / IMAGE_STD
-        boxes, logits, valid = self.model.generate(x, watch)
+        boxes, logits, valid = (model or self.model).generate(x, watch)
         return torch.cat([boxes, logits, valid[..., None].float()], dim=-1)
 
     def __call__(self, images: List[Image.Image], batch_size: Optional[int] = None,
@@ -133,6 +136,7 @@ class LayoutPredictor(BasePredictor):
             raise TypeError("LayoutPredictor takes PIL images")
         if batch_size is None:
             batch_size = self.get_batch_size()
+        batch_size = self.round_batch(batch_size)
         slicer = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE)
         img_counts = [slicer.slice_count(image) for image in images]
         batches = pack_by_tiles(img_counts, self.pipeline_cap(settings.LAYOUT_PIPELINE_BATCH, batch_size))
@@ -143,14 +147,23 @@ class LayoutPredictor(BasePredictor):
         for start_idx, end_idx in tqdm(batches, desc="Recognizing layout", disable=self.disable_tqdm):
             tiles, tile_positions = slicer.slice([im.convert("RGB") for im in images[start_idx:end_idx]])
             pixels = self.gray_ship(np.stack([self.prepare_image(im) for im in tiles]))
+            rows = self.round_batch(len(tiles))  # even blocks on a mesh: copies of the last tile
+            if rows > len(tiles):
+                pixels = np.pad(pixels, [(0, rows - len(tiles))] + [(0, 0)] * 3, mode="edge")
             t0 = time.perf_counter()
-            watch = DoneWatch(self.device)
+            watches = []  # a loop's own on each data shard
+
+            def generate(model, px):
+                watches.append(DoneWatch(px.device))
+                return self._generate(px, watches[-1], model)
+
             with self._on_stream(), torch.inference_mode():
-                handle = self._fetch(self._generate(self._upload(pixels), watch))
+                handle = self._fetch(self.data_parallel(generate, self._upload(pixels)))
             run["enqueue_s"] += time.perf_counter() - t0
             run["tiles"].append(len(tiles))
-            run["steps"].append(watch.steps)
-            run["host_syncs"].append(watch.syncs + 1)  # the loop's event waits and the output's
+            run["steps"].append(max(w.steps for w in watches))
+            # the loops' event waits and the output's
+            run["host_syncs"].append(sum(w.syncs for w in watches) + 1)
             # fetch the previous batch only now that this one is enqueued
             if inflight is not None:
                 results.extend(self._finish(*inflight, slicer, top_k))

@@ -219,6 +219,7 @@ class DoneWatch:
     every = 8
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.cuda = device.type == "cuda"
         self.pending = None
         self.steps = 0
@@ -237,10 +238,12 @@ class DoneWatch:
             if bool(flag):
                 return True
         if self.cuda:
+            # the copy runs on the current stream of done's device, which on
+            # a mesh need not be the current device: the event goes there too
             flag = torch.empty((), dtype=torch.bool, pin_memory=True)
             flag.copy_(done.all(), non_blocking=True)
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(self.device))
             self.pending = (flag, event)
         else:
             self.pending = (done.all(), None)

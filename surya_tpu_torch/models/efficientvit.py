@@ -323,11 +323,11 @@ def install_blob_detector(det) -> None:
     minimum) is max-pooled 4x4 to head resolution, then over 3 rows x 9
     columns (stride 1, -inf padding, as JAX's "SAME" window), and added x14
     to logit channel 0."""
-    model = det.model
     with torch.no_grad():
-        model.head.classifier.bias.fill_(-6.0)
+        for model in det.models():
+            model.head.classifier.bias.fill_(-6.0)
 
-    def apply_heat(x):
+    def apply_heat(model, x):
         logits = model.forward_logits(x).float()
         dark = 1.0 - x.float().amin(dim=1, keepdim=True)
         blob = F.max_pool2d(F.max_pool2d(dark, 4, 4), (3, 9), stride=1, padding=(1, 4))

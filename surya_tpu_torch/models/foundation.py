@@ -11,6 +11,9 @@ no slot is active, the port runs every step; a slot that is no longer active
 emits pad and does not advance, so the outputs are the same.
 
 The lm head shares the token embedding matrix (plus ``lm_head_bias``).
+
+``MeshedFoundation`` runs both programs on a mesh (parallel/mesh.py): rows
+and slots over the data axis, the decoder tensor-parallel over the model axis.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from surya_tpu_torch.models import qwen_decoder, qwen_encoder
+from surya_tpu_torch.parallel.mesh import Placement, Sharded, split_range
 
 
 @dataclass(frozen=True)
@@ -108,40 +112,166 @@ class FoundationModel(nn.Module):
         a slot also stops after repeat_window identical tokens in a row.
         Returns (tokens [B, K], scores [B, K], bboxes [B, K, 6], last_token,
         active, run); the cache is updated in place."""
-        cfg = self.config
-        dec = cfg.decoder
-        B = last_token.shape[0]
-        K = num_steps
-        dev = last_token.device
         run = run if run is not None else torch.zeros_like(last_token)
-        tokens_buf = torch.full((B, K), cfg.pad_token_id, dtype=torch.int32, device=dev)
-        scores_buf = torch.zeros((B, K), dtype=torch.float32, device=dev)
-        bbox_buf = torch.zeros((B, K, 6), dtype=torch.int32, device=dev)
-        kv_shape = (dec.num_hidden_layers, B, dec.num_key_value_heads, K, dec.head_dim)
-        chunk_k = torch.zeros(kv_shape, dtype=self.token_embed.weight.dtype, device=dev)
-        chunk_v = torch.zeros_like(chunk_k)
+        bufs = self.chunk_buffers(last_token, self.config.decoder.num_key_value_heads, num_steps)
+        tokens_buf, scores_buf, bbox_buf, chunk_k, chunk_v, advance = bufs
         base_len = cache["len"].clone()
-        advance = torch.zeros((B,), dtype=torch.int32, device=dev)
-        pad = cfg.pad_token_id
-
-        for step in range(K):
+        for step in range(num_steps):
             emb = self.token_embed(last_token.long())
             hidden = self.decoder.decode_step_chunked(cache, chunk_k, chunk_v, emb, step, base_len)
-            token, score, bbox = self.sample_greedy(hidden)
-            done = (token == cfg.eos_token_id) | (token == cfg.pad_token_id)
-            tokens_buf[:, step] = torch.where(active, token, pad)
-            scores_buf[:, step] = torch.where(active & ~done, score, 0.0)
-            bbox_buf[:, step] = torch.where(active[:, None], bbox, 0)
-            advance += active.to(torch.int32)
-            next_active = active if pin_decode else active & ~done
-            run = torch.where(active, torch.where(token == last_token, run + 1, 1), run)
-            if repeat_window:
-                next_active = next_active & (run < repeat_window)
-            last_token = torch.where(next_active, token, pad)
-            active = next_active
-
+            last_token, active, run = self.decode_step_update(hidden, step, bufs, last_token, active, run,
+                                                              repeat_window, pin_decode)
         qwen_decoder.commit_chunk(cache, chunk_k, chunk_v, base_len, advance)
         return tokens_buf, scores_buf, bbox_buf, last_token, active, run
+
+    def chunk_buffers(self, last_token, n_kv_heads: int, num_steps: int) -> tuple:
+        """A decode chunk's buffers over last_token's B slots, on its device:
+        (tokens [B, K] pad, scores [B, K], bboxes [B, K, 6], chunk_k and
+        chunk_v [layers, B, n_kv_heads, K, head_dim], advance [B])."""
+        cfg, dec = self.config, self.config.decoder
+        B, K, dev = last_token.shape[0], num_steps, last_token.device
+        chunk_k = torch.zeros((dec.num_hidden_layers, B, n_kv_heads, K, dec.head_dim),
+                              dtype=self.token_embed.weight.dtype, device=dev)
+        return (
+            torch.full((B, K), cfg.pad_token_id, dtype=torch.int32, device=dev),
+            torch.zeros((B, K), dtype=torch.float32, device=dev),
+            torch.zeros((B, K, 6), dtype=torch.int32, device=dev),
+            chunk_k,
+            torch.zeros_like(chunk_k),
+            torch.zeros((B,), dtype=torch.int32, device=dev),
+        )
+
+    def decode_step_update(self, hidden, step: int, bufs: tuple, last_token, active, run,
+                           repeat_window: int, pin_decode: bool):
+        """One decode step's sampling and slot state (decode_chunk's stop
+        policy): the step's column of bufs (chunk_buffers) written for the
+        active slots, advance counted in place. Returns (last_token, active,
+        run) for the next step."""
+        cfg = self.config
+        pad = cfg.pad_token_id
+        tokens_buf, scores_buf, bbox_buf, _, _, advance = bufs
+        token, score, bbox = self.sample_greedy(hidden)
+        done = (token == cfg.eos_token_id) | (token == pad)
+        tokens_buf[:, step] = torch.where(active, token, pad)
+        scores_buf[:, step] = torch.where(active & ~done, score, 0.0)
+        bbox_buf[:, step] = torch.where(active[:, None], bbox, 0)
+        advance += active.to(torch.int32)
+        next_active = active if pin_decode else active & ~done
+        run = torch.where(active, torch.where(token == last_token, run + 1, 1), run)
+        if repeat_window:
+            next_active = next_active & (run < repeat_window)
+        return torch.where(next_active, token, pad), next_active, run
+
+
+class MeshedFoundation:
+    """The foundation model on a mesh: surya_tpu foundation's prefill
+    (_sharded_encode_embed included) and decode_chunk with a mesh. Shard
+    (d, m) runs data shard d's rows (prefill rows, cache slots: split_sizes
+    over the data axis) on mesh.device(d, m), with that device's replica of
+    the model (parallel/mesh.Placement) and its decoder shard
+    (ShardedDecoder): every model shard of a data row embeds, samples and
+    keeps the row's slot state itself, as every device of the JAX package's
+    SPMD program does. Per-shard values are dicts {(d, m): tensor}."""
+
+    def __init__(self, model: FoundationModel, mesh):
+        self.mesh = mesh
+        self.config = model.config
+        self.placement = Placement(model, mesh)
+        self.decoder = qwen_decoder.ShardedDecoder(self.placement)
+
+    def model(self, dm) -> FoundationModel:
+        return self.placement.model(*dm)
+
+    def encode_embed(self, inputs: dict, kv_range: int, win_range: int, sharded: bool) -> dict:
+        """Prompt embeddings {(d, m): [rows_d, L, hidden]}. inputs[(d, m)]:
+        (patches, enc_args, llm_h_idx, llm_w_idx, input_ids, img_gather) on
+        the shard's device. sharded (the data-sharded encoder): each data
+        shard's inputs are its own packed plan and rows, so it encodes only
+        its rows' images, with the single-device K1, and its <IMAGE> gather
+        is local to it. Otherwise (one data row) every shard encodes the
+        whole batch, the attention through K1-mesh."""
+        if sharded:
+            img = {dm: self.model(dm).encode_images(*args[:4], kv_range, win_range) for dm, args in inputs.items()}
+        else:
+            tokens = qwen_encoder.encode_on_mesh(
+                {dm: self.model(dm).vision_encoder for dm in inputs},
+                {dm: (args[0], *args[1]) for dm, args in inputs.items()}, kv_range, win_range, self.mesh,
+            )
+            img = {dm: tokens[dm] + self.model(dm).img_h_embed(args[2].long()) + self.model(dm).img_w_embed(args[3].long())
+                   for dm, args in inputs.items()}
+        return {dm: self.model(dm).embed_prompt_tokens(args[4], args[5], img[dm]) for dm, args in inputs.items()}
+
+    def prefill(self, cache: dict, inputs: dict, seq_lens: dict, routes, kv_range: int, win_range: int,
+                sharded: bool) -> dict:
+        """Encode, embed, decoder prefill, KV into the sharded cache (in
+        place), token 0. seq_lens {(d, m): [rows_d]}; routes: the valid rows'
+        way to their slots, a tuple (d, t, rows, slots) for each pair of
+        data shards, rows {m: the local rows of data shard d that go to
+        data shard t's slots} on (d, m)'s device, slots {m: their local
+        slots} on (t, m)'s (prefill_routes). Returns {(d, m): (token,
+        score, bbox)} over data shard d's rows."""
+        embeds = self.encode_embed(inputs, kv_range, win_range, sharded)
+        new_k, new_v, last = self.decoder.prefill(embeds, seq_lens)
+        self.merge_prefill(cache, new_k, new_v, seq_lens, routes)
+        return {dm: self.model(dm).sample_greedy(h) for dm, h in last.items()}
+
+    def merge_prefill(self, cache: dict, new_k: Sharded, new_v: Sharded, seq_lens: dict, routes) -> None:
+        """qwen_decoder.merge_prefill on the sharded cache: each route's rows
+        into its slots, model shard m's kv heads from model shard m."""
+        for d, t, rows, slots in routes:
+            for m in range(self.mesh.n_model):
+                dev = self.mesh.device(t, m)
+                qwen_decoder.merge_prefill(
+                    qwen_decoder.shard_view(cache, (t, m)),
+                    *(x[d, m].index_select(1, rows[m]).to(dev) for x in (new_k, new_v)),
+                    seq_lens[d, m].index_select(0, rows[m]).to(dev), slots[m],
+                )
+
+    def decode_chunk(self, cache: dict, last_token: dict, active: dict, num_steps: int, run: dict,
+                     repeat_window: int = 0, pin_decode: bool = False):
+        """FoundationModel.decode_chunk on the sharded cache, each shard over
+        its slots with a chunk buffer of its own. Returns (tokens, scores,
+        bboxes, last_token, active, run), each {(d, m): ...}."""
+        bufs = {dm: self.model(dm).chunk_buffers(lt, self.decoder.shards[dm].n_kv_heads, num_steps)
+                for dm, lt in last_token.items()}
+        base_len = {dm: cache["len"][dm].clone() for dm in last_token}
+        chunks = [Sharded(self.mesh, qwen_decoder.CHUNK_SPEC, {dm: b[i] for dm, b in bufs.items()}) for i in (3, 4)]
+        lengths = Sharded(self.mesh, qwen_decoder.ROWS_SPEC, base_len)
+        last_token, active, run = dict(last_token), dict(active), dict(run)
+
+        for step in range(num_steps):
+            emb = {dm: self.model(dm).token_embed(lt.long()) for dm, lt in last_token.items()}
+            hidden = self.decoder.decode_step_chunked(cache, *chunks, emb, step, lengths)
+            for dm, h in hidden.items():
+                last_token[dm], active[dm], run[dm] = self.model(dm).decode_step_update(
+                    h, step, bufs[dm], last_token[dm], active[dm], run[dm], repeat_window, pin_decode)
+
+        for dm, (_, _, _, chunk_k, chunk_v, advance) in bufs.items():
+            qwen_decoder.commit_chunk(qwen_decoder.shard_view(cache, dm), chunk_k, chunk_v, base_len[dm], advance)
+        tokens, scores, bboxes = ({dm: b[i] for dm, b in bufs.items()} for i in range(3))
+        return tokens, scores, bboxes, last_token, active, run
+
+
+def prefill_routes(slot_idx: np.ndarray, row_valid: np.ndarray, n_slots: int, mesh, upload) -> list:
+    """The way of a prefill wave's valid rows to their cache slots across
+    the data shards, for MeshedFoundation.prefill: rows and slots split over
+    the data axis as split_sizes, a tuple (d, t, rows, slots) for each pair
+    (row shard d, slot shard t) that has rows. upload(array, device) puts
+    an index array on a device. The padding rows go nowhere (the JAX package
+    writes them into the trash slot, which nothing reads)."""
+    nd = mesh.n_data
+    row_starts = np.array([split_range(len(slot_idx), nd, d)[0] for d in range(nd)])
+    slot_starts = np.array([split_range(n_slots, nd, t)[0] for t in range(nd)])
+    rows = np.flatnonzero(row_valid)
+    src = np.searchsorted(row_starts, rows, side="right") - 1
+    dst = np.searchsorted(slot_starts, slot_idx[rows], side="right") - 1
+    routes = []
+    for d, t in sorted(set(zip(src.tolist(), dst.tolist()))):
+        sel = rows[(src == d) & (dst == t)]
+        local_rows, local_slots = sel - row_starts[d], slot_idx[sel].astype(np.int64) - slot_starts[t]
+        routes.append((d, t, {m: upload(local_rows, mesh.device(d, m)) for m in range(mesh.n_model)},
+                       {m: upload(local_slots, mesh.device(t, m)) for m in range(mesh.n_model)}))
+    return routes
 
 
 # -- checkpoint conversion ----------------------------------------------------

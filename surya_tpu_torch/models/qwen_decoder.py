@@ -18,6 +18,10 @@ enter the cache (kernel K3q reads them).
 
 ``quantize_weights`` swaps the seven projections of every layer for int8
 weights with float32 per-channel scales (``RECOGNITION_WEIGHT_QUANTIZE``).
+
+Under a mesh (parallel/mesh.py) ``ShardedDecoder`` runs the same layers
+tensor-parallel, each shard over its data shard's rows with its
+``DecoderShard``, on a cache that ``init_cache(..., mesh=...)`` shards.
 """
 
 from __future__ import annotations
@@ -25,12 +29,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from surya_tpu_torch import nn as pnn
 from surya_tpu_torch.ops import attention as att
 from surya_tpu_torch.ops import decode_attn, flash
 from surya_tpu_torch.models.qwen_encoder import _MLP
+from surya_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, Sharded, all_reduce_sum, row_epilogue, row_matmul, slice_linear, split_sizes,
+)
 
 
 @dataclass(frozen=True)
@@ -139,6 +147,141 @@ class Decoder(nn.Module):
         return self.norm(x)[:, 0]
 
 
+def rope_tables(config: DecoderConfig, positions):
+    """positions [..., S] -> cos/sin [..., S, head_dim] (Decoder.rope)."""
+    freqs = att.rope_freqs(positions, config.head_dim, config.rope_theta)
+    ang = torch.cat([freqs, freqs], dim=-1)
+    return ang.cos(), ang.sin()
+
+
+class DecoderShard(nn.Module):
+    """Model index `index` of `parts` of a decoder, on one device, by the TP
+    plan of parallel/mesh.py: its q and kv heads (whole heads; the index's
+    share of split_sizes), its slice of the MLP, the input slices of o_proj
+    and down_proj (whose partial products the model shards sum), and the
+    replicated norms of `replica`, the decoder of that device's replicated
+    model. With one part on the decoder's own device its layers are the
+    decoder's own."""
+
+    def __init__(self, decoder: Decoder, replica: Decoder, index: int, parts: int, device):
+        super().__init__()
+        c = self.config = decoder.config
+        self.n_heads = split_sizes(c.num_attention_heads, parts)[index]
+        self.n_kv_heads = split_sizes(c.num_key_value_heads, parts)[index]
+        self.layers = nn.ModuleList()
+        for src, rep in zip(decoder.layers, replica.layers):
+            layer = nn.Module()
+            layer.input_layernorm, layer.post_attention_layernorm = rep.input_layernorm, rep.post_attention_layernorm
+            layer.self_attn, layer.mlp = nn.Module(), nn.Module()
+            for block, names, unit in ((src.self_attn, ("q_proj", "k_proj", "v_proj", "o_proj"), c.head_dim),
+                                       (src.mlp, ("gate_proj", "up_proj", "down_proj"), 1)):
+                target = layer.self_attn if block is src.self_attn else layer.mlp
+                for name in names:
+                    setattr(target, name, slice_linear(getattr(block, name), name, index, parts, unit, device))
+            self.layers.append(layer)
+        self.norm = replica.norm
+
+    def qkv(self, layer, x):
+        B, S, _ = x.shape
+        hd = self.config.head_dim
+        sa = layer.self_attn
+        return (sa.q_proj(x).view(B, S, self.n_heads, hd), sa.k_proj(x).view(B, S, self.n_kv_heads, hd),
+                sa.v_proj(x).view(B, S, self.n_kv_heads, hd))
+
+
+class ShardedDecoder:
+    """The decoder tensor-parallel over a mesh (surya_tpu qwen_decoder's
+    prefill and decode_step_chunked with a mesh). Shard (d, m) runs its
+    DecoderShard over data shard d's rows: its heads' attention through
+    K2-mesh in prefill and K3-mesh in decode, its slice of the MLP, and after
+    o_proj and down_proj the row-parallel sum over the model axis. Per-shard
+    values are dicts {(d, m): tensor}; the kernels get them as Sharded."""
+
+    def __init__(self, placement):
+        self.mesh = placement.mesh
+        self.shards = {dm: placement.decoder_shard(*dm) for dm in self.mesh.coords()}
+        self.config = self.shards[0, 0].config
+
+    def _add_row_parallel(self, x: dict, partial: dict, li: int, block: str, name: str) -> dict:
+        """x + the row layer's output: its partials summed over each data
+        row's model shards, then its scale and bias."""
+        mesh, out = self.mesh, {}
+        for d in range(mesh.n_data):
+            row = [(d, m) for m in range(mesh.n_model)]
+            for dm, total in zip(row, all_reduce_sum([partial[dm] for dm in row], [mesh.device(*dm) for dm in row])):
+                lin = getattr(getattr(self.shards[dm].layers[li], block), name)
+                out[dm] = x[dm] + row_epilogue(lin, total)
+        return out
+
+    def _mlp(self, x: dict, li: int) -> dict:
+        partial = {}
+        for dm, xs in x.items():
+            layer = self.shards[dm].layers[li]
+            mlp, h = layer.mlp, layer.post_attention_layernorm(xs)
+            partial[dm] = row_matmul(mlp.down_proj, F.silu(mlp.gate_proj(h)) * mlp.up_proj(h))
+        return self._add_row_parallel(x, partial, li, "mlp", "down_proj")
+
+    def prefill(self, embeds: dict, seq_lens: dict):
+        """embeds {(d, m): [rows_d, L, hidden]}, seq_lens {(d, m): [rows_d]}.
+        Returns (new_k, new_v: Sharded [layers, rows, L, kvh, hd]
+        (PREFILL_KV_SPEC), last_hidden {(d, m): [rows_d, hidden]})."""
+        mesh, c = self.mesh, self.config
+        rope, ks, vs = {}, {}, {}
+        for dm, e in embeds.items():
+            cos, sin = rope_tables(c, torch.arange(e.shape[1], device=e.device))
+            rope[dm], ks[dm], vs[dm] = (cos[None, :, None, :], sin[None, :, None, :]), [], []
+        x = dict(embeds)
+        for li in range(c.num_hidden_layers):
+            q, k, v = {}, {}, {}
+            for dm, xs in x.items():
+                shard = self.shards[dm]
+                layer = shard.layers[li]
+                qs, kk, v[dm] = shard.qkv(layer, layer.input_layernorm(xs))
+                q[dm], k[dm] = att.apply_rope(qs, kk, *rope[dm])
+                ks[dm].append(k[dm])
+                vs[dm].append(v[dm])
+            out = flash.causal_flash_attention(*(Sharded(mesh, PREFILL_SPEC, t) for t in (q, k, v)), mesh=mesh)
+            partial = {dm: row_matmul(self.shards[dm].layers[li].self_attn.o_proj,
+                                      out[dm].reshape(*xs.shape[:2], -1)) for dm, xs in x.items()}
+            x = self._mlp(self._add_row_parallel(x, partial, li, "self_attn", "o_proj"), li)
+        last = {}
+        for dm, xs in x.items():
+            xs = self.shards[dm].norm(xs)
+            last[dm] = xs[torch.arange(xs.shape[0], device=xs.device), seq_lens[dm].long() - 1]
+        return (Sharded(mesh, PREFILL_KV_SPEC, {dm: torch.stack(t) for dm, t in ks.items()}),
+                Sharded(mesh, PREFILL_KV_SPEC, {dm: torch.stack(t) for dm, t in vs.items()}), last)
+
+    def decode_step_chunked(self, cache: dict, chunk_k: Sharded, chunk_v: Sharded, embeds: dict, step: int,
+                            base_len: Sharded) -> dict:
+        """One decode token over a sharded cache (read-only) and the
+        shards' chunk buffers (written at column `step`, in place), as
+        Decoder.decode_step_chunked. embeds {(d, m): [slots_d, hidden]}.
+        Returns {(d, m): hidden [slots_d, hidden]}."""
+        mesh, c = self.mesh, self.config
+        scales = (cache["k_scale"], cache["v_scale"]) if "k_scale" in cache else (None, None)
+        rope = {}
+        for dm in embeds:
+            cos, sin = rope_tables(c, (base_len[dm] + step).float()[:, None])
+            rope[dm] = (cos[:, :, None, :], sin[:, :, None, :])
+        x = {dm: e[:, None, :] for dm, e in embeds.items()}
+        for li in range(c.num_hidden_layers):
+            q = {}
+            for dm, xs in x.items():
+                shard = self.shards[dm]
+                layer = shard.layers[li]
+                qs, k, v = shard.qkv(layer, layer.input_layernorm(xs))
+                qs, k = att.apply_rope(qs, k, *rope[dm])
+                chunk_k[dm][li, :, :, step] = k[:, 0]
+                chunk_v[dm][li, :, :, step] = v[:, 0]
+                q[dm] = qs[:, 0]
+            out = decode_attn.gqa_decode(Sharded(mesh, DECODE_Q_SPEC, q), cache["k"], cache["v"], base_len,
+                                         chunk_k, chunk_v, step, li, *scales, mesh=mesh)
+            partial = {dm: row_matmul(self.shards[dm].layers[li].self_attn.o_proj, out[dm].reshape(xs.shape[0], 1, -1))
+                       for dm, xs in x.items()}
+            x = self._mlp(self._add_row_parallel(x, partial, li, "self_attn", "o_proj"), li)
+        return {dm: self.shards[dm].norm(xs)[:, 0] for dm, xs in x.items()}
+
+
 def quantize_weights(decoder: Decoder) -> Decoder:
     """Weight-only int8 for every decoder projection (RECOGNITION_WEIGHT_
     QUANTIZE), in place: q, k, v, o and gate, up, down of every layer become
@@ -153,10 +296,16 @@ def quantize_weights(decoder: Decoder) -> Decoder:
     return decoder
 
 
-def init_cache(config: DecoderConfig, n_slots: int, max_seq: int, dtype, device, quantize: bool = False) -> dict:
+def init_cache(config: DecoderConfig, n_slots: int, max_seq: int, dtype, device, quantize: bool = False,
+               mesh=None) -> dict:
     """Slot KV cache {"k", "v": [layers, slots, kvh, max_seq, hd], "len": [slots]
     int32}; with ``quantize`` k/v are int8 and "k_scale"/"v_scale" hold the
-    bf16 scales [layers, slots, kvh, max_seq]."""
+    bf16 scales [layers, slots, kvh, max_seq]. With a mesh each entry is
+    Sharded as surya_tpu's cache_sharding places it (CACHE_SPECS): slots
+    over data, kv heads over model, every shard's block a tensor of its own
+    on its device (`device` is not read)."""
+    if mesh is not None:
+        return _init_sharded_cache(config, n_slots, max_seq, dtype, quantize, mesh)
     shape = (config.num_hidden_layers, n_slots, config.num_key_value_heads, max_seq, config.head_dim)
     cache = {"len": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
     if quantize:
@@ -168,6 +317,43 @@ def init_cache(config: DecoderConfig, n_slots: int, max_seq: int, dtype, device,
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
+
+
+# how a sharded cache and the decoder's arrays split over a mesh (PartitionSpecs)
+CACHE_SPECS = {
+    "k": (None, DATA_AXIS, MODEL_AXIS, None, None),  # [layers, slots, kvh, S, hd]
+    "v": (None, DATA_AXIS, MODEL_AXIS, None, None),
+    "k_scale": (None, DATA_AXIS, MODEL_AXIS, None),  # [layers, slots, kvh, S]
+    "v_scale": (None, DATA_AXIS, MODEL_AXIS, None),
+    "len": (DATA_AXIS,),
+}
+CHUNK_SPEC = CACHE_SPECS["k"]  # the chunk buffers [layers, slots, kvh, K, hd]
+PREFILL_SPEC = (DATA_AXIS, None, MODEL_AXIS, None)  # prefill q/k/v [rows, L, heads, hd]
+PREFILL_KV_SPEC = (None, DATA_AXIS, None, MODEL_AXIS, None)  # prefill's new_k/new_v [layers, rows, L, kvh, hd]
+DECODE_Q_SPEC = (DATA_AXIS, MODEL_AXIS, None)  # a decode step's q [slots, heads, hd]
+ROWS_SPEC = (DATA_AXIS,)  # per-row or per-slot arrays, whole on every model shard
+
+
+def _init_sharded_cache(config: DecoderConfig, n_slots: int, max_seq: int, dtype, quantize: bool, mesh) -> dict:
+    slots = split_sizes(n_slots, mesh.n_data)
+    heads = split_sizes(config.num_key_value_heads, mesh.n_model)
+    kv_dtype = torch.int8 if quantize else dtype
+    cache = {key: {} for key in ("len", "k", "v") + (("k_scale", "v_scale") if quantize else ())}
+    for d, m in mesh.coords():
+        dev = mesh.device(d, m)
+        shape = (config.num_hidden_layers, slots[d], heads[m], max_seq, config.head_dim)
+        cache["len"][d, m] = torch.zeros((slots[d],), dtype=torch.int32, device=dev)
+        for key in ("k", "v"):
+            cache[key][d, m] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        for key in ("k_scale", "v_scale") if quantize else ():
+            cache[key][d, m] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev)
+    return {key: Sharded(mesh, CACHE_SPECS[key], shards) for key, shards in cache.items()}
+
+
+def shard_view(cache: dict, dm) -> dict:
+    """Shard dm's part of a sharded cache, as an unsharded cache dict of its
+    tensors: merge_prefill and commit_chunk update it in place."""
+    return {key: value[dm] for key, value in cache.items()}
 
 
 def quantize_kv(x):

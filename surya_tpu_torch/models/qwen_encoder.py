@@ -12,7 +12,7 @@ whole images for the full-attention blocks 3 and 7) through kernel K1, the
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ from torch import nn
 from surya_tpu_torch import nn as pnn
 from surya_tpu_torch.ops import attention as att
 from surya_tpu_torch.ops import flash
+from surya_tpu_torch.parallel.mesh import Sharded
 
 
 @dataclass(frozen=True)
@@ -85,11 +86,12 @@ class EncoderLayout:
         # the K1 kernel walks, for each 16 query rows, only the keys from the
         # start of the first row's group run to the end of the last row's: a
         # group split over two runs of slots would lose the other run's keys
+        # (a sharded plan stacks one plan a data shard: each row is checked)
         for name in ("seg_id", "win_id"):
-            ids = getattr(self, name)
-            run_ids = ids[np.concatenate([[True], ids[1:] != ids[:-1]])]
-            if np.unique(run_ids).size != run_ids.size:
-                raise ValueError(f"{name}: a group id occurs in more than one run of slots")
+            for ids in np.atleast_2d(getattr(self, name)):
+                run_ids = ids[np.concatenate([[True], ids[1:] != ids[:-1]])]
+                if np.unique(run_ids).size != run_ids.size:
+                    raise ValueError(f"{name}: a group id occurs in more than one run of slots")
 
     @property
     def device_args(self):
@@ -213,6 +215,48 @@ def plan_layout(
     )
 
 
+def plan_layout_sharded(
+    shard_grids: List[List[Tuple[int, int]]],
+    config: EncoderConfig,
+    cap: int,
+    embed_encoding_multiplier: int = 256,
+    orig_index: Optional[List[List[int]]] = None,
+) -> EncoderLayout:
+    """One plan a data shard, stacked: every array gains a leading
+    [n_shards] axis (surya_tpu qwen_encoder.plan_layout_sharded). The two
+    window lengths are the largest over the shards, so that every shard
+    runs at the same ones, and each shard's starts are clamped again to its
+    capacity. tokens_per_image is per input image: with `orig_index` (each
+    shard's input indices) it is put back in input order, else the shards'
+    order. Each shard then encodes only its own rows' images."""
+    plans = [plan_layout(g, config, cap, embed_encoding_multiplier) for g in shard_grids]
+    tokens_flat = [t for p in plans for t in p.tokens_per_image]
+    if orig_index is not None:
+        flat_idx = [i for idxs in orig_index for i in idxs]
+        restored = [0] * (max(flat_idx) + 1 if flat_idx else 0)
+        for i, t in zip(flat_idx, tokens_flat):
+            restored[i] = t
+        tokens_flat = restored
+    kv_range = min(cap, max(p.kv_range for p in plans))
+    win_range = min(cap, max(p.win_range for p in plans))
+
+    def stack(name):
+        return np.stack([getattr(p, name) for p in plans])
+
+    return EncoderLayout(
+        cap=cap,
+        n_patches=sum(p.n_patches for p in plans),
+        n_llm_tokens=sum(p.n_llm_tokens for p in plans),
+        patch_gather=stack("patch_gather"), pos_hw=stack("pos_hw"), seg_id=stack("seg_id"), win_id=stack("win_id"),
+        unscatter=stack("unscatter"), llm_h_idx=stack("llm_h_idx"), llm_w_idx=stack("llm_w_idx"),
+        tokens_per_image=tokens_flat,
+        kv_starts=np.stack([np.minimum(p.kv_starts, cap - kv_range) for p in plans]),
+        kv_range=kv_range,
+        win_starts=np.stack([np.minimum(p.win_starts, cap - win_range) for p in plans]),
+        win_range=win_range,
+    )
+
+
 # -- model ---------------------------------------------------------------------
 
 class _MLP(nn.Module):
@@ -275,14 +319,32 @@ class VisionEncoder(nn.Module):
         ang = torch.cat([ang, ang], dim=-1)  # [cap, head_dim]
         return ang.cos(), ang.sin()
 
-    def _attention(self, attn: _Attention, x, cos, sin, group_id, kv_starts, kv_range: int, use_kernels: bool):
+    # the forward in pieces, which encode_on_mesh interleaves over shards
+
+    def embed(self, patches, patch_gather, pos_hw):
+        """Patch embed in window order, and the RoPE tables."""
+        x = self.patch_embed(patches)[patch_gather.long()]  # raw order -> window order
+        return (x, *self.rope_tables(pos_hw))
+
+    def block_qkv(self, blk: _Block, x, cos, sin):
+        """q, k, v [cap, H, D] of block `blk` (post-RoPE; k, v strided views)."""
         cfg = self.config
-        cap = x.shape[0]
-        qkv = attn.qkv(x).view(cap, 3, cfg.num_heads, cfg.head_dim)
+        qkv = blk.attn.qkv(blk.norm1(x)).view(x.shape[0], 3, cfg.num_heads, cfg.head_dim)
         q, k = att.apply_rope(qkv[:, 0], qkv[:, 1], cos[:, None, :], sin[:, None, :])
-        attend = flash.segmented_block_attention if use_kernels else flash.segmented_block_attention_reference
-        out = attend(q, k, qkv[:, 2], group_id, kv_starts, kv_range)
-        return attn.proj(out.reshape(cap, cfg.hidden_size))
+        return q, k, qkv[:, 2]
+
+    def block_out(self, blk: _Block, x, attn_out):
+        """x after block `blk`, given its attention output [cap, H, D]."""
+        x = x + blk.attn.proj(attn_out.reshape(x.shape[0], self.config.hidden_size))
+        return x + blk.mlp(blk.norm2(x))
+
+    def merge(self, x, unscatter):
+        """The 2x2 merge (cells are contiguous in window order), back to original order."""
+        cfg = self.config
+        m = self.merger
+        cells = m.ln_q(x).reshape(-1, cfg.merge_unit * cfg.hidden_size)
+        merged = m.mlp2(F.gelu(m.mlp0(cells), approximate="none"))  # exact (erf) GELU
+        return merged[unscatter.long()]  # window order -> original order
 
     def forward(self, patches, patch_gather, pos_hw, seg_id, win_id, unscatter, kv_starts, win_starts,
                 kv_range: int, win_range: int, use_kernels: bool = True):
@@ -291,21 +353,46 @@ class VisionEncoder(nn.Module):
         merged image tokens [cap // merge_unit, out_hidden] in ORIGINAL order;
         rows past n_llm_tokens are garbage the caller masks. use_kernels=False
         runs the plain attention on any device."""
-        cfg = self.config
-        x = self.patch_embed(patches)[patch_gather.long()]  # raw order -> window order
-        cos, sin = self.rope_tables(pos_hw)
+        attend = flash.segmented_block_attention if use_kernels else flash.segmented_block_attention_reference
+        x, cos, sin = self.embed(patches, patch_gather, pos_hw)
         for i, blk in enumerate(self.blocks):
-            h = blk.norm1(x)
-            if i in cfg.fullatt_block_indexes:
-                x = x + self._attention(blk.attn, h, cos, sin, seg_id, kv_starts, kv_range, use_kernels)
+            if i in self.config.fullatt_block_indexes:
+                group = (seg_id, kv_starts, kv_range)
             else:
-                x = x + self._attention(blk.attn, h, cos, sin, win_id, win_starts, win_range, use_kernels)
-            x = x + blk.mlp(blk.norm2(x))
-        # 2x2 merge: the cells are contiguous in window order
-        m = self.merger
-        cells = m.ln_q(x).reshape(-1, cfg.merge_unit * cfg.hidden_size)
-        merged = m.mlp2(F.gelu(m.mlp0(cells), approximate="none"))  # exact (erf) GELU
-        return merged[unscatter.long()]  # window order -> original order
+                group = (win_id, win_starts, win_range)
+            x = self.block_out(blk, x, attend(*self.block_qkv(blk, x, cos, sin), *group))
+        return self.merge(x, unscatter)
+
+
+def encode_on_mesh(encoders: dict, args: dict, kv_range: int, win_range: int, mesh) -> dict:
+    """The encoder replicated on every shard of `mesh`, each over the whole
+    packed batch, the attention of every block through K1-mesh: what the JAX
+    package runs when it calls its encoder under a mesh (qwen_encoder.apply
+    with mesh, on a mesh whose data axis is 1). encoders[(d, m)]: the
+    encoder of the shard's device; args[(d, m)]: the shard's copy of the
+    patches and of EncoderLayout.device_args. Returns {(d, m): the shard's
+    image tokens}."""
+    coords = mesh.coords()
+    config = encoders[coords[0]].config
+    # args[dm]: patches, then device_args: patch_gather, pos_hw, seg_id,
+    # win_id, unscatter, kv_starts, win_starts
+    x, rope = {}, {}
+    for dm in coords:
+        x[dm], *rope[dm] = encoders[dm].embed(*args[dm][:3])
+
+    def replicated(values, ndim):
+        return Sharded(mesh, (None,) * ndim, values)
+
+    for i in range(config.depth):
+        gid, starts, rng = (3, 6, kv_range) if i in config.fullatt_block_indexes else (4, 7, win_range)
+        qkv = {dm: encoders[dm].block_qkv(encoders[dm].blocks[i], x[dm], *rope[dm]) for dm in coords}
+        out = flash.segmented_block_attention_shard_map(
+            *(replicated({dm: qkv[dm][j] for dm in coords}, 3) for j in range(3)),
+            replicated({dm: args[dm][gid] for dm in coords}, 1),
+            replicated({dm: args[dm][starts] for dm in coords}, 1), rng, mesh,
+        )
+        x = {dm: encoders[dm].block_out(encoders[dm].blocks[i], x[dm], out[dm]) for dm in coords}
+    return {dm: encoders[dm].merge(x[dm], args[dm][5]) for dm in coords}
 
 
 # -- checkpoint conversion ----------------------------------------------------

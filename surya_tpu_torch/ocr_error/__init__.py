@@ -94,31 +94,28 @@ def load_ocr_error_model(checkpoint: Optional[str] = None, tiny: bool = False, d
     return random_model(config, device), config, WordPieceTokenizer()
 
 
-def row_bucket(current: int, batch_size: int) -> int:
-    """Rows a batch of `current` texts runs at: the next power of two, at
-    most the batch size."""
-    return min(1 << max(current - 1, 0).bit_length(), batch_size)
-
-
 class OCRErrorPredictor(BasePredictor):
     batch_size_setting = "OCR_ERROR_BATCH_SIZE"
     default_batch_sizes = {"cpu": 8, "cuda": 64}
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
-                 jax_params: Optional[dict] = None):
+                 jax_params: Optional[dict] = None, mesh=None):
         """checkpoint: a local directory or ``s3://`` name (default
         OCR_ERROR_MODEL_CHECKPOINT); tiny: the small test configuration of
         random weights; jax_params: the JAX DistilBERT pytree as numpy
-        leaves, whose weights the model takes (no checkpoint is resolved)."""
+        leaves, whose weights the model takes (no checkpoint is resolved);
+        mesh: a data mesh the texts split over (default: with USE_MESH on
+        and more than one card, every card)."""
         self._tiny = tiny
         self._jax_params = jax_params
-        super().__init__(checkpoint, device)
+        super().__init__(checkpoint, device, mesh)
 
     def _load(self):
         self.model, self.config, self.processor = load_ocr_error_model(self.checkpoint, self._tiny, self.device,
                                                                        self._jax_params)
         self._jax_params = None
         self.last_run: dict = {}  # the last call's batches: (rows, sequence bucket) of each
+        self.setup_mesh()  # a mesh: the texts split over its data axis
 
     def __call__(self, texts: List[str], batch_size: Optional[int] = None) -> OCRErrorDetectionResult:
         return self.batch_ocr_error_detection(texts, batch_size)
@@ -127,6 +124,7 @@ class OCRErrorPredictor(BasePredictor):
                                   ) -> OCRErrorDetectionResult:
         if batch_size is None:
             batch_size = self.get_batch_size()
+        batch_size = self.round_batch(batch_size)
         run = self.last_run = {"batches": []}
         predictions: List[int] = []
         inflight = None
@@ -137,13 +135,14 @@ class OCRErrorPredictor(BasePredictor):
             mask = np.asarray(encoded["attention_mask"], np.int32)
             current = ids.shape[0]
             L = next(b for b in SEQ_BUCKETS if b >= ids.shape[1])
-            rows = row_bucket(current, batch_size)
+            rows = self.bucket_rows(current, batch_size)
             ids = np.pad(ids, ((0, 0), (0, L - ids.shape[1])))
             mask = np.pad(mask, ((0, 0), (0, L - mask.shape[1])))
             ids, mask = (np.pad(a, ((0, rows - current), (0, 0)), mode="edge") for a in (ids, mask))
             run["batches"].append((rows, L))
             with self._on_stream(), torch.inference_mode():
-                handle = self._fetch(self.model(self._upload(ids), self._upload(mask)))
+                handle = self._fetch(self.data_parallel(lambda model, i, m: model(i, m), self._upload(ids),
+                                                        self._upload(mask)))
             # fetch the previous batch only now that this one is enqueued
             if inflight is not None:
                 predictions.extend(self._finish(*inflight))

@@ -11,6 +11,8 @@ One decode step attends over two pieces, as one softmax:
   the frozen slot cache [layers, slots, kvh, S, D], rows < lengths[slot];
   this chunk's KV buffer [layers, slots, kvh, K, D], columns <= step.
 Both come in as the full multi-layer arrays; the layer is picked inside.
+Under a mesh, ``gqa_decode_shard_map`` (K3-mesh) launches the same kernels
+once a shard, on the shard's own cache blocks.
 
 On the card each (slot, kv head) is split into SPLIT_ROWS cache rows or
 chunk columns, one warp a split, one CTA the kv heads of a (slot, split). A
@@ -27,6 +29,7 @@ import torch
 
 from surya_tpu_torch.ops import _build
 from surya_tpu_torch.ops.attention import NEG_INF
+from surya_tpu_torch.parallel.mesh import Sharded, kernel_shardable
 
 HEAD_DIM, GROUP = 128, 3  # the recognition decoder's head dim and query heads per kv head
 MAX_KV_HEADS = 4  # kv heads of one CTA, one warp each: MAX_KVH in csrc/decode_attn.cu
@@ -109,7 +112,9 @@ def _merge_counts(dev: torch.device, n: int) -> torch.Tensor:
     that size on that stream and every replay of a CUDA graph captured on
     it. Calls on one stream never overlap; each predictor decodes on a
     stream of its own, so two predictors never share a buffer (a graph that
-    holds one must be captured on its predictor's stream). Kept for the life
+    holds one must be captured on its predictor's stream). The shards of a
+    mesh that sit on one device run in turn on its stream and may share one;
+    a predictor keeps a stream on each device of its mesh. Kept for the life
     of the process, since a captured graph holds its address; PyTorch takes
     streams from a fixed pool, so the buffers are few."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
@@ -122,18 +127,32 @@ def _merge_counts(dev: torch.device, n: int) -> torch.Tensor:
 
 
 def gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer: int,
-               k_scale=None, v_scale=None):
+               k_scale=None, v_scale=None, mesh=None):
     """q: [B, H, D] current-token queries (post-RoPE); k/v_cache: [layers, B,
     kvh, S, D], bf16, or int8 with k/v_scale [layers, B, kvh, S] bf16;
     lengths: [B] int32 valid cache rows per slot; chunk_k/v: [layers, B, kvh,
     K, D]; step: chunk columns <= step are valid; layer: which layer to
-    attend over. Returns [B, H, D]."""
+    attend over. Returns [B, H, D]. With a mesh every array argument and
+    the result are Sharded (see gqa_decode_shard_map)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("gqa_decode: give both k_scale and v_scale or neither")
-    quantized = k_scale is not None
+    if mesh is not None:
+        return _decode_on_mesh(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale, mesh)
     if q.device.type == "cpu":
         return gqa_decode_reference(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
-    name = "gqa_decode_int8" if quantized else "gqa_decode"
+    out = _launch_decode("gqa_decode", q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
+    if k_scale is not None:
+        gqa_decode.launches_q += 1
+    else:
+        gqa_decode.launches += 1
+    return out
+
+
+def _launch_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale):
+    """Check K3's (K3q's, with scales) inputs and launch it on q's device and
+    current stream; counts nothing."""
+    quantized = k_scale is not None
+    name = f"{name}_int8" if quantized else name
     tensors = (q, k_cache, v_cache, lengths, chunk_k, chunk_v) + ((k_scale, v_scale) if quantized else ())
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -161,12 +180,72 @@ def gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer:
                 ws.data_ptr(), ws.numel(), done.data_ptr(), B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
             )
     _build.check(rc, name)
-    if quantized:
-        gqa_decode.launches_q += 1
-    else:
-        gqa_decode.launches += 1
     return out
 
 
 gqa_decode.launches = 0  # K3, bf16 cache
 gqa_decode.launches_q = 0  # K3q, int8 cache
+
+
+# -- the mesh wrapper (surya_tpu/ops/decode_attn.py::gqa_decode_shard_map) -------
+
+def gqa_decode_shard_map(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer: int,
+                         k_scale=None, v_scale=None, mesh=None):
+    """K3-mesh: K3 (K3q with scales) once a shard, slots over data and kv
+    heads over model, as parallel/mesh.py places the cache; the int8 scales
+    are split as the cache is. Attention is local to a (slot, kv head), so
+    there is no collective here (the row-parallel o_proj after it sums). Each
+    shard's cache, scales and chunk buffers are tensors of its own, so a
+    launch reads them in place; the shard's grid is the single-device one at
+    B / n_data slots and H / n_model heads. q: Sharded [B, H, D] (data,
+    model, None); caches and chunks: Sharded [layers, B, kvh, S or K, D]
+    (None, data, model, None, None); scales (None, data, model, None);
+    lengths: Sharded [B] (data,). Returns the Sharded outputs, q's spec.
+    ``launches``/``launches_q`` count K3/K3q launches, ``launches_by_shard``
+    both by shard, ``launches_gathered`` the gathered path's
+    (gqa_decode's dispatch); on the CPU each shard runs the plain version."""
+    out = {}
+    for dm in mesh.coords():
+        args = (q[dm], k_cache[dm], v_cache[dm], lengths[dm], chunk_k[dm], chunk_v[dm], step, layer,
+                k_scale[dm] if k_scale is not None else None, v_scale[dm] if v_scale is not None else None)
+        if q[dm].device.type == "cpu":
+            out[dm] = gqa_decode_reference(*args)
+            continue
+        out[dm] = _launch_decode("gqa_decode_shard_map", *args)
+        if k_scale is not None:
+            gqa_decode_shard_map.launches_q += 1
+        else:
+            gqa_decode_shard_map.launches += 1
+        by_shard = gqa_decode_shard_map.launches_by_shard
+        by_shard[dm] = by_shard.get(dm, 0) + 1
+    return Sharded(mesh, q.spec, out)
+
+
+def _decode_on_mesh(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale, mesh):
+    """gqa_decode's mesh branch: K3-mesh where the mesh divides the slots
+    and both head counts; else (the JAX package takes its jnp reference
+    there) the single-device kernel once, over the layer's slice of every
+    input gathered to the mesh's first device (the plain version on the
+    CPU), its output split back as q is."""
+    if kernel_shardable(mesh, q.global_size(0), q.global_size(1), k_cache.global_size(2)):
+        return gqa_decode_shard_map(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale,
+                                    mesh=mesh)
+
+    def layer_of(x):
+        return Sharded(mesh, x.spec, {dm: t[layer:layer + 1] for dm, t in x.shards.items()}).gather()
+
+    scales = (layer_of(k_scale), layer_of(v_scale)) if k_scale is not None else (None, None)
+    args = (q.gather(), layer_of(k_cache), layer_of(v_cache), lengths.gather(), layer_of(chunk_k),
+            layer_of(chunk_v), step, 0, *scales)
+    if args[0].device.type == "cpu":
+        out = gqa_decode_reference(*args)
+    else:
+        out = _launch_decode("gqa_decode_shard_map", *args)
+        gqa_decode_shard_map.launches_gathered += 1
+    return Sharded.split(out, mesh, q.spec)
+
+
+gqa_decode_shard_map.launches = 0  # K3 once a shard
+gqa_decode_shard_map.launches_q = 0  # K3q once a shard
+gqa_decode_shard_map.launches_by_shard = {}  # both, by shard (d, m)
+gqa_decode_shard_map.launches_gathered = 0  # the single-device kernel on the gathered batch

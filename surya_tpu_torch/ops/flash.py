@@ -14,6 +14,10 @@ K1 reads q/k/v as [S, H, D] through their row strides (no transpose to
 groups can reach instead of the whole window; the kernel finds the spans
 itself. That needs each group to be one contiguous run of slots, which
 ``qwen_encoder.plan_layout`` checks.
+
+Under a mesh (parallel/mesh.py) the ``*_shard_map`` wrappers launch the same
+kernels once a shard, at the shard's shapes (K1-mesh, K2-mesh), and count
+their launches apart from the single-device wrappers'.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from surya_tpu_torch.ops import _build
 from surya_tpu_torch.ops.attention import NEG_INF, sdpa
+from surya_tpu_torch.parallel.mesh import Sharded, kernel_shardable
 
 PLAN_CHUNK = 128  # query rows per kv_starts entry (qwen_encoder.FULL_ATTN_Q_CHUNK)
 SEGMENTED_HEAD_DIM = 80  # the head dims the kernels are built for: recognition encoder
@@ -90,20 +95,13 @@ def _check_segmented(name, q, k, v, seg_id, kv_starts, kv_range: int) -> int:
     return kv_range
 
 
-def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
-    """q, k, v: [S, H, D] (post-RoPE; any row stride), seg_id: [S] int32 group
-    id per row, each group one contiguous run of rows (padding rows: a unique
-    id per 128-row chunk; plan_layout checks this, the kernel relies on it),
-    kv_starts: [S / 128] int32 window start per query chunk, kv_range: window
-    length. Returns [S, H, D]."""
-    if q.device.type == "cpu":
-        return segmented_block_attention_reference(q, k, v, seg_id, kv_starts, kv_range)
-    name = "segmented_block_attention"
+def _launch_segmented(name, q, k, v, seg_id, kv_starts, kv_range: int):
+    """Check K1's inputs and launch it on q's device and current stream.
+    Returns (output, kv_range clipped to S); counts nothing."""
     _check_cuda(name, q, k, v, seg_id, kv_starts)
     kv_range = _check_segmented(name, q, k, v, seg_id, kv_starts, kv_range)
     S, H, D = q.shape
     seg_id, kv_starts = seg_id.contiguous(), kv_starts.contiguous()
-
     out = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
     lib = _build.library().lib
     with torch.cuda.device(q.device):
@@ -113,6 +111,18 @@ def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
             D**-0.5, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, name)
+    return out, kv_range
+
+
+def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
+    """q, k, v: [S, H, D] (post-RoPE; any row stride), seg_id: [S] int32 group
+    id per row, each group one contiguous run of rows (padding rows: a unique
+    id per 128-row chunk; plan_layout checks this, the kernel relies on it),
+    kv_starts: [S / 128] int32 window start per query chunk, kv_range: window
+    length. Returns [S, H, D]."""
+    if q.device.type == "cpu":
+        return segmented_block_attention_reference(q, k, v, seg_id, kv_starts, kv_range)
+    out, kv_range = _launch_segmented("segmented_block_attention", q, k, v, seg_id, kv_starts, kv_range)
     segmented_block_attention.launches += 1
     by_range = segmented_block_attention.launches_by_range
     by_range[kv_range] = by_range.get(kv_range, 0) + 1
@@ -147,13 +157,9 @@ def _check_causal(name, q, k, v) -> None:
         _check_bf16_rows(name, t)
 
 
-def causal_flash_attention(q, k, v):
-    """q: [B, L, H, D], k/v: [B, L, kvh, D] (post-RoPE, right-padded rows).
-    Query head h reads kv head h // (H / kvh). Padded query rows produce
-    values the caller discards. Returns [B, L, H, D]."""
-    if q.device.type == "cpu":
-        return causal_flash_attention_reference(q, k, v)
-    name = "causal_flash_attention"
+def _launch_causal(name, q, k, v):
+    """Check K2's inputs and launch it on q's device and current stream;
+    counts nothing."""
     _check_cuda(name, q, k, v)
     _check_causal(name, q, k, v)
     B, L, H, D = q.shape
@@ -165,8 +171,93 @@ def causal_flash_attention(q, k, v):
             D**-0.5, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, name)
+    return out
+
+
+def causal_flash_attention(q, k, v, mesh=None):
+    """q: [B, L, H, D], k/v: [B, L, kvh, D] (post-RoPE, right-padded rows).
+    Query head h reads kv head h // (H / kvh). Padded query rows produce
+    values the caller discards. Returns [B, L, H, D]. With a mesh, q, k, v
+    and the result are Sharded (rows over data, heads over model): K2-mesh
+    where the mesh divides them, else the gathered batch (see
+    causal_flash_attention_shard_map)."""
+    if mesh is not None:
+        return _causal_on_mesh(q, k, v, mesh)
+    if q.device.type == "cpu":
+        return causal_flash_attention_reference(q, k, v)
+    out = _launch_causal("causal_flash_attention", q, k, v)
     causal_flash_attention.launches += 1
     return out
 
 
 causal_flash_attention.launches = 0
+
+
+# -- the mesh wrappers (surya_tpu/ops/flash.py *_shard_map) ---------------------
+# Each runs its kernel once a shard, on the shard's device and current stream,
+# with the shard's own shapes; on the CPU each shard runs the plain version.
+# ``launches`` counts the kernel launches, ``launches_by_shard`` them by
+# shard (d, m), ``launches_gathered`` the single-device launches of the
+# gathered path (the dispatcher's, for a mesh that does not divide the batch
+# or the heads: the JAX package sends those to its jnp reference).
+
+def _count_shard(wrapper, dm) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_shard[dm] = wrapper.launches_by_shard.get(dm, 0) + 1
+
+
+def segmented_block_attention_shard_map(q, k, v, seg_id, kv_starts, kv_range: int, mesh):
+    """K1-mesh, replacing surya_tpu/ops/flash.py::segmented_block_attention_
+    shard_map: replicated, as there. The packed patch sequence is whole on
+    every shard (the encoder is not partitioned), and each shard runs K1
+    over all of it. q, k, v ([S, H, D]), seg_id and kv_starts are Sharded
+    with no split dimension. Returns the Sharded outputs."""
+    out = {}
+    for dm in mesh.coords():
+        if q[dm].device.type == "cpu":
+            out[dm] = segmented_block_attention_reference(q[dm], k[dm], v[dm], seg_id[dm], kv_starts[dm], kv_range)
+            continue
+        out[dm], _ = _launch_segmented("segmented_block_attention_shard_map", q[dm], k[dm], v[dm], seg_id[dm],
+                                       kv_starts[dm], kv_range)
+        _count_shard(segmented_block_attention_shard_map, dm)
+    return Sharded(mesh, q.spec, out)
+
+
+def causal_flash_attention_shard_map(q, k, v, mesh):
+    """K2-mesh, replacing surya_tpu/ops/flash.py::causal_flash_attention_
+    shard_map: prefill rows over data, q and kv heads over model, as the
+    column-parallel q/k/v projections leave them; attention is local to a
+    shard, so there is no collective here (the row-parallel o_proj after it
+    sums). q: Sharded [B, L, H, D], k/v: [B, L, kvh, D], spec (data, None,
+    model, None). Returns the Sharded outputs, q's spec."""
+    out = {}
+    for dm in mesh.coords():
+        if q[dm].device.type == "cpu":
+            out[dm] = causal_flash_attention_reference(q[dm], k[dm], v[dm])
+            continue
+        out[dm] = _launch_causal("causal_flash_attention_shard_map", q[dm], k[dm], v[dm])
+        _count_shard(causal_flash_attention_shard_map, dm)
+    return Sharded(mesh, q.spec, out)
+
+
+def _causal_on_mesh(q, k, v, mesh):
+    """K2 on a mesh: K2-mesh where the mesh divides the rows and the heads,
+    else K2 once over the batch gathered to the mesh's first device (the
+    plain version on the CPU), its output split back as q is."""
+    if kernel_shardable(mesh, q.global_size(0), q.global_size(2), k.global_size(2)):
+        return causal_flash_attention_shard_map(q, k, v, mesh)
+    qg, kg, vg = q.gather(), k.gather(), v.gather()
+    if qg.device.type == "cpu":
+        out = causal_flash_attention_reference(qg, kg, vg)
+    else:
+        out = _launch_causal("causal_flash_attention_shard_map", qg, kg, vg)
+        causal_flash_attention_shard_map.launches_gathered += 1
+    return Sharded.split(out, mesh, q.spec)
+
+
+segmented_block_attention_shard_map.launches = 0
+segmented_block_attention_shard_map.launches_by_shard = {}
+segmented_block_attention_shard_map.launches_gathered = 0  # always 0: K1-mesh is replicated, so always shardable
+causal_flash_attention_shard_map.launches = 0
+causal_flash_attention_shard_map.launches_by_shard = {}
+causal_flash_attention_shard_map.launches_gathered = 0

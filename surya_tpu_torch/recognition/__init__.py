@@ -26,6 +26,13 @@ detection of page group k + 1 runs in a worker thread and feeds the live
 run (``feeder``); prompts that do not fit the first group's cache run in a
 follow-up loop and are spliced back by id. ``stream()`` serves a page
 stream, yielding each page's result in order as soon as it completes.
+
+On a mesh (``mesh=``, or USE_MESH on several cards) the scheduler keeps its
+global view, as the JAX predictor does: the slots and the prefill rows are
+aligned to the data axis, each data shard holds a block of the slots (taken
+round-robin over the blocks) and encodes its own rows' images, the decoder
+runs tensor-parallel over the model axis (models/foundation.MeshedFoundation),
+and the outputs gather on the predictor's device.
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
 from surya_tpu_torch.models import qwen_decoder
+from surya_tpu_torch.models.foundation import MeshedFoundation, prefill_routes
+from surya_tpu_torch.parallel.mesh import Mesh, gather_rows, split_range, split_sizes
 from surya_tpu_torch.recognition.loader import load_recognition_model
 from surya_tpu_torch.recognition.postprocessing import fix_unbalanced_tags
 from surya_tpu_torch.recognition.processor import MIN_IMAGE_SIZE
@@ -59,6 +68,7 @@ from surya_tpu_torch.recognition.util import (
     clean_close_polygons,
     clean_math_tags,
     detect_repeat_token,
+    interleave_shard_slots,
     prediction_to_polygon_batch,
     sort_text_lines,
     unwrap_math,
@@ -102,14 +112,16 @@ class RecognitionPredictor(BasePredictor):
     }
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
-                 jax_params: Optional[dict] = None):
+                 jax_params: Optional[dict] = None, mesh: Optional[Mesh] = None):
         """checkpoint: a local directory or ``s3://`` name (default
         RECOGNITION_MODEL_CHECKPOINT); tiny: the small test configuration of
         random weights; jax_params: the JAX foundation pytree as numpy
-        leaves, whose weights the model takes (no checkpoint is resolved)."""
+        leaves, whose weights the model takes (no checkpoint is resolved);
+        mesh: run on it (parallel/mesh.py; default: with USE_MESH on and
+        more than one card, every card, MESH_NUM_MODEL_SHARDS model shards)."""
         self._tiny = tiny
         self._jax_params = jax_params
-        super().__init__(checkpoint, device)
+        super().__init__(checkpoint, device, mesh)
 
     def _load(self):
         self.model, self.config, self.processor = load_recognition_model(
@@ -118,9 +130,16 @@ class RecognitionPredictor(BasePredictor):
         self._jax_params = None
         self.last_decoded_tokens = 0  # tokens decoded by the last __call__ or stream()
         self.dtype = self.model.token_embed.weight.dtype
+        # the mesh: slots and prefill rows over its data axis, the decoder
+        # over its model axis; the scheduler keeps its global view
+        self.setup_mesh(tensor_parallel=True)
+        self.meshed = MeshedFoundation(self.model, self.mesh) if self.mesh is not None else None
+        self.n_data = self.mesh.n_data if self.mesh is not None else 1
         batch = self.get_batch_size()
-        self.n_slots = batch  # plus one trash slot that padding rows write
-        self.prefill_rows = max(1, batch // 4)
+        # slots plus the trash slot that padding rows write, and the prefill
+        # rows, divisible by the data axis (at least a row a data shard)
+        self.n_slots = -(-(batch + 1) // self.n_data) * self.n_data - 1
+        self.prefill_rows = max(self.n_data, -(-(batch // 4) // self.n_data) * self.n_data)
         # a big refill wave (e.g. the initial fill) goes through one large prefill
         self.prefill_row_buckets = (self.prefill_rows, min(self.n_slots + 1, self.prefill_rows * 4))
         self.decode_chunk = settings.RECOGNITION_DECODE_CHUNK
@@ -157,6 +176,8 @@ class RecognitionPredictor(BasePredictor):
         """One prefill wave on the device: the wave's inputs are uploaded,
         killed slots deactivated, the prompts encoded into their cache slots
         and token 0 sampled. Returns (packed outputs [rows, 8], state)."""
+        if self.meshed is not None:
+            return self._prefill_on_mesh(cache, batch, slot_idx, row_valid, state, kill, pin)
         last_token, active, run = state
         last_token, active = self._apply_kill(last_token, active, self._upload(kill))
         up = self._upload
@@ -175,6 +196,8 @@ class RecognitionPredictor(BasePredictor):
     def _decode(self, cache, state, kill, pin: bool):
         """One decode chunk on the device (kill: None when it was applied by a
         prefill fused before it). Returns (packed outputs [slots, K, 8], state)."""
+        if self.meshed is not None:
+            return self._decode_on_mesh(cache, state, kill, pin)
         last_token, active, run = state
         if kill is not None:
             last_token, active = self._apply_kill(last_token, active, self._upload(kill))
@@ -183,6 +206,86 @@ class RecognitionPredictor(BasePredictor):
             repeat_window=0 if pin else REPEAT_WINDOW, pin_decode=pin,
         )
         return _pack(toks, scores, bboxes), (last_token, active, run)
+
+    # -- the same programs on a mesh: the slot state is {(d, m): tensor}, each
+    # shard holding its data shard's block of slots; outputs gather on the
+    # predictor's device from each data shard's first model shard
+
+    def _init_state_on_mesh(self, n_slots: int) -> tuple:
+        """(last token, active, repeat run) of n_slots slots, split over the data axis."""
+        mesh, pad = self.mesh, self.config.pad_token_id
+        sizes = split_sizes(n_slots, mesh.n_data)
+        dev = {dm: mesh.device(*dm) for dm in mesh.coords()}
+        return (
+            {dm: torch.full((sizes[dm[0]],), pad, dtype=torch.int32, device=dev[dm]) for dm in dev},
+            {dm: torch.zeros((sizes[dm[0]],), dtype=torch.bool, device=dev[dm]) for dm in dev},
+            {dm: torch.zeros((sizes[dm[0]],), dtype=torch.int32, device=dev[dm]) for dm in dev},
+        )
+
+    def _kill_on_mesh(self, state, kill: np.ndarray) -> tuple:
+        """_apply_kill on every shard, with its block of the host's kill mask."""
+        mesh = self.mesh
+        last_token, active, run = (dict(x) for x in state)
+        for d, m in mesh.coords():
+            lo, hi = split_range(len(kill), mesh.n_data, d)
+            last_token[d, m], active[d, m] = self._apply_kill(last_token[d, m], active[d, m],
+                                                              self._upload(kill[lo:hi], mesh.device(d, m)))
+        return last_token, active, run
+
+    def _mesh_inputs(self, batch):
+        """A wave's inputs for MeshedFoundation.prefill, uploaded to each
+        shard: ({(d, m): (patches, enc_args, llm_h_idx, llm_w_idx, input_ids,
+        img_gather)}, {(d, m): seq_lens}, sharded). A data-sharded batch
+        (n_shards > 1) gives each data shard its own plan and block of rows;
+        otherwise every shard gets the whole batch."""
+        mesh, layout = self.mesh, batch.layout
+        sharded = batch.patches.ndim == 3
+        n_rows = batch.input_ids.shape[0]
+        inputs, seq_lens = {}, {}
+        for d, m in mesh.coords():
+            dev = mesh.device(d, m)
+            lo, hi = split_range(n_rows, mesh.n_data, d)
+
+            def up(a, dev=dev):
+                return self._upload(a, dev)
+
+            def plan(a, d=d):
+                return up(a[d] if sharded else a)
+
+            seq_lens[d, m] = up(batch.seq_lens[lo:hi])
+            inputs[d, m] = (self.processor.normalize_patch_rows(plan(batch.patches), self.dtype),
+                            tuple(plan(a) for a in layout.device_args), plan(layout.llm_h_idx),
+                            plan(layout.llm_w_idx), up(batch.input_ids[lo:hi]), up(batch.img_gather[lo:hi]))
+        return inputs, seq_lens, sharded
+
+    def _prefill_on_mesh(self, cache, batch, slot_idx, row_valid, state, kill, pin: bool):
+        """_prefill on the mesh. The rows' token 0 seeds the state of their
+        slots wherever those lie (prefill_routes)."""
+        mesh, layout = self.mesh, batch.layout
+        inputs, seq_lens, sharded = self._mesh_inputs(batch)
+        last_token, active, run = self._kill_on_mesh(state, kill)
+        routes = prefill_routes(slot_idx, row_valid, cache["len"].global_size(0), mesh, self._upload)
+        out = self.meshed.prefill(cache, inputs, seq_lens, routes, layout.kv_range, layout.win_range, sharded)
+        for d, t, rows, slots in routes:
+            for m in range(mesh.n_model):
+                tok = out[d, m][0].index_select(0, rows[m]).to(mesh.device(t, m))
+                last_token[t, m], active[t, m], run[t, m] = self._seed_slots(
+                    last_token[t, m], active[t, m], run[t, m], tok, slots[m], torch.ones_like(tok, dtype=torch.bool),
+                    pin)
+        packed = gather_rows([_pack(*out[d, 0]) for d in range(mesh.n_data)], self.device)
+        return packed, (last_token, active, run)
+
+    def _decode_on_mesh(self, cache, state, kill, pin: bool):
+        """_decode on the mesh."""
+        if kill is not None:
+            state = self._kill_on_mesh(state, kill)
+        toks, scores, bboxes, *state = self.meshed.decode_chunk(
+            cache, *state[:2], self.decode_chunk, run=state[2], repeat_window=0 if pin else REPEAT_WINDOW,
+            pin_decode=pin,
+        )
+        packed = gather_rows([_pack(toks[d, 0], scores[d, 0], bboxes[d, 0]) for d in range(self.mesh.n_data)],
+                             self.device)
+        return packed, tuple(state)
 
     def _dispatch_prefill(self, cache, batch, slot_idx, row_valid, state, kill, pin: bool, fuse: bool):
         """Enqueue a prefill wave, fused with the decode chunk after it, and
@@ -352,6 +455,9 @@ class RecognitionPredictor(BasePredictor):
                 add_prompts(nxt)
 
         n_slots = min(B, self.n_slots)
+        if self.n_data > 1:
+            # slots plus the trash slot divisible by the data axis (a caller's B may not be)
+            n_slots = min(-(-(n_slots + 1) // self.n_data) * self.n_data, self.n_slots + 1) - 1
         # size the cache to the longest prompt bucket + generation budget of
         # this workload: decode attention reads every valid row each step
         max_prompt = int(prompt_bound_override or 0)
@@ -366,20 +472,31 @@ class RecognitionPredictor(BasePredictor):
         )
         cache = qwen_decoder.init_cache(
             cfg.decoder, n_slots + 1, cache_len, self.dtype, self.device,
-            quantize=settings.RECOGNITION_MODEL_QUANTIZE,
+            quantize=settings.RECOGNITION_MODEL_QUANTIZE, mesh=self.mesh,
         )
         slot_prompt: List[Optional[int]] = [None] * n_slots
         # the slot state on the device (last token, active, repeat run), its
         # shadow on the host for scheduling, and the kill mask that carries
         # stops only the host sees down with the next dispatch
-        state = (
-            torch.full((n_slots + 1,), pad, dtype=torch.int32, device=self.device),
-            torch.zeros((n_slots + 1,), dtype=torch.bool, device=self.device),
-            torch.zeros((n_slots + 1,), dtype=torch.int32, device=self.device),
-        )
+        if self.mesh is None:
+            state = (
+                torch.full((n_slots + 1,), pad, dtype=torch.int32, device=self.device),
+                torch.zeros((n_slots + 1,), dtype=torch.bool, device=self.device),
+                torch.zeros((n_slots + 1,), dtype=torch.int32, device=self.device),
+            )
+        else:
+            state = self._init_state_on_mesh(n_slots + 1)
         host_active = np.zeros(n_slots + 1, bool)
         pending_kill = np.zeros(n_slots + 1, bool)
         pbar = tqdm(total=len(predicted_tokens), desc="Recognizing Text", disable=self.disable_tqdm)
+
+        # on a mesh, free slots are taken round-robin over the data shards'
+        # blocks, so that every shard's cache takes its share of a wave
+        shard_block = (n_slots + 1) // self.n_data if self.n_data > 1 else 0
+
+        def free_slots():
+            frees = [i for i, p in enumerate(slot_prompt) if p is None]
+            return interleave_shard_slots(frees, shard_block) if shard_block else frees
 
         def take_kill():
             kill = pending_kill.copy()
@@ -467,13 +584,14 @@ class RecognitionPredictor(BasePredictor):
                     batch_rows=batch_rows,
                     seq_buckets=self.seq_buckets,
                     patch_caps=self.patch_caps,
+                    n_shards=self.n_data,
                 )
             return round_prompts, batch, batch_rows
 
-        def seed_from_prefill(packed, target_slots, round_prompts):
-            """Host bookkeeping for prefill token 0; prompt i sits at row i.
-            Its slots were taken when the wave was dispatched."""
-            for row, (slot, prompt) in enumerate(zip(target_slots, round_prompts)):
+        def seed_from_prefill(packed, target_slots, round_prompts, rows):
+            """Host bookkeeping for prefill token 0; prompt i sits at row
+            rows[i]. Its slots were taken when the wave was dispatched."""
+            for slot, prompt, row in zip(target_slots, round_prompts, rows):
                 t = int(packed[row, 0])
                 predicted_tokens[prompt.id].append(t)
                 scores[prompt.id].append(0.0 if t in (eos, pad) else float(packed[row, 1]))
@@ -494,7 +612,7 @@ class RecognitionPredictor(BasePredictor):
             with stage(f"recognition.drain_{rec['kind']}"):
                 packed = self._wait(rec["handle"])
             if rec["kind"] == "prefill":
-                seed_from_prefill(packed[0], rec["slots"], rec["prompts"])
+                seed_from_prefill(packed[0], rec["slots"], rec["prompts"], rec["rows"])
             if len(packed) > 1 or rec["kind"] == "decode":
                 process_decode(packed[-1])
 
@@ -517,7 +635,7 @@ class RecognitionPredictor(BasePredictor):
                         # leftovers run in a follow-up loop with a bar of its own
                         pbar.total = len(predicted_tokens) - len(leftover_sink)
                         pbar.refresh()
-                frees = [i for i, p in enumerate(slot_prompt) if p is None]
+                frees = free_slots()
                 if held is None and pending is not None:
                     # wait for an unfinished build only when no slot could decode
                     if pending.done() or not decoding():
@@ -528,12 +646,13 @@ class RecognitionPredictor(BasePredictor):
                     # the in-flight outputs land first: their stops free slots
                     # that must not be given to the wave's prompts before
                     drain_inflight()
-                    frees = [i for i, p in enumerate(slot_prompt) if p is None]
+                    frees = free_slots()
                     (round_prompts, batch, batch_rows), held = held, None
                     target_slots = frees[: len(round_prompts)]
                     slot_idx = np.full(batch_rows, n_slots, np.int32)  # padding rows -> trash slot
-                    slot_idx[: len(round_prompts)] = target_slots
-                    row_valid = np.arange(batch_rows) < len(round_prompts)
+                    slot_idx[batch.valid_rows] = target_slots
+                    row_valid = np.zeros(batch_rows, bool)
+                    row_valid[batch.valid_rows] = True
                     # fuse the next decode chunk when no further wave can follow
                     fuse = self.fuse_decode and (
                         not queue or (len(frees) - len(round_prompts)) / n_slots <= self.min_prefill_ratio
@@ -549,7 +668,7 @@ class RecognitionPredictor(BasePredictor):
                         slot_prompt[slot] = prompt.id
                         host_active[slot] = True
                     inflight = {"kind": "prefill", "handle": handle, "slots": target_slots, "prompts": round_prompts,
-                                "fused": fuse}
+                                "rows": batch.valid_rows, "fused": fuse}
                 elif held is None and pending is None and queue and len(frees) / n_slots > self.min_prefill_ratio:
                     # no wave built or building: start one; while slots decode
                     # the loop keeps sending decode chunks under it

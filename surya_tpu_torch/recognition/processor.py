@@ -53,6 +53,12 @@ class PrefillBatch:
     img_gather: np.ndarray  # [rows, L] int32 image-token row, -1 = text position
     seq_lens: np.ndarray  # [rows] int32
     n_prompts: int  # real rows; the rest are padding
+    # prompt i's row: i, or with n_shards > 1 a row of its data shard's block
+    valid_rows: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.valid_rows is None:
+            self.valid_rows = np.arange(self.n_prompts, dtype=np.int32)
 
 
 class RecognitionProcessor:
@@ -218,10 +224,20 @@ class RecognitionProcessor:
         batch_rows: int,
         seq_buckets: Sequence[int],
         patch_caps: Sequence[int],
+        n_shards: int = 1,
     ) -> PrefillBatch:
         """Tile every image, plan the encoder layout at the smallest capacity
         bucket that fits, and build the right-padded token matrix and the
-        image-token scatter map. Prompt i sits at row i."""
+        image-token scatter map. Prompt i sits at row i.
+
+        n_shards > 1 (the data-sharded encoder of a mesh): the prompts go to
+        n_shards groups of at most batch_rows / n_shards rows, balanced on
+        patch need (LPT: largest first, each to the least-loaded group with
+        a row free); each group has a packed plan of its own at one shared
+        capacity bucket (plan_layout_sharded: every array gains a leading
+        [n_shards] axis), its prompts take the rows of its block in order,
+        and their <IMAGE> gathers index the group's own image tokens.
+        valid_rows gives each prompt's row."""
         all_patches, grids, prompts = [], [], []
         for img, task, text, math_mode in zip(images, tasks, texts, math_modes):
             patches, grid = self.tile_image(img)
@@ -234,6 +250,9 @@ class RecognitionProcessor:
         L = next((b for b in seq_buckets if b >= max_len), None)
         if L is None:
             raise ValueError(f"prompt length {max_len} exceeds largest bucket {seq_buckets[-1]}")
+        if n_shards > 1:
+            return self._sharded_batch(all_patches, grids, prompts, encoder_config, batch_rows, L, patch_caps,
+                                       n_shards)
         needed = sum(self.window_slots_needed(g) for g in grids)
         patch_cap = next((c for c in patch_caps if c >= needed), None)
         if patch_cap is None:
@@ -266,4 +285,56 @@ class RecognitionProcessor:
         return PrefillBatch(
             patches=patch_buf, layout=layout, input_ids=input_ids, img_gather=img_gather,
             seq_lens=seq_lens, n_prompts=len(prompts),
+        )
+
+    def _sharded_batch(self, all_patches, grids, prompts, encoder_config, batch_rows: int, L: int,
+                       patch_caps: Sequence[int], n_shards: int) -> PrefillBatch:
+        """build_prefill_batch's n_shards > 1 branch (surya_tpu's, line for line)."""
+        rows_s = batch_rows // n_shards
+        if rows_s * n_shards != batch_rows:
+            raise ValueError(f"batch_rows {batch_rows} not divisible by {n_shards} shards")
+        if len(prompts) > batch_rows:
+            raise ValueError(f"{len(prompts)} prompts > {batch_rows} rows")
+        needs = [self.window_slots_needed(g) for g in grids]
+        groups: List[List[int]] = [[] for _ in range(n_shards)]
+        loads = [0] * n_shards
+        for i in sorted(range(len(grids)), key=lambda i: -needs[i]):
+            g = min((g for g in range(n_shards) if len(groups[g]) < rows_s), key=lambda g: loads[g])
+            groups[g].append(i)
+            loads[g] += needs[i]
+        cap = next((c for c in patch_caps if c >= max(loads, default=1)), None)
+        if cap is None:
+            raise ValueError(f"shard needs {max(loads)} window slots > largest cap {patch_caps[-1]}")
+
+        patch_buf = np.zeros((n_shards, cap, self.patch_dim), np.uint8)
+        for g, idxs in enumerate(groups):
+            if idxs:
+                cat = np.concatenate([all_patches[i] for i in idxs], axis=0)
+                patch_buf[g, : cat.shape[0]] = cat
+        shard_grids = [[grids[i] for i in idxs] for idxs in groups]
+        layout = self._cached_plan(
+            ("shard", tuple(tuple(map(tuple, sg)) for sg in shard_grids), tuple(map(tuple, groups)), cap,
+             encoder_config),
+            lambda: qwen_encoder.plan_layout_sharded(shard_grids, encoder_config, cap, orig_index=groups),
+        )
+
+        input_ids = np.full((batch_rows, L), self.pad_token_id, np.int32)
+        img_gather = np.full((batch_rows, L), -1, np.int32)
+        seq_lens = np.ones((batch_rows,), np.int32)
+        valid_rows = np.zeros(len(prompts), np.int32)
+        for g, idxs in enumerate(groups):
+            llm_base = 0  # the group's own token index
+            for pos, i in enumerate(idxs):
+                r = g * rows_s + pos
+                valid_rows[i] = r
+                row = np.asarray(prompts[i], np.int32)
+                input_ids[r, : len(row)] = row
+                n_tok = grids[i][0] * grids[i][1] // self.merge_size**2
+                first = int(np.argmax(row == self.image_token_id))
+                img_gather[r, first : first + n_tok] = np.arange(llm_base, llm_base + n_tok, dtype=np.int32)
+                llm_base += n_tok
+                seq_lens[r] = len(row)
+        return PrefillBatch(
+            patches=self._gray_ship(patch_buf), layout=layout, input_ids=input_ids, img_gather=img_gather,
+            seq_lens=seq_lens, n_prompts=len(prompts), valid_rows=valid_rows,
         )

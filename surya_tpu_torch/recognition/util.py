@@ -61,6 +61,16 @@ def clean_math_tags(html: str) -> str:
 
 # repeat-detector window (reference :60-70). chunk_stop_scan's tail width,
 # length gate, and scan window all derive from this single constant.
+def interleave_shard_slots(frees: List[int], shard_block: int) -> List[int]:
+    """Free slots in round-robin order over the data shards' blocks of
+    `shard_block` slots (surya_tpu recognition.util.interleave_shard_slots):
+    the cache splits its slots blockwise over the data axis, and ascending
+    order would put every prefill's cache writes on the first shard."""
+    if shard_block <= 0:
+        return frees
+    return sorted(frees, key=lambda s: (s % shard_block, s // shard_block))
+
+
 REPEAT_WINDOW = 40
 
 

@@ -188,6 +188,11 @@ class Settings:
         self.TABLE_REC_CELL_BATCH_MAX = int(env.get("TABLE_REC_CELL_BATCH_MAX", "") or 128)
         # OCR error detection
         self.OCR_ERROR_BATCH_SIZE = _opt_int(env, "OCR_ERROR_BATCH_SIZE")
+        # the mesh (parallel/mesh.py): with USE_MESH on and more than one
+        # card, the predictors shard their batches over every card, and
+        # recognition's decoder runs tensor-parallel over MESH_NUM_MODEL_SHARDS
+        self.USE_MESH = _bool(env, "USE_MESH")
+        self.MESH_NUM_MODEL_SHARDS = int(env.get("MESH_NUM_MODEL_SHARDS", "") or 1)
 
 settings = Settings()
 

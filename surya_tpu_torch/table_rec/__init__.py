@@ -83,18 +83,19 @@ class TableRecPredictor(BasePredictor):
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
                  jax_params: Optional[dict] = None, config: Optional[TableRecConfig] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh=None):
         """checkpoint: a local directory or ``s3://`` name (default
         TABLE_REC_MODEL_CHECKPOINT); tiny: the small test configuration of
         random weights; config: any other; jax_params: the JAX table-rec
         pytree as numpy leaves, whose weights the model takes (no checkpoint
         is resolved); dtype: the model's (default bfloat16 on CUDA, float32
-        on the CPU)."""
+        on the CPU); mesh: a data mesh the crops and prompts split over
+        (default: with USE_MESH on and more than one card, every card)."""
         self._tiny = tiny
         self._jax_params = jax_params
         self._config = config
         self._dtype = dtype
-        super().__init__(checkpoint, device)
+        super().__init__(checkpoint, device, mesh)
 
     def _load(self):
         self.model, self.config = load_table_rec_model(self.checkpoint, self._tiny, self.device, self._jax_params,
@@ -107,15 +108,17 @@ class TableRecPredictor(BasePredictor):
         # the last call's passes (rows, AR steps, host syncs, the host time
         # spent enqueuing, steps recorded) and cell-pass batches
         self.last_run: dict = {}
+        self.setup_mesh()  # a mesh: crops and prompts split over its data axis
 
     def prepare_image(self, img: Image.Image) -> np.ndarray:
         size = self.config.encoder.image_size
         return cv2.resize(np.asarray(img, np.uint8), (size[1], size[0]), interpolation=cv2.INTER_LANCZOS4)
 
-    def _encode(self, pixels: torch.Tensor) -> torch.Tensor:
-        """uint8 crops [B, H, W, 1 or 3] -> encoder states [B, tokens, hidden]."""
+    def _encode(self, pixels: torch.Tensor, model=None) -> torch.Tensor:
+        """uint8 crops [B, H, W, 1 or 3] -> encoder states [B, tokens, hidden]
+        (through `model`, default the predictor's)."""
         x = pixels.expand(*pixels.shape[:-1], 3).to(self.dtype) / 255.0
-        return self.model.encode((x - IMAGE_MEAN) / IMAGE_STD)
+        return (model or self.model).encode((x - IMAGE_MEAN) / IMAGE_STD)
 
     # -- decode passes -------------------------------------------------------
 
@@ -145,24 +148,32 @@ class TableRecPredictor(BasePredictor):
         L_bucket = next((b for b in PROMPT_BUCKETS if b >= L), None)
         if L_bucket is None:
             raise ValueError(f"prompt length {L} exceeds buckets {PROMPT_BUCKETS}")
-        vec_pad = np.zeros((n, L_bucket, vectors.shape[2]), np.int32)
-        vec_pad[:, :L] = vectors
+        rows = self.round_batch(n)  # even blocks on a mesh: copies of the last prompt
+        vec_pad = np.zeros((rows, L_bucket, vectors.shape[2]), np.int32)
+        vec_pad[:n, :L] = vectors
+        vec_pad[n:] = vec_pad[n - 1]
+        enc_idx = np.concatenate([enc_idx, np.repeat(enc_idx[-1:], rows - n)]).astype(np.int64)
         t0 = time.perf_counter()
-        watch = DoneWatch(self.device)
-        with self._on_stream(), torch.inference_mode():
-            enc = enc_dev[self._upload(enc_idx.astype(np.int64))]
-            seq_lens = self._upload(np.full((n,), L, np.int32))
-            bufs = self.model.generate(enc, self._upload(vec_pad), seq_lens, self.config.max_boxes,
-                                       category_script=script, watch=watch)
-            packed = torch.cat(
+        watches = []  # a loop's own on each data shard
+
+        def generate(model, enc, vec, seq_lens):
+            watches.append(DoneWatch(enc.device))
+            bufs = model.generate(enc, vec, seq_lens, self.config.max_boxes, category_script=script,
+                                  watch=watches[-1])
+            return torch.cat(
                 [bufs["bbox"]] + [bufs[k][..., None].float() for k in ("category", "merges", "colspan", "is_header",
                                                                         "valid")],
                 dim=-1,
             )
-            handle = self._fetch(packed)
+
+        with self._on_stream(), torch.inference_mode():
+            handle = self._fetch(self.data_parallel(generate, enc_dev[self._upload(enc_idx)], self._upload(vec_pad),
+                                                    self._upload(np.full((rows,), L, np.int32))))
         enqueue_s = time.perf_counter() - t0
         [packed] = self._wait(handle)
-        self.last_run["passes"].append({"rows": n, "steps": watch.steps, "host_syncs": watch.syncs + 1,
+        packed = packed[:n]
+        self.last_run["passes"].append({"rows": n, "steps": max(w.steps for w in watches),
+                                        "host_syncs": sum(w.syncs for w in watches) + 1,
                                         "enqueue_s": enqueue_s, "recorded": int((packed[..., 10] > 0.5).sum())})
 
         predictions: List[List[dict]] = []
@@ -191,6 +202,7 @@ class TableRecPredictor(BasePredictor):
             raise TypeError("TableRecPredictor takes PIL images")
         if batch_size is None:
             batch_size = self.get_batch_size()
+        batch_size = self.round_batch(batch_size)
         self.last_run = {"passes": [], "cell_batch": []}
         if len(images) == 0:
             return []
@@ -215,8 +227,11 @@ class TableRecPredictor(BasePredictor):
                 q["polygon"] = resize_polygon(q["polygon"], im.size, (BOX_DIM, BOX_DIM))
 
             pixels = self.gray_ship(np.stack([self.prepare_image(im) for im in batch_images]))
+            rows = self.round_batch(len(batch_images))  # even blocks on a mesh: copies of the last crop
+            if rows > len(batch_images):
+                pixels = np.pad(pixels, [(0, rows - len(batch_images))] + [(0, 0)] * 3, mode="edge")
             with self._on_stream(), torch.inference_mode():
-                enc_dev = self._encode(self._upload(pixels))
+                enc_dev = self.data_parallel(lambda model, px: self._encode(px, model), self._upload(pixels))
 
             vectors = self._build_query_vectors(batch_query_items)
             rowcol_predictions = self._run_pass(enc_dev, np.arange(len(vectors)), vectors, script=self._script_rowcol)
@@ -245,7 +260,7 @@ class TableRecPredictor(BasePredictor):
                 # the JAX package's rule: the small decoder's step is
                 # latency-bound, so one wide pass beats several narrow ones
                 cell_bs = batch_size
-                cap = max(batch_size, settings.TABLE_REC_CELL_BATCH_MAX)
+                cap = self.round_batch(max(batch_size, settings.TABLE_REC_CELL_BATCH_MAX))
                 while cell_bs < cap and cell_bs < len(row_vectors):
                     cell_bs *= 2
                 cell_bs = min(cell_bs, cap)

@@ -6,8 +6,9 @@ KV cache) on the CPU, then the streaming path (more pages than
 RECOGNITION_DET_PIPELINE_PAGES) and ``stream()`` with detection's device
 resize, device stats and C++ CRAFT op, then layout analysis (a page above
 1500 px, so the slicer runs) and table recognition (with synthetic tables),
-OCR error detection, recognition with int8 decoder weights and the LaTeX
-CLI's ``main()``, and a recognition predictor loaded from a checkpoint
+OCR error detection, recognition with int8 decoder weights, recognition on
+a 2x2 mesh of the CPU, the LaTeX CLI's ``main()``, and a recognition
+predictor loaded from a checkpoint
 directory (upstream key names, config.json, Qwen2 tokenizer files, the
 converted-weight cache); no module of either is loaded afterwards, nor
 click. The checkpoint settings name a path that does not exist, so nothing
@@ -82,6 +83,14 @@ SCRIPT = textwrap.dedent(
     assert isinstance(qpred.model.decoder.layers[0].self_attn.q_proj, QuantLinear)
     [page] = qpred([img], bboxes=[[[0, 0, 300, 60]]])
     assert len(page.text_lines) == 1 and qpred.last_decoded_tokens > 0
+
+    # recognition on a 2x2 mesh of the CPU (int8 KV cache): the unsharded text
+    from surya_tpu_torch.parallel.mesh import make_mesh
+    meshed = RecognitionPredictor(None, True, mesh=make_mesh(2, 2, ["cpu"] * 4))
+    lines = [[[0, 0, 300, 60], [0, 100, 200, 140]]]
+    [page_m], [page_s] = meshed([img], bboxes=lines), pred([img], bboxes=lines)
+    assert [l.text for l in page_m.text_lines] == [l.text for l in page_s.text_lines]
+    assert meshed.last_decoded_tokens > 0 and meshed.mesh.shape == {"data": 2, "model": 2}
 
     import json, pathlib, tempfile
     import surya_tpu_torch.scripts.ocr_latex as ocr_latex

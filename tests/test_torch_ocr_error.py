@@ -25,8 +25,9 @@ import torch
 from surya_tpu.models import distilbert as jax_distilbert
 from surya_tpu.ocr_error import OCRErrorPredictor as JaxOCRErrorPredictor
 from surya_tpu.ocr_error.tokenizer import WordPieceTokenizer as JaxWordPieceTokenizer
+from surya_tpu_torch.common.predictor import row_bucket
 from surya_tpu_torch.models.distilbert import DistilBertConfig
-from surya_tpu_torch.ocr_error import SEQ_BUCKETS, OCRErrorPredictor, from_jax_params, row_bucket
+from surya_tpu_torch.ocr_error import SEQ_BUCKETS, OCRErrorPredictor, from_jax_params
 from surya_tpu_torch.ocr_error.tokenizer import WordPieceTokenizer
 
 torch.set_num_threads(1)
