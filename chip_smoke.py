@@ -100,11 +100,34 @@ where one PyTorch call computes the same function, that call. Then:
   2x1 logical mesh against the unsharded predictors; and, on a machine of
   more than one card, the recognition meshes and the batch predictors'
   2x1 mesh over distinct cards (a line says when that is not run). A logical mesh measures the sharded code
-  path, not multi-card scaling.
+  path, not multi-card scaling;
+- (phase 24) the web server, ``surya_tpu_torch.scripts.web_app``: a
+  ``make_server(port=0)`` whose registry holds the predictors above (the
+  detector with the blob hook, recognition with the bf16 cache and 40
+  pinned tokens, layout, table rec with the synthetic tables, OCR error),
+  served from a thread; a client posts detect, ocr (with detection and
+  with ``skip_text_detection``), layout, and table (over the whole image
+  and driven by layout) on 2 PNG pages of bench.py's shape, twice each:
+  every answer's result equals the same predictor's direct call, the ocr
+  requests launch K1, K2 and K3 (no K3q) and the others launch none, and
+  K3's merge counts in the handler threads are recognition's stream's;
+  ``GET /``, ``/healthz``, an unknown action (404) and ``ocr_error`` on an
+  image (400); four ocr requests at once each answered with the sequential
+  result; ten warm ocr requests with the same ``memory_allocated`` after
+  the 2nd and the 10th and no module output carrying a grad_fn; a PDF
+  through detect where pypdfium2 imports; then ``python -m
+  surya_tpu_torch.scripts.web_app --port 0`` as a process of its own (full
+  width, random weights, build directories of its own): its URL line,
+  ``/healthz`` and one ocr page, no traceback on its stderr. Each action's
+  first and median warm request walls are printed beside the direct call's;
+- (phase 25) ``streamlit_app.main()`` and ``texify_app.run()`` under a
+  stub streamlit module, every button pressed and one page uploaded, on
+  the predictors above: both run to completion and launch K1, K2 and K3.
 
 The random-weight phases point the five ``*_MODEL_CHECKPOINT`` settings at
 a path that does not exist, so that no predictor resolves or fetches a
-default ``s3://`` checkpoint. The exporter (``upstream_state_dict``,
+default ``s3://`` checkpoint, and the OCR render's font fetch at a refused
+loopback port. The exporter (``upstream_state_dict``,
 ``write_checkpoint``) also serves tests/test_torch_checkpoint.py, which
 holds its key set to what the JAX package's ``convert_torch`` reads; the
 module imports without a card, and only running it needs one.
@@ -138,11 +161,14 @@ its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import base64
 import copy
 import dataclasses
+import io
 import json
 import os
 import re
+import select
 import shutil
 import subprocess
 import sys
@@ -150,7 +176,10 @@ import tempfile
 import threading
 import time
 import types
+import urllib.error
+import urllib.request
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -162,6 +191,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 # s3:// checkpoint, nor the process that phase 18 starts
 CHECKPOINT_SETTINGS = ("DETECTOR_MODEL_CHECKPOINT", "RECOGNITION_MODEL_CHECKPOINT", "LAYOUT_MODEL_CHECKPOINT",
                        "TABLE_REC_MODEL_CHECKPOINT", "OCR_ERROR_MODEL_CHECKPOINT")
+FONT_DL_BASE = "http://127.0.0.1:9"  # nothing listens there
 
 if __name__ == "__main__":  # the settings are read when the port is first imported
     if not torch.cuda.is_available():
@@ -170,6 +200,9 @@ if __name__ == "__main__":  # the settings are read when the port is first impor
     os.environ.setdefault("DISABLE_TQDM", "true")
     for _name in CHECKPOINT_SETTINGS:
         os.environ[_name] = os.devnull
+    # the OCR render's font fetch (debug/fonts.py) goes to a refused
+    # loopback port: it fails at once, and the render uses PIL's font
+    os.environ["RECOGNITION_FONT_DL_BASE"] = FONT_DL_BASE
 
 from PIL import Image, ImageDraw  # noqa: E402
 
@@ -201,8 +234,10 @@ from surya_tpu_torch.ocr_error import OCRErrorPredictor  # noqa: E402
 from surya_tpu_torch.ocr_error import random_model as ocr_error_random_model  # noqa: E402
 from surya_tpu_torch.recognition.loader import random_model  # noqa: E402
 from surya_tpu_torch.scripts import (  # noqa: E402
-    detect_layout, detect_text, ocr_latex, ocr_text, table_recognition,
+    detect_layout, detect_text, ocr_latex, ocr_text, streamlit_app, table_recognition, texify_app, web_app,
 )
+from surya_tpu_torch.common.util import expand_bbox, rescale_bbox  # noqa: E402
+from surya_tpu_torch.debug.draw import draw_text_on_image  # noqa: E402
 
 SEED = 0
 N_PAGES, LINES_PER_PAGE, PIN_TOKENS = 4, 8, 40
@@ -2372,6 +2407,472 @@ def check_mesh_batch_predictors(det, pages, power, devices=None):
           f"within 1 px; {len(texts)} OCR error labels equal [{power}]")
 
 
+# -- the web server (phase 24) and the streamlit apps (phase 25) -----------------
+# The web server's actions on pages of bench.py's shape, served in this
+# process by a make_server() whose registry holds the predictors above: label
+# -> (action, extra request keys, the kernels its request must launch). Each
+# is posted WEB_POSTS times on each of WEB_PAGES pages.
+WEB_PAGES, WEB_POSTS = 2, 2
+WEB_ACTIONS = {
+    "detect": ("detect", {}, []),
+    "ocr": ("ocr", {}, RECOGNITION_KERNELS),
+    "ocr skip_text_detection": ("ocr", {"skip_text_detection": True}, RECOGNITION_KERNELS),
+    "layout": ("layout", {}, []),
+    "table skip_table_detection": ("table", {"skip_table_detection": True}, []),
+    "table by layout": ("table", {}, []),
+}
+# client threads posting ocr at once, and the warm ocr requests of the memory check
+WEB_CONCURRENT, WEB_WARM = 4, 10
+# `python -m surya_tpu_torch.scripts.web_app`'s arguments, and the seconds
+# it may take to print its URL line and to answer its first request
+WEB_PROCESS_ARGS, WEB_PROCESS_START_S, WEB_PROCESS_REQUEST_S = ["--port", "0"], 120, 600
+# one page drawn by hand, for the PDF upload (where pypdfium2 imports)
+ONE_PAGE_PDF = (b"%PDF-1.1\n1 0 obj<</Type/Catalog/Pages 2 0 R>>endobj\n"
+                b"2 0 obj<</Type/Pages/Kids[3 0 R]/Count 1>>endobj\n"
+                b"3 0 obj<</Type/Page/Parent 2 0 R/MediaBox[0 0 200 200]>>endobj\n"
+                b"trailer<</Root 1 0 R>>\n%%EOF\n")
+
+
+LOCAL = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy for the loopback server
+
+
+def png_body(image, **extra) -> bytes:
+    """A web request's JSON body uploading `image` as a PNG."""
+    buf = io.BytesIO()
+    image.save(buf, format="PNG")
+    return json.dumps({"file_b64": base64.b64encode(buf.getvalue()).decode(), "filename": "page.png",
+                       **extra}).encode()
+
+
+def http(url: str, body: Optional[bytes] = None, timeout: float = 600):
+    """GET (no body) or POST `url`; returns (status, parsed JSON or the raw
+    bytes of a page, wall in seconds)."""
+    t0 = time.perf_counter()
+    request = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    try:
+        with LOCAL.open(request, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:  # an answer with an error status: returned to be checked
+        status, raw = e.code, e.read()
+    wall = time.perf_counter() - t0
+    return status, (json.loads(raw) if raw[:1] in (b"{", b"[") else raw), wall
+
+
+def direct_result(preds, action, extra, image):
+    """The predictor calls that web_app.run_action makes for `action` on an
+    image upload (lowres and highres the same image), made here directly;
+    the payload's `result`."""
+    if action == "detect":
+        return preds["detection"]([image])[0].model_dump(exclude={"heatmap", "affinity_map"})
+    if action == "layout":
+        return preds["layout"]([image])[0].model_dump()
+    if action == "ocr":
+        kw = ({"bboxes": [[[0, 0, image.width, image.height]]]} if extra.get("skip_text_detection")
+              else {"det_predictor": preds["detection"]})
+        return preds["recognition"]([image], task_names=["ocr_with_boxes"], highres_images=[image], math_mode=True,
+                                    return_words=True, **kw)[0].model_dump()
+    if action == "table":
+        if extra.get("skip_table_detection"):
+            crops = [image]
+        else:
+            crops = [image.crop(expand_bbox(rescale_bbox(b.bbox, image.size, image.size)))
+                     for b in preds["layout"]([image])[0].bboxes if b.label in ("Table", "TableOfContents")]
+        return [r.model_dump() for r in preds["table_rec"](crops)]
+    raise ValueError(action)
+
+
+def check_launches(label, counts, launched):
+    """The kernels a request (or an app run) launched: each of `launched`,
+    and no other; returns the launched ones' counts."""
+    counts = {k: v for k, v in counts.items() if k in COUNTERS}
+    for n in COUNTERS:
+        if (counts[n] > 0) != (n in launched):
+            raise AssertionError(f"{label}: launches {counts}, want exactly {launched}")
+    return {k: v for k, v in counts.items() if v}
+
+
+class MergeCountStreams:
+    """Inside the block, each call of the decode kernel's merge-count lookup
+    records its thread and the stream it was made on (a stand-in for
+    decode_attn._merge_counts, in this script only)."""
+
+    def __enter__(self):
+        self.calls, original = [], decode_attn._merge_counts
+
+        def record(dev, n):
+            self.calls.append((threading.get_ident(), torch.cuda.current_stream(dev).cuda_stream))
+            return original(dev, n)
+
+        self.original, decode_attn._merge_counts = original, record
+        return self
+
+    def __exit__(self, *exc):
+        decode_attn._merge_counts = self.original
+
+    def check(self, stream) -> str:
+        """Every lookup made on another thread than this one (a request
+        handler's) was on `stream`; returns a summary."""
+        here = threading.get_ident()
+        handlers = {t for t, _ in self.calls if t != here}
+        streams = {s for t, s in self.calls if t != here}
+        if not handlers or streams != {stream.cuda_stream}:
+            raise AssertionError(f"the handler threads' decode calls ran on streams {streams}, not only on "
+                                 f"recognition's {stream.cuda_stream}")
+        return (f"{sum(t != here for t, _ in self.calls)} lookups from {len(handlers)} handler threads, all on "
+                f"recognition's stream {stream.cuda_stream}")
+
+
+class GradOutputs:
+    """Inside the block, every forward output of the given models' modules
+    that carries a grad_fn is counted (by module class)."""
+
+    def __init__(self, models):
+        self.models, self.found, self.calls = models, [], 0
+
+    def hook(self, module, args, out):
+        self.calls += 1
+        outs = out if isinstance(out, (tuple, list)) else [out]
+        self.found += [type(module).__name__ for t in outs if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+
+    def __enter__(self):
+        self.handles = [m.register_forward_hook(self.hook) for model in self.models for m in model.modules()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def ocr_host_work(preds, page, power):
+    """The host work around the predictor call in an ocr request (with
+    detection), each part of web_app.run_action's once on `page`: the
+    upload's decode, the text render, the word boxes, the two PNG encodes
+    and the payload's JSON."""
+    req = json.loads(png_body(page))
+    t0 = time.perf_counter()
+    image, highres, _, _ = web_app._load_input(req)
+    t1 = time.perf_counter()
+    result = direct_result(preds, "ocr", {}, image)
+    lines = result["text_lines"]
+    t2 = time.perf_counter()
+    rendered = draw_text_on_image([l["bbox"] for l in lines], [l["text"] for l in lines], image.size)
+    t3 = time.perf_counter()
+    boxed = image.copy()
+    draw = ImageDraw.Draw(boxed)
+    for line in lines:
+        for w in line["words"] or []:
+            draw.rectangle(w["bbox"], outline="red", width=2)
+    t4 = time.perf_counter()
+    images = [web_app._img_b64(rendered), web_app._img_b64(boxed)]
+    t5 = time.perf_counter()
+    json.dumps({"image_b64": images[0], "word_boxes_b64": images[1], "result": result})
+    t6 = time.perf_counter()
+    print(f"    an ocr request's host work around the call ({len(lines)} lines): upload decode {t1 - t0:.4f} s, "
+          f"text render at {rendered.size[0]}x{rendered.size[1]} {t3 - t2:.4f} s, word boxes {t4 - t3:.4f} s, two "
+          f"PNG encodes {t5 - t4:.4f} s ({sum(map(len, images))} base64 bytes), the payload's JSON {t6 - t5:.4f} s; "
+          f"in all {t1 - t0 + t6 - t2:.4f} s [{power}]")
+
+
+def check_web_in_process(preds, pages, power):
+    """(a) to (c): a make_server(port=0) of the port with its registry seeded
+    with `preds`, served from a thread. Returns the ocr answer on page 0."""
+    server = web_app.make_server(port=0)
+    for name, p in preds.items():
+        server.predictors[name] = p
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, page, _ = http(base + "/")
+        status2, health, _ = http(base + "/healthz")
+        if status != 200 or b"surya-tpu" not in page or status2 != 200 or health != {"ok": True}:
+            raise AssertionError(f"GET / answered {status}, /healthz {status2} {health}")
+        status, out, _ = http(base + "/api/nonsense", png_body(pages[0]))
+        if status != 404:
+            raise AssertionError(f"an unknown action answered {status}: {out}")
+        status, out, _ = http(base + "/api/ocr_error", png_body(pages[0]))
+        if status != 400 or out != {"error": "This feature only works with PDFs."}:
+            raise AssertionError(f"ocr_error on an image answered {status}: {out}")
+        print("    GET / 200, /healthz {\"ok\": true}, an unknown action 404, ocr_error on an image 400 "
+              "(\"This feature only works with PDFs.\")")
+
+        # (a) every action on every page: the answer against the direct call
+        answers = {}
+        with MergeCountStreams() as merges:
+            for label, (action, extra, launched) in WEB_ACTIONS.items():
+                walls, direct_walls, first_launches = [], [], None
+                for i, image in enumerate(pages):
+                    body = png_body(image, **extra)
+                    for _ in range(WEB_POSTS):
+                        reset_counts()
+                        status, out, wall = http(f"{base}/api/{action}", body)
+                        if status != 200:
+                            raise AssertionError(f"{label} on page {i} answered {status}: {out}")
+                        counts = check_launches(f"{label} request", read_counts(), launched)
+                        first_launches = first_launches or counts
+                        walls.append(wall)
+                        answers.setdefault((label, i), out)
+                        if out["result"] != answers[(label, i)]["result"]:
+                            raise AssertionError(f"{label} on page {i}: two requests answered differently")
+                    ref, direct_wall = synchronised(direct_result, preds, action, extra, image.copy())
+                    direct_walls.append(direct_wall)
+                    if json.loads(json.dumps(ref)) != answers[(label, i)]["result"]:
+                        raise AssertionError(f"{label} on page {i}: the answer differs from the direct call")
+                warm, direct = float(np.median(walls[1:])), float(np.median(direct_walls))
+                what = {"detect": lambda r: f"{len(r['bboxes'])} boxes",
+                        "ocr": lambda r: f"{len(r['text_lines'])} lines",
+                        "layout": lambda r: f"{len(r['bboxes'])} boxes",
+                        "table": lambda r: f"{len(r)} tables, {sum(len(t['cells']) for t in r)} cells"}[action]
+                print(f"    {label}: {[what(answers[(label, i)]['result']) for i in range(len(pages))]}, equal to "
+                      f"the direct call; first request {walls[0]:.4f} s, warm median {warm:.4f} s over "
+                      f"{len(walls) - 1}, the direct call {direct:.4f} s, difference (HTTP, decode, drawing, PNG) "
+                      f"{warm - direct:.4f} s; launches {first_launches} [{power}]")
+        print(f"    K3's merge counts in the requests: {merges.check(preds['recognition']._stream)}")
+        ocr_host_work(preds, pages[0], power)
+
+        # (b) concurrent requests: the sequential answer each
+        body, ref = png_body(pages[0]), answers[("ocr", 0)]["result"]
+        got, errors = [None] * WEB_CONCURRENT, []
+
+        def client(k):
+            try:
+                got[k] = http(f"{base}/api/ocr", body)
+            except BaseException as e:  # re-raised below, in the main thread
+                errors.append(e)
+
+        clients = [threading.Thread(target=client, args=(k,)) for k in range(WEB_CONCURRENT)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        if any(c.is_alive() for c in clients) or [g[0] for g in got] != [200] * WEB_CONCURRENT:
+            raise AssertionError(f"concurrent ocr requests: statuses {[g and g[0] for g in got]}")
+        same = [g[1]["result"] == ref for g in got]
+        print(f"    {WEB_CONCURRENT} ocr requests at once: all 200, the sequential answer each: {same}; wall "
+              f"{wall:.4f} s, each {[round(g[2], 4) for g in got]} s [{power}]")
+        if not all(same):
+            raise AssertionError("a concurrent ocr request answered other than the sequential request")
+
+        # (c) memory over warm requests, and no autograd graph in a handler
+        models = [p.model for p in preds.values()]
+        needs_grad = {name: sum(q.requires_grad for q in p.model.parameters()) for name, p in preds.items()}
+        allocated = []
+        with GradOutputs(models) as grads:
+            for _ in range(WEB_WARM):
+                status, out, _ = http(f"{base}/api/ocr", body)
+                torch.cuda.synchronize()
+                allocated.append(torch.cuda.memory_allocated())
+                if status != 200 or out["result"] != ref:
+                    raise AssertionError(f"a warm ocr request answered {status} or another result")
+        print(f"    {WEB_WARM} warm ocr requests: memory_allocated after each {allocated}; module outputs with a "
+              f"grad_fn {len(grads.found)} of {grads.calls}; parameters that require grad {needs_grad}")
+        if allocated[1] != allocated[-1]:
+            raise AssertionError(f"device memory grew over warm requests: {allocated[1]} -> {allocated[-1]}")
+        if grads.found or not grads.calls:
+            raise AssertionError(f"a request built an autograd graph: {sorted(set(grads.found))}")
+
+        try:
+            import pypdfium2  # noqa: F401
+        except ImportError:
+            print("    PDF upload: not run: no pypdfium2")
+        else:
+            req = json.dumps({"file_b64": base64.b64encode(ONE_PAGE_PDF).decode(), "filename": "page.pdf"}).encode()
+            status, out, wall = http(f"{base}/api/detect", req)
+            if status != 200 or len(out["result"]["image_bbox"]) != 4:
+                raise AssertionError(f"detect on a PDF answered {status}: {out}")
+            print(f"    PDF upload: detect on a one-page PDF 200, image_bbox {out['result']['image_bbox']}, wall "
+                  f"{wall:.4f} s [{power}]")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("the web server's thread did not end")
+
+
+def read_line(stream, deadline: float) -> str:
+    """The next line of a child's stdout, or "" if none came before
+    `deadline` (perf_counter) or the stream ended."""
+    left = deadline - time.perf_counter()
+    return stream.readline() if left > 0 and select.select([stream], [], [], left)[0] else ""
+
+
+def check_web_process(page, power):
+    """(d) `python -m surya_tpu_torch.scripts.web_app --port 0` as a process
+    of its own at full width with random weights (the checkpoint settings
+    pinned to a path that does not exist), with kernel and native build
+    directories of its own: the URL line, /healthz, one ocr page with
+    detection (both predictors built inside the request; random weights
+    find no line on it), then the same page with skip_text_detection, whose
+    recognition builds the kernels (nvcc) inside its handler; no traceback
+    on its stderr."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, RECOGNITION_MAX_TOKENS=str(PIN_TOKENS), RECOGNITION_PIN_DECODE="true",
+                   SURYA_TORCH_BUILD_DIR=str(Path(tmp) / "kernels"),
+                   SURYA_TORCH_NATIVE_DIR=str(Path(tmp) / "native"))
+        with open(Path(tmp) / "stderr", "w+") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-m", "surya_tpu_torch.scripts.web_app", *WEB_PROCESS_ARGS],
+                                    cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+            try:
+                line = read_line(proc.stdout, t0 + WEB_PROCESS_START_S)
+                url_s = time.perf_counter() - t0
+                match = re.search(r"http://127\.0\.0\.1:\d+", line)
+                if match:
+                    status, health, _ = http(match.group(0) + "/healthz", timeout=60)
+                    status2, out, wall = http(match.group(0) + "/api/ocr", png_body(page),
+                                              timeout=WEB_PROCESS_REQUEST_S)
+                    status3, out3, wall3 = http(match.group(0) + "/api/ocr", png_body(page, skip_text_detection=True),
+                                                timeout=WEB_PROCESS_REQUEST_S)
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                proc.stdout.close()
+            err.seek(0)
+            stderr = err.read()
+        built = sorted(p.name for p in Path(tmp).glob("*/*.so"))
+    if not match:
+        raise AssertionError(f"the web server process printed {line!r} after {url_s:.1f} s; stderr:\n"
+                             f"{stderr[-3000:]}")
+    if status != 200 or health != {"ok": True} or status2 != 200 or status3 != 200 or "Traceback" in stderr:
+        raise AssertionError(f"the web server process: /healthz {status} {health}, ocr {status2}, ocr "
+                             f"skip_text_detection {status3}; stderr:\n{stderr[-3000:]}")
+    if len(out3["result"]["text_lines"]) != 1 or not any(b.startswith("libsurya_kernels_") for b in built):
+        raise AssertionError(f"the web server process: {len(out3['result']['text_lines'])} lines without "
+                             f"detection, built {built}")
+    print(f"    python -m surya_tpu_torch.scripts.web_app {' '.join(WEB_PROCESS_ARGS)} (random weights): URL line "
+          f"after {url_s:.4f} s; /healthz 200; the first ocr request {wall:.4f} s (both predictors' builds "
+          f"included), {len(out['result']['text_lines'])} lines; then skip_text_detection {wall3:.4f} s (the "
+          f"kernels' build in the handler included: {built}), 1 line; no traceback; terminated [{power}]")
+
+
+def check_web(preds, power):
+    """Phase 24: the port's web server on the card, in process and as a process."""
+    t0 = time.perf_counter()
+    set_pin(True)
+    settings.RECOGNITION_MODEL_QUANTIZE = settings.RECOGNITION_WEIGHT_QUANTIZE = False
+    pages = bench_pages(WEB_PAGES)
+    check_web_in_process(preds, pages, power)
+    check_web_process(pages[0], power)
+    set_pin(False)
+    print(f"    phase 24 took {time.perf_counter() - t0:.1f} s")
+
+
+class Widget:
+    """Any streamlit object the apps use as a context (a column, a tab):
+    every attribute is a call that returns another."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: Widget()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class Upload(io.BytesIO):
+    """What streamlit's file_uploader returns: the bytes and their type."""
+
+    type = "image/png"
+
+
+def streamlit_stub(upload, shown: list):
+    """A stand-in for the streamlit module: the sidebar's file uploader
+    returns `upload`, every button is pressed, every checkbox and number
+    input keeps its default, and each element the app shows is appended to
+    `shown` as (kind, its first argument)."""
+    st = types.ModuleType("streamlit")
+
+    def show(kind):
+        return lambda *a, **k: shown.append((kind, a[0] if a else None))
+
+    for kind in ("set_page_config", "markdown", "image", "json", "text", "code", "write", "error"):
+        setattr(st, kind, show(kind))
+    st.cache_resource = st.cache_data = lambda *a, **k: (lambda fn: fn)
+    st.columns = lambda spec: tuple(Widget() for _ in spec)
+    st.tabs = lambda names: tuple(Widget() for _ in names)
+
+    def stop():
+        raise AssertionError("the app stopped: it found no upload")
+
+    st.stop = stop
+    st.sidebar = types.SimpleNamespace(file_uploader=lambda *a, **k: upload, button=lambda *a, **k: True,
+                                       checkbox=lambda *a, value=False, **k: value,
+                                       number_input=lambda *a, value=1, **k: value)
+    st.file_uploader = st.sidebar.file_uploader
+    return st
+
+
+def run_app(fn, page, patches):
+    """fn() under the streamlit stub with one page uploaded, with each
+    (module, attribute, value) of `patches` set for the run; returns what
+    the app showed, its wall and the launches."""
+    upload = Upload()
+    page.save(upload, format="PNG")
+    upload.seek(0)
+    shown = []
+    saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    previous = sys.modules.get("streamlit")
+    sys.modules["streamlit"] = streamlit_stub(upload, shown)
+    for m, a, v in patches:
+        setattr(m, a, v)
+    reset_counts()
+    try:
+        _, wall = synchronised(fn)
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
+        if previous is None:
+            del sys.modules["streamlit"]
+        else:
+            sys.modules["streamlit"] = previous
+    return shown, wall, read_counts()
+
+
+def check_streamlit_apps(preds, power):
+    """Phase 25: streamlit_app.main() and texify_app.run() under the stub,
+    with every button pressed and one page of bench.py's shape uploaded, on
+    the predictors above (load_predictors and RecognitionPredictor patched
+    to return them): both run to completion and launch K1, K2 and K3."""
+    t0 = time.perf_counter()
+    set_pin(True)
+    settings.RECOGNITION_MODEL_QUANTIZE = False
+    page = bench_pages(1)[0]
+    import surya_tpu_torch.models_registry as registry
+    import surya_tpu_torch.recognition as recognition
+
+    shown, wall, launches = run_app(streamlit_app.main, page, [(registry, "load_predictors", lambda: preds)])
+    counts = check_launches("streamlit_app.main()", launches, RECOGNITION_KERNELS)
+    kinds = [k for k, _ in shown]
+    images = [v.size for k, v in shown if k == "image"]
+    errors = [v for k, v in shown if k == "error"]
+    # detection, layout, OCR render and word boxes, table, the upload
+    if len(images) != 6 or errors != ["This feature only works with PDFs."] or kinds.count("json") != 4:
+        raise AssertionError(f"streamlit_app showed {kinds}: images {images}, errors {errors}")
+    print(f"    streamlit_app.main(), every button: {len(images)} images {images}, {kinds.count('json')} JSON "
+          f"panels, the bad-text panel's error {errors[0]!r}; wall {wall:.4f} s; launches {counts} [{power}]")
+    shown, wall, launches = run_app(texify_app.run, page, [(recognition, "RecognitionPredictor",
+                                                            lambda *a, **k: preds["recognition"])])
+    counts = check_launches("texify_app.run()", launches, RECOGNITION_KERNELS)
+    latex = [v for k, v in shown if k == "code"]
+    if len(latex) != 1 or not isinstance(latex[0], str):
+        raise AssertionError(f"texify_app showed {[k for k, _ in shown]}")
+    print(f"    texify_app.run(): {len(latex[0])} characters of LaTeX; wall {wall:.4f} s; launches {counts} "
+          f"[{power}]")
+    set_pin(False)
+    print(f"    phase 25 took {time.perf_counter() - t0:.1f} s")
+
 
 def assert_launched(label, run_counts, launched, not_launched=()):
     print(f"    {label}: {run_counts}")
@@ -2533,6 +3034,13 @@ def main():
         check_mesh_batch_predictors(det, north_pages[:4], power, cards[:2])
     else:
         print("    not run: one card (phases 20 to 22 ran on logical meshes of cuda:0)")
+    preds = {"detection": det, "recognition": pred, "layout": lay, "table_rec": tab, "ocr_error": oe}
+    print(f"[24] the web server (surya_tpu_torch.scripts.web_app) on the predictors above: each action on "
+          f"{WEB_PAGES} pages of 1240x1754, {WEB_CONCURRENT} requests at once, {WEB_WARM} warm requests, then a "
+          f"process of its own; the OCR render's font fetch goes to {FONT_DL_BASE}, refused")
+    check_web(preds, power)
+    print("[25] the streamlit apps under a stub streamlit module: streamlit_app.main() and texify_app.run()")
+    check_streamlit_apps(preds, power)
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and

@@ -10,6 +10,27 @@ from surya_tpu_torch.recognition.schema import TextChar
 TAG_PATTERN = re.compile(r"<(/?)([a-z]+)([^>]*)>?", re.IGNORECASE)
 
 
+def truncate_repetitions(text: str, min_len: int = 15) -> str:
+    """Trim a repeating tail down to one repetition (nougat-style;
+    reference :7-35)."""
+    if len(text) < 2 * min_len:
+        return text
+
+    max_rep_len = None
+    for rep_len in range(min_len, len(text) // 2):
+        if all(text[len(text) - rep_len - i - 1] == text[len(text) - i - 1] for i in range(rep_len)):
+            max_rep_len = rep_len
+
+    if max_rep_len is None:
+        return text
+
+    lcs = text[-max_rep_len:]
+    trimmed = text
+    while trimmed.endswith(lcs):
+        trimmed = trimmed[:-max_rep_len]
+    return text[: len(trimmed)]
+
+
 def extract_tags(proposed_tags: List[str]) -> List[str]:
     tags = []
     for tag in proposed_tags:

@@ -7,7 +7,8 @@ RECOGNITION_DET_PIPELINE_PAGES) and ``stream()`` with detection's device
 resize, device stats and C++ CRAFT op, then layout analysis (a page above
 1500 px, so the slicer runs) and table recognition (with synthetic tables),
 OCR error detection, recognition with int8 decoder weights, recognition on
-a 2x2 mesh of the CPU, the LaTeX CLI's ``main()``, and a recognition
+a 2x2 mesh of the CPU, the LaTeX CLI's ``main()``, the web server
+(detect and ocr requests), the GUI apps' modules, and a recognition
 predictor loaded from a checkpoint
 directory (upstream key names, config.json, Qwen2 tokenizer files, the
 converted-weight cache); no module of either is loaded afterwards, nor
@@ -102,7 +103,33 @@ SCRIPT = textwrap.dedent(
         ocr_latex.main([str(folder), "--output_dir", str(pathlib.Path(tmp) / "out")])
         rows = json.loads((pathlib.Path(tmp) / "out" / "pages" / "results.json").read_text())
         assert list(rows) == ["a"] and set(rows["a"][0]) == {"equation", "page"}
-    assert "click" not in sys.modules
+
+    # the web server on the tiny predictors, each request on a handler
+    # thread, and the GUI apps' and checkpoint upload's modules
+    import base64, io, threading, urllib.request
+    import surya_tpu_torch.debug.render_html
+    import surya_tpu_torch.recognition.languages
+    import surya_tpu_torch.scripts.hf_to_s3
+    import surya_tpu_torch.scripts.run_streamlit_app
+    import surya_tpu_torch.scripts.streamlit_app
+    import surya_tpu_torch.scripts.texify_app
+    from surya_tpu_torch.scripts.web_app import make_server
+    server = make_server(0)
+    server.predictors["detection"], server.predictors["recognition"] = det, pred
+    serving = threading.Thread(target=server.serve_forever)
+    serving.start()
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    body = json.dumps({"file_b64": base64.b64encode(buf.getvalue()).decode(), "filename": "a.png"}).encode()
+    for action in ("detect", "ocr"):
+        url = f"http://127.0.0.1:{server.server_address[1]}/api/{action}"
+        with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=120) as resp:
+            assert resp.status == 200 and json.loads(resp.read())["result"]
+    server.shutdown()
+    server.server_close()
+    serving.join(timeout=30)
+    assert not serving.is_alive()
+    assert "click" not in sys.modules and "streamlit" not in sys.modules
 
     # a recognition predictor from a checkpoint directory, as upstream ships one
     import chip_smoke
@@ -127,6 +154,7 @@ SCRIPT = textwrap.dedent(
 
 def test_port_runs_without_jax():
     env = dict(os.environ, ALLOW_RANDOM_WEIGHTS="true", RECOGNITION_MAX_TOKENS="8", DISABLE_TQDM="true")
+    env["RECOGNITION_FONT_DL_BASE"] = "http://127.0.0.1:9"  # the OCR render's font fetch fails at once
     for name in ("DETECTOR", "RECOGNITION", "LAYOUT", "TABLE_REC", "OCR_ERROR"):
         env[f"{name}_MODEL_CHECKPOINT"] = os.devnull  # no default s3:// checkpoint is fetched
     env.pop("TORCH_DEVICE", None)
