@@ -31,12 +31,12 @@ where one PyTorch call computes the same function, that call. Then:
   host path's (PIL, maps, the C++ CRAFT op) by the IoU rule of
   tests/test_device_postprocess.py, and one batch's resized pixels against
   PIL's double LANCZOS;
-- drives whole-page OCR at the north star's shape (16 pages, int8 cache,
-  40 pinned tokens a line) through the streaming det->rec path, the same
-  with every output read after a device synchronise, and sequentially: the
-  same lines and token counts, at least 95 % of the lines with the same
-  token ids between the pipelined and the synchronised reads, K1, K2 and
-  K3q launched;
+- drives whole-page OCR of 16 of those synthetic pages (int8 cache, 40
+  pinned tokens a line, 64-step chunks) through the streaming det->rec
+  path, the same with every output read after a device synchronise, and
+  sequentially: the same lines and token counts, at least 95 % of the
+  lines with the same token ids between the pipelined and the synchronised
+  reads, K1, K2 and K3q launched;
 - runs one whole-page call with the recognition dispatches under
   ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host sync), and
   ``stream()`` over a generator of the 16 pages (in order, the batch call's
@@ -123,6 +123,22 @@ where one PyTorch call computes the same function, that call. Then:
 - (phase 25) ``streamlit_app.main()`` and ``texify_app.run()`` under a
   stub streamlit module, every button pressed and one page uploaded, on
   the predictors above: both run to completion and launch K1, K2 and K3.
+- (phase 26) bench.py's workload through the port, copied part for part
+  from bench.py: its environment (random weights, 40 pinned tokens a line,
+  a 40-step decode chunk, the bf16 KV cache), read into the settings before
+  a new ``DetectionPredictor()`` (with the blob hook) and
+  ``RecognitionPredictor()`` are built at full width; 16 pages of its
+  ``build_page()`` (1240x1754, 40 lines at ``font_size=22``; a Pillow that
+  cannot draw at a size fails the phase); its warm-ups, then the best of 3
+  ``rec(pages, det_predictor=det)`` trials. Every trial must launch K1, K2
+  and K3 and never K3q, find on every page the warm-up detection's line
+  count and decode exactly 40 tokens a line. One line, ``BENCH_WORKLOAD
+  {...}``, gives the best trial's pages/s, the three walls, boxes and
+  tokens a page, its ``common/profiling`` stage split, its launches and the
+  card; then K1, K2 and K3 are held against their plain versions at the
+  shapes of the last warm-up's first wave and first decode call, and the
+  kernels line carries those times and the best trial's launches under
+  ``bench_workload``.
 
 The random-weight phases point the five ``*_MODEL_CHECKPOINT`` settings at
 a path that does not exist, so that no predictor resolves or fetches a
@@ -220,11 +236,12 @@ from surya_tpu_torch.ops import _build, decode_attn, flash  # noqa: E402
 from surya_tpu_torch.recognition import RecognitionPredictor  # noqa: E402
 from surya_tpu_torch.recognition.loader import DEFAULT_ENCODER  # noqa: E402
 from surya_tpu_torch.models.layout_model import ID_TO_LABEL  # noqa: E402
-from surya_tpu_torch.settings import settings  # noqa: E402
+from surya_tpu_torch.settings import Settings, load_dotenv, settings  # noqa: E402
 from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables  # noqa: E402
 from surya_tpu_torch.models.distilbert import DistilBert  # noqa: E402
 from surya_tpu_torch.models.foundation import FoundationModel  # noqa: E402
 from surya_tpu_torch import nn as pnn  # noqa: E402
+from surya_tpu_torch.common import profiling  # noqa: E402
 from surya_tpu_torch.common.checkpoint import cache_path  # noqa: E402
 from surya_tpu_torch.common.weights import fold_batchnorm  # noqa: E402
 from surya_tpu_torch.nn import QuantLinear  # noqa: E402
@@ -247,9 +264,16 @@ LINE_SHAPES = [(56, 504), (56, 700), (84, 840), (56, 980), (84, 560), (56, 616),
 # whole-page OCR: 8 pages (the JAX predictor's sequential det->rec limit),
 # one detection chunk each, 16 dark bands of 24 px every 62 px
 OCR_PAGES, OCR_LINES, OCR_PAGE_SIZE = 8, 16, 1024
-# whole-page OCR at the north star's shape (bench.py: 16 pages, 40 pinned
-# tokens a line), in two detection groups of 8 pages through the streaming path
-NORTH_STAR_PAGES, PIPELINE_PAGES = 16, 8
+# whole-page OCR of 16 synthetic pages with the int8 cache, 40 pinned tokens a
+# line, in two detection groups of 8 pages through the streaming path (bench.py's
+# page count, not its pages, cache or chunk: phase 26 runs those)
+STREAM_PAGES, PIPELINE_PAGES = 16, 8
+# bench.py's workload (phase 26), copied from bench.py: its environment
+# (:50-57; it never sets RECOGNITION_MODEL_QUANTIZE, so the KV cache is bf16),
+# 16 pages of its build_page() of 40 lines each, and the best of 3 full trials
+BENCH_PAGES, BENCH_LINES, BENCH_TRIALS = 16, 40, 3
+BENCH_ENV = {"ALLOW_RANDOM_WEIGHTS": "true", "RECOGNITION_MAX_TOKENS": str(PIN_TOKENS),
+             "RECOGNITION_PIN_DECODE": "true", "RECOGNITION_DECODE_CHUNK": str(PIN_TOKENS), "DISABLE_TQDM": "true"}
 # the share of lines whose token ids must agree between the pipelined
 # streaming run and the same run reading every output after a device
 # synchronise (the same waves); a stale output buffer would give garbage far
@@ -745,6 +769,51 @@ class DecodeShapes:
         qwen_decoder.decode_attn = decode_attn
 
 
+class MainPathShapes(DecodeShapes):
+    """DecodeShapes, and the encoder's and the decoder's `flash` become
+    stand-ins too (in this script only): the first `depth` K1 calls (one
+    prefill wave's blocks, in block order) keep their group ids and window
+    starts (device copies) and window lengths, and the first K2 call its
+    shapes."""
+
+    def __init__(self, encoder_config):
+        super().__init__()
+        self.depth, self.k1, self.k2 = encoder_config.depth, [], None
+
+    def __enter__(self):
+        super().__enter__()
+
+        def k1(q, k, v, seg_id, kv_starts, kv_range):
+            if len(self.k1) < self.depth:
+                self.k1.append((seg_id.clone(), kv_starts.clone(), kv_range))
+            return flash.segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range)
+
+        def k2(q, k, v, mesh=None):
+            if self.k2 is None:
+                self.k2 = tuple(q.shape)
+            return flash.causal_flash_attention(q, k, v, mesh=mesh)
+
+        qwen_encoder.flash = types.SimpleNamespace(**{**vars(flash), "segmented_block_attention": k1})
+        qwen_decoder.flash = types.SimpleNamespace(**{**vars(flash), "causal_flash_attention": k2})
+        return self
+
+    def __exit__(self, *exc):
+        qwen_encoder.flash = qwen_decoder.flash = flash
+        super().__exit__(*exc)
+
+    def plan(self, encoder_config):
+        """The recorded wave's full-attention and windowed groups, as the
+        fields of a layout plan that check_segmented reads."""
+        if len(self.k1) < self.depth:
+            raise AssertionError(f"{len(self.k1)} K1 calls recorded, want a wave's {self.depth}")
+        full = min(encoder_config.fullatt_block_indexes)
+        window = next(i for i in range(self.depth) if i not in encoder_config.fullatt_block_indexes)
+        (gid, starts, kv_range), (wid, wstarts, win_range) = self.k1[full], self.k1[window]
+        return types.SimpleNamespace(
+            cap=gid.numel(), seg_id=gid.cpu().numpy(), kv_starts=starts.cpu().numpy(), kv_range=kv_range,
+            win_id=wid.cpu().numpy(), win_starts=wstarts.cpu().numpy(), win_range=win_range)
+
+
 def check_decode_main_path(results, gen, shapes, long_cache):
     """K3 at the first decode call of the pinned given-lines run, K3q at that
     of the pinned whole-page run: their lengths, S and K, random inputs, at
@@ -791,8 +860,10 @@ def first_wave(pred, flat, n_shards: int = 1):
 
 
 def check_lines(results, pages, lines_per_page):
+    """lines_per_page: one count for every page, or a list of each page's."""
     n_lines = sum(len(r.text_lines) for r in results)
-    if len(results) != len(pages) or any(len(r.text_lines) != lines_per_page for r in results):
+    want = lines_per_page if isinstance(lines_per_page, list) else [lines_per_page] * len(pages)
+    if len(results) != len(pages) or [len(r.text_lines) for r in results] != want:
         raise AssertionError(f"expected {len(pages)} pages of {lines_per_page} lines, "
                              f"got {[len(r.text_lines) for r in results]}")
     for r in results:
@@ -963,9 +1034,9 @@ def agreement(tokens, ref):
             float(np.median(differ)) if differ else None)
 
 
-def check_north_star(pred, det, pages, power):
-    """Whole-page OCR at bench.py's shape (16 pages, int8 cache, 40 pinned
-    tokens a line) through the streaming path (detection of the second group
+def check_streaming_pages(pred, det, pages, power):
+    """Whole-page OCR of 16 synthetic pages (int8 cache, 40 pinned tokens a
+    line) through the streaming path (detection of the second group
     of 8 pages in a worker thread, feeding the live run), the same with every
     output read only after a device synchronise, and sequentially. All three
     must find the same lines and decode the same token count; the pipelined
@@ -1151,6 +1222,18 @@ def bench_pages(n: int):
                       fill="black")
         pages.append(img)
     return pages
+
+
+def build_page(width=1240, height=1754):
+    """bench.py's page (its build_page, line for line): 40 lines of text at
+    font_size=22. Drawing at a size needs Pillow >= 10.1 with FreeType;
+    without them this raises, and never falls back to PIL's default font."""
+    img = Image.new("RGB", (width, height), "white")
+    draw = ImageDraw.Draw(img)
+    for i in range(BENCH_LINES):
+        draw.text((60, 40 + i * 42), f"Line {i}: the quick brown fox jumps over the lazy dog.", fill="black",
+                  font_size=22)
+    return img
 
 
 def synchronised(fn, *args):
@@ -2874,6 +2957,92 @@ def check_streamlit_apps(preds, power):
     print(f"    phase 25 took {time.perf_counter() - t0:.1f} s")
 
 
+def check_bench_workload(gen, power):
+    """Phase 26: bench.py's workload through the port, as bench.py drives
+    the JAX package (bench.py:50-57, 137-144, 193-256): the port's settings
+    read anew from the environment with bench.py's values over it (40
+    pinned tokens a line, a 40-step decode chunk, the bf16 KV cache), then
+    DetectionPredictor() and RecognitionPredictor() at full width with
+    random weights, the detector's blob hook, 16 pages of build_page(); the
+    warm-ups det(pages), rec(pages, polygons=...) and rec(pages,
+    det_predictor=det), the last with the kernels' first shapes recorded;
+    then the best of 3 timed rec(pages, det_predictor=det) calls, each with
+    the counts at 0 just before and read just after. Every trial must launch
+    K1, K2 and K3 and never K3q, give every page the warm-up detection's
+    line count and decode exactly 40 tokens a line. K1, K2 and K3 are then
+    held against their plain versions at the recorded shapes. Returns
+    (the best trial's launch counts, the held cases' results)."""
+    saved = dict(vars(settings))
+    vars(settings).update(vars(Settings({**load_dotenv(), **os.environ, **BENCH_ENV})))
+    try:
+        try:
+            pages = [build_page() for _ in range(BENCH_PAGES)]
+        except (TypeError, ImportError, OSError) as e:
+            raise RuntimeError(f"bench.py's pages are drawn at font_size=22, which needs Pillow >= 10.1 with "
+                               f"FreeType; this Pillow cannot: {type(e).__name__}: {e}") from e
+        t0 = time.perf_counter()
+        det = DetectionPredictor()
+        rec = RecognitionPredictor()
+        install_blob_detector(det)
+        if rec.device.type != "cuda" or det.device.type != "cuda":
+            raise AssertionError(f"the predictors run on {det.device} and {rec.device}, not the card")
+        if rec.decode_chunk != PIN_TOKENS or settings.RECOGNITION_MODEL_QUANTIZE:
+            raise AssertionError(f"decode chunk {rec.decode_chunk}, int8 cache {settings.RECOGNITION_MODEL_QUANTIZE}")
+        print(f"    both predictors built in {time.perf_counter() - t0:.1f} s; {BENCH_PAGES} pages of "
+              f"{pages[0].size[0]}x{pages[0].size[1]}, decode chunk {rec.decode_chunk}, pinned "
+              f"{settings.RECOGNITION_MAX_TOKENS} tokens, bf16 cache")
+
+        t0 = time.perf_counter()
+        det_results = det(pages)
+        boxes = [len(r.bboxes) for r in det_results]
+        polys = [[b.polygon for b in r.bboxes] for r in det_results]
+        rec(pages, polygons=polys)
+        shapes = MainPathShapes(rec.config.encoder)
+        with shapes:
+            rec(pages, det_predictor=det)
+        print(f"    warm-ups (det, rec with polygons, rec with det_predictor) {time.perf_counter() - t0:.1f} s; "
+              f"{sum(boxes) / len(boxes):.1f} boxes a page {boxes}")
+
+        trials = []
+        for i in range(BENCH_TRIALS):
+            reset_counts()
+            profiling.report(reset=True)
+            t0 = time.perf_counter()
+            results = rec(pages, det_predictor=det)
+            wall = time.perf_counter() - t0
+            prof, counts, tokens = profiling.report(reset=True), read_counts(), rec.last_decoded_tokens
+            n_l = check_lines(results, pages, boxes)  # the warm-up detection's count on every page
+            print(f"    trial {i}: {wall:.4f} s, {BENCH_PAGES / wall:.4f} pages/s, {n_l} lines, {tokens} "
+                  f"tokens [{power}]")
+            if tokens != PIN_TOKENS * n_l:
+                raise AssertionError(f"trial {i}: {tokens} tokens for {n_l} lines, want {PIN_TOKENS} a line")
+            assert_launched(f"bench.py's workload, trial {i}", counts,
+                            ["segmented_block_attention", "causal_flash_attention", "gqa_decode"], ["gqa_decode_int8"])
+            trials.append((wall, prof, counts, tokens))
+        wall, prof, counts, tokens = min(trials, key=lambda t: t[0])
+        summary = {
+            "pages_per_s": BENCH_PAGES / wall, "trial_walls_s": [t[0] for t in trials],
+            "boxes_per_page": sum(boxes) / len(boxes), "decoded_tokens_per_page": tokens / BENCH_PAGES,
+            "pinned_tokens_per_line": PIN_TOKENS, "decode_chunk": rec.decode_chunk,
+            "stages": {k: {"total_s": v["total_s"], "calls": v["calls"]} for k, v in sorted(prof.items())},
+            "launches": {n: counts[n] for n in ("segmented_block_attention", "causal_flash_attention",
+                                                "gqa_decode", "gqa_decode_int8")},
+            "k1_launches_by_kv_range": counts[K1_BY_RANGE], "card": power,
+        }
+        print("BENCH_WORKLOAD " + json.dumps(summary))
+
+        print("    K1, K2 and K3 against their plain versions at the shapes of the last warm-up's first wave and "
+              "first decode call")
+        held = {}
+        check_segmented(held, shapes.plan(rec.config.encoder), gen, "bench.py's first wave", report=True)
+        check_causal(held, shapes.k2[0], shapes.k2[1], gen, report=True)
+        check_decode_main_path(held, gen, {"gqa_decode": shapes.first["gqa_decode"]}, {"gqa_decode": None})
+    finally:
+        vars(settings).clear()
+        vars(settings).update(saved)
+    return counts, held
+
+
 def assert_launched(label, run_counts, launched, not_launched=()):
     print(f"    {label}: {run_counts}")
     for n in launched:
@@ -2979,16 +3148,16 @@ def main():
     print("[8] K3 and K3q at the shapes the pinned runs gave them (K3: given lines, K3q: whole page)")
     check_decode_main_path(results, gen, shapes, long_cache)
 
-    north_pages = synthetic_full_pages(np.random.default_rng(SEED + 2), NORTH_STAR_PAGES)
+    stream_pages = synthetic_full_pages(np.random.default_rng(SEED + 2), STREAM_PAGES)
     print("[9] detection on the card: device resize and component stats (auto) against the host path")
-    check_detection(det, north_pages, power)
-    print(f"[10] whole-page OCR at the north star's shape: {NORTH_STAR_PAGES} pages, int8 cache, pinned "
+    check_detection(det, stream_pages, power)
+    print(f"[10] whole-page OCR of {STREAM_PAGES} synthetic pages, int8 cache, pinned "
           f"{PIN_TOKENS} tokens, streaming against sequential")
-    batch_results = check_north_star(pred, det, north_pages, power)
+    batch_results = check_streaming_pages(pred, det, stream_pages, power)
     print("[11] the recognition dispatch path under torch.cuda.set_sync_debug_mode(\"error\")")
-    check_sync_free_dispatch(pred, det, north_pages, power)
-    print(f"[12] stream() over a generator of the {NORTH_STAR_PAGES} pages")
-    check_stream(pred, det, north_pages, batch_results, power)
+    check_sync_free_dispatch(pred, det, stream_pages, power)
+    print(f"[12] stream() over a generator of the {STREAM_PAGES} pages")
+    check_stream(pred, det, stream_pages, batch_results, power)
     settings.RECOGNITION_MODEL_QUANTIZE = False
     set_pin(False)
 
@@ -3023,7 +3192,7 @@ def main():
     print("[21] the mesh wrappers on a 2x2 logical mesh at the meshed runs' shapes, against their plain versions")
     check_mesh_wrappers(results, gen, records, make_mesh(2, 2, logical))
     print("[22] detection, layout, table recognition and OCR error on a 2x1 logical mesh, against unsharded")
-    check_mesh_batch_predictors(det, north_pages[:4], power)
+    check_mesh_batch_predictors(det, stream_pages[:4], power)
     n_cards = torch.cuda.device_count()
     print(f"[23] the mesh over distinct cards ({n_cards} on this machine)")
     if n_cards > 1:
@@ -3031,7 +3200,7 @@ def main():
         shapes = ([(2, 2)] if len(cards) == 4 else []) + [(1, 2), (2, 1)]
         check_mesh_recognition(pred, pages, bboxes, cards, shapes, (False,), power, "cards")
         print(f"    the batch predictors on a 2x1 mesh of {cards[0]} and {cards[1]}")
-        check_mesh_batch_predictors(det, north_pages[:4], power, cards[:2])
+        check_mesh_batch_predictors(det, stream_pages[:4], power, cards[:2])
     else:
         print("    not run: one card (phases 20 to 22 ran on logical meshes of cuda:0)")
     preds = {"detection": det, "recognition": pred, "layout": lay, "table_rec": tab, "ocr_error": oe}
@@ -3041,6 +3210,10 @@ def main():
     check_web(preds, power)
     print("[25] the streamlit apps under a stub streamlit module: streamlit_app.main() and texify_app.run()")
     check_streamlit_apps(preds, power)
+    print(f"[26] bench.py's workload: {BENCH_PAGES} pages of its build_page() ({BENCH_LINES} lines at "
+          f"font_size=22), {PIN_TOKENS} pinned tokens a line, a {PIN_TOKENS}-step decode chunk, bf16 cache, "
+          f"new predictors at full width; the best of {BENCH_TRIALS} trials")
+    bench_counts, bench_held = check_bench_workload(gen, power)
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and
@@ -3070,6 +3243,19 @@ def main():
         results[wrapper]["mesh"] = f"{run[0][0]}x{run[0][1]} of cuda:0"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "main_path", "by_step",
             "long_cache", "mesh", "per_shard", "launches_by_shard")
+    # phase 26 (bench.py's workload): the best trial's launches (K1's of both
+    # block kinds together) and the times at its first wave's and first decode
+    # call's shapes
+    bench_launches = {"segmented_block_attention[full]": ("k1_launches", "segmented_block_attention"),
+                      "segmented_block_attention[window]": ("k1_launches", "segmented_block_attention"),
+                      "causal_flash_attention": ("launches", "causal_flash_attention"),
+                      "gqa_decode": ("launches", "gqa_decode")}
+    for n, (key, counter) in bench_launches.items():
+        held = bench_held[n]
+        results[n]["bench_workload"] = {key: bench_counts[counter], **{
+            k: held[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "main_path")
+            if k in held}}
+    keys += ("bench_workload",)
     report = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": launches[n],
          **{key: results[n][key] for key in keys if key in results[n]}}

@@ -7,9 +7,9 @@ weights: recognition of given line boxes (4 synthetic pages x 8 lines,
 RecognitionPredictor, bf16 KV cache), pinned to 40 tokens per line and with
 free-running stops; whole-page OCR (DetectionPredictor then
 RecognitionPredictor, int8 KV cache, pinned) of 8 synthetic pages x 16 lines
-(one detection group: detection, then recognition) and of 16 such pages, the
-north star's shape (two groups of 8: detection of the second runs in a
-worker thread while the first is recognized); layout of chip_smoke.py's 16
+(one detection group: detection, then recognition) and of 16 such pages
+(two groups of 8: detection of the second runs in a worker thread while the
+first is recognized); layout of chip_smoke.py's 16
 pages of 1240x1754 at full width, as called and cap-bound (every row decodes
 its 100 steps), and table recognition of its 4 synthetic 14 x 8 tables. For
 each mode it prints:
@@ -206,8 +206,8 @@ def main():
     install_blob_detector(det)
     pages, bboxes = chip_smoke.synthetic_pages(np.random.default_rng(chip_smoke.SEED))
     ocr_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 1))
-    north_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 2),
-                                                  chip_smoke.NORTH_STAR_PAGES)
+    stream_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 2),
+                                                   chip_smoke.STREAM_PAGES)
     stats = defaultdict(list)
     time_calls(pred, ("_dispatch_prefill", "_dispatch_decode", "_wait"), stats)
     time_calls(det, ("_wait",), stats, prefix="det.")
@@ -228,7 +228,7 @@ def main():
     report = {"card": power}
     for label, run in [("pinned", lambda: given_lines(True)), ("free-running", lambda: given_lines(False)),
                        ("whole-page 8 pages pinned, int8 cache", lambda: whole_page(ocr_pages)),
-                       ("whole-page 16 pages streaming pinned, int8 cache", lambda: whole_page(north_pages))]:
+                       ("whole-page 16 pages streaming pinned, int8 cache", lambda: whole_page(stream_pages))]:
         run()  # warm-up at this mode's shapes
         runs = untraced(run, stats)
         trace = traced(run)

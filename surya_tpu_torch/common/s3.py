@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -39,15 +40,36 @@ def _dns_recently_dead(url: str) -> bool:
     return t is not None and (time.time() - t) < _DNS_DEAD_TTL_S
 
 
+def _exception_chain(err: BaseException):
+    """err and every exception behind it: ``__cause__``, ``__context__`` and
+    urllib3's ``.reason`` (requests wraps a resolver error as
+    ConnectionError <- MaxRetryError <- NameResolutionError <- gaierror, and
+    which link carries it differs between versions)."""
+    seen, todo = set(), [err]
+    while todo:
+        e = todo.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        yield e
+        for nxt in (e.__cause__, e.__context__, getattr(e, "reason", None)):
+            if isinstance(nxt, BaseException):
+                todo.append(nxt)
+
+
 def _note_dns_failure(url: str, err: Exception) -> bool:
-    """Record a permanent name-resolution failure (NXDOMAIN). Transient
-    resolver failures ("Temporary failure in name resolution") stay on the
-    retry ladder: they often heal within the backoff."""
-    msg = str(err)
-    if "Name or service not known" in msg or "nodename nor servname" in msg:
+    """Record a permanent name-resolution failure (NXDOMAIN): a
+    ``socket.gaierror`` with ``EAI_NONAME`` anywhere in the chain, whatever
+    its wording, or the glibc or macOS wording of it. Transient resolver
+    failures (``EAI_AGAIN``, "Temporary failure in name resolution") stay on
+    the retry ladder: they often heal within the backoff."""
+    chain = list(_exception_chain(err))
+    dead = any(isinstance(e, socket.gaierror) and e.errno == socket.EAI_NONAME for e in chain) or any(
+        "Name or service not known" in str(e) or "nodename nor servname" in str(e) for e in chain
+    )
+    if dead:
         _DNS_DEAD[_host_of(url)] = time.time()
-        return True
-    return False
+    return dead
 
 
 def _download_file(url: str, dest: Path, retries: int = 3, backoff: float = 2.0):

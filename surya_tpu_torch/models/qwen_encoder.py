@@ -57,6 +57,11 @@ class EncoderConfig:
     def merge_unit(self) -> int:
         return self.spatial_merge_size**2
 
+    @property
+    def window_patches(self) -> int:
+        # patches per window (4 * 4 cells x 4 patches = 64)
+        return self.window_cells**2 * self.merge_unit
+
 
 FULL_ATTN_Q_CHUNK = flash.PLAN_CHUNK  # rows per attention query chunk
 

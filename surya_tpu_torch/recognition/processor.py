@@ -18,11 +18,14 @@ from typing import List, Optional, Sequence, Tuple
 import cv2
 import numpy as np
 import torch
+from PIL import Image
 
 from surya_tpu_torch.models import qwen_encoder
 from surya_tpu_torch.recognition.tokenizer import (
     BLOCK_WITHOUT_BOXES_TOKEN,
     EOI_TOKEN,
+    EOS_TOKEN,
+    IMAGE_ROTATED_TOKEN,
     IMAGE_TOKEN,
     NOMATH_TOKEN,
     NO_OUTPUT_TOKEN,
@@ -67,11 +70,14 @@ class RecognitionProcessor:
         self.tokenizer = tokenizer
         self.patch_size = patch_size
         self.merge_size = merge_size
+        self.num_register_tokens = num_register_tokens
         st = tokenizer.system_tokens
         self.image_token_id = st[IMAGE_TOKEN]
         self.pad_token_id = st[PAD_TOKEN]
+        self.eos_token_id = st[EOS_TOKEN]
         self.eoi_token_id = st[EOI_TOKEN]
         self.no_output_token = st[NO_OUTPUT_TOKEN]
+        self.image_rotated_token = st[IMAGE_ROTATED_TOKEN]
         self.nomath_token = st[NOMATH_TOKEN]
         self.register_token_ids = [st[r] for r in REGISTER_TOKENS][:num_register_tokens]
         self.bos_token_id = {
@@ -79,18 +85,27 @@ class RecognitionProcessor:
             TaskNames.ocr_without_boxes: st[OCR_WITHOUT_BOXES_BOS_TOKEN],
             TaskNames.block_without_boxes: st[BLOCK_WITHOUT_BOXES_TOKEN],
         }
+        # special ids that never carry boxes (every special but the math tags),
+        # and the math tags that open and close a math span
+        math_ext = set(tokenizer.special_tokens["math_external"])
+        mapping = tokenizer.SPECIAL_TOKEN_MAPPING
+        self.ignore_bbox_token_ids = [v for k, v in mapping.items() if k not in math_ext]
+        self.math_start_token_ids = [v for k, v in mapping.items() if k in math_ext and k != "</math>"]
+        self.math_end_token_ids = [v for k, v in mapping.items() if k == "</math>"]
         # host-packing caches: the layout plan depends only on (grids, cap),
-        # the prompt ids only on (task, n_tok, text, math); entries are immutable
+        # the prompt ids only on (task, n_tok, text, math, rotated); entries
+        # are immutable
         self._plan_cache: dict = {}
         self._prompt_cache: dict = {}
 
-    def _cached_prompt_ids(self, task: str, n_tok: int, text: str, math_mode: bool) -> List[int]:
-        key = (task, n_tok, text, bool(math_mode))
+    def _cached_prompt_ids(self, task: str, n_tok: int, text: str, math_mode: bool,
+                           rotated: bool = False) -> List[int]:
+        key = (task, n_tok, text, bool(math_mode), bool(rotated))
         ids = self._prompt_cache.get(key)
         if ids is None:
             if len(self._prompt_cache) >= 4096:
                 self._prompt_cache.clear()
-            ids = self._prompt_cache[key] = self.build_prompt_ids(task, n_tok, text, math_mode)
+            ids = self._prompt_cache[key] = self.build_prompt_ids(task, n_tok, text, math_mode, rotated)
         return ids
 
     def _cached_plan(self, key, thunk):
@@ -110,6 +125,11 @@ class RecognitionProcessor:
     @property
     def patch_dim(self) -> int:
         return 3 * self.patch_size**2
+
+    def image_processor(self, image: Image.Image) -> np.ndarray:
+        """The page as a uint8 array: every later step (resize, tiling) works
+        on uint8."""
+        return np.asarray(image)
 
     @staticmethod
     def scale_to_fit(img: np.ndarray, max_size: Tuple[int, int],
@@ -131,6 +151,14 @@ class RecognitionProcessor:
         else:
             return img
         return cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LANCZOS4)
+
+    def align_long_axis(self, image: np.ndarray) -> Tuple[np.ndarray, bool]:
+        """(image turned 90 degrees counter-clockwise, True) for a tall image,
+        else (image, False)."""
+        h, w = image.shape[:2]
+        if h > w:
+            return cv2.rotate(image, cv2.ROTATE_90_COUNTERCLOCKWISE), True
+        return image, False
 
     def tile_image(self, image: np.ndarray) -> Tuple[np.ndarray, Tuple[int, int]]:
         """Resize to a multiple of patch * merge (INTER_CUBIC, skipped when
@@ -206,9 +234,13 @@ class RecognitionProcessor:
 
     # -- prompts ---------------------------------------------------------------
 
-    def build_prompt_ids(self, task: str, n_image_tokens: int, text: str, math_mode: bool) -> List[int]:
-        """<IMAGE>*n + registers + task BOS [+ <NO-MATH>] + input text + EOI."""
+    def build_prompt_ids(self, task: str, n_image_tokens: int, text: str, math_mode: bool,
+                         rotated: bool = False) -> List[int]:
+        """[<ROT>] + <IMAGE>*n + registers + task BOS [+ <NO-MATH>] + input
+        text + EOI."""
         ids = [self.image_token_id] * n_image_tokens + self.register_token_ids
+        if rotated:
+            ids = [self.image_rotated_token] + ids
         text_ids = self.tokenizer.encode(text, task=task) if text else []
         if not math_mode:
             text_ids = [self.nomath_token] + text_ids
@@ -338,3 +370,9 @@ class RecognitionProcessor:
             patches=self._gray_ship(patch_buf), layout=layout, input_ids=input_ids, img_gather=img_gather,
             seq_lens=seq_lens, n_prompts=len(prompts), valid_rows=valid_rows,
         )
+
+    def decode(self, tokens: List[int], task: str) -> str:
+        """Detokenize without the system ids (pad, EOS, registers, ...) and
+        -100; formatting and math tags stay and come out as their tag text."""
+        system_vals = set(self.tokenizer.system_tokens.values())
+        return self.tokenizer.decode([t for t in tokens if t not in system_vals and t != -100], task=task)

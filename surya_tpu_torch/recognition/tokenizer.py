@@ -198,6 +198,14 @@ class OCRTokenizer:
             return self.math_tokenizer.encode(text)
         return self._tokenize_ocr(text)
 
+    def __call__(self, texts, tasks=None):
+        """``{"input_ids": [encode(text, task), ...]}``; a single string is a
+        list of one (with ``tasks`` its one task)."""
+        if isinstance(texts, str):
+            texts = [texts]
+            tasks = [tasks]
+        return {"input_ids": [self.encode(t, task) for t, task in zip(texts, tasks)]}
+
     # -- decoding ------------------------------------------------------------
 
     def _decode_ocr(self, token_ids: List[int]) -> str:
