@@ -139,6 +139,21 @@ where one PyTorch call computes the same function, that call. Then:
   shapes of the last warm-up's first wave and first decode call, and the
   kernels line carries those times and the best trial's launches under
   ``bench_workload``.
+- (phase 27) the checkpoint-validation command,
+  ``surya_tpu_torch.scripts.validate_checkpoints``, and its six accuracy
+  stages (``surya_tpu_torch/benchmark``): (a) ``main()`` over all six
+  gates on checkpoint directories written from the detection, recognition,
+  layout and table rec models above, with the settings read anew
+  (ALLOW_RANDOM_WEIGHTS off, no token cap) and each stage's
+  ``load_hf_dataset`` replaced by 2 in-memory rows of the port's synthetic
+  pages: random weights fail the gates, so it must exit with "gates
+  failed", every gate "below threshold" or "pass" and never an error, the
+  six result files with the JAX stages' keys; recognition and texify launch
+  K1, K2 and K3 and no K3q, the other four stages no kernel; (b) ``python
+  -m surya_tpu_torch.scripts.validate_checkpoints --smoke --max_rows 2`` as
+  a process of its own: exit 0, "smoke run complete", detection,
+  recognition and table recognition "below threshold" or "pass", the other
+  three "skipped".
 
 The random-weight phases point the five ``*_MODEL_CHECKPOINT`` settings at
 a path that does not exist, so that no predictor resolves or fetches a
@@ -180,6 +195,7 @@ from __future__ import annotations
 import base64
 import copy
 import dataclasses
+import importlib
 import io
 import json
 import os
@@ -3043,6 +3059,230 @@ def check_bench_workload(gen, power):
     return counts, held
 
 
+# -- the checkpoint-validation command (phase 27) -------------------------------
+# Its six accuracy stages read Hugging Face datasets, which no run here can
+# fetch: each stage module's load_hf_dataset is replaced by one that returns
+# an in-memory dataset with the columns that stage reads, made from the port's
+# synthetic pages (tests/test_torch_validate_checkpoints.py gives the same rows
+# to the JAX stages).
+
+# gate -> the setting that names its dataset
+DATASET_SETTINGS = {"detection": "DETECTOR_BENCH_DATASET_NAME", "recognition": "RECOGNITION_BENCH_DATASET_NAME",
+                    "layout": "LAYOUT_BENCH_DATASET_NAME", "ordering": "ORDER_BENCH_DATASET_NAME",
+                    "table_recognition": "TABLE_REC_BENCH_DATASET_NAME", "texify": "TEXIFY_BENCHMARK_DATASET"}
+
+
+class InMemoryDataset:
+    """What the stages read of a Hugging Face dataset: a column by name (a
+    list), the rows as dicts in order, ``column_names`` and the length."""
+
+    def __init__(self, **columns):
+        self.columns = columns
+        self.column_names = list(columns)
+
+    def __getitem__(self, name):
+        return list(self.columns[name])
+
+    def __len__(self):
+        return len(next(iter(self.columns.values())))
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield {k: v[i] for k, v in self.columns.items()}
+
+    def head(self, n: int) -> "InMemoryDataset":
+        return InMemoryDataset(**{k: v[:n] for k, v in self.columns.items()})
+
+
+def stage_datasets(n: int) -> dict:
+    """gate -> an in-memory dataset of n rows: detection's line boxes on the
+    1000x1000 scale; recognition's boxes, texts and languages; layout's boxes
+    with PubLayNet labels (a title, text lines, a list item); ordering's
+    boxes with their positions; table rec's rows and columns; texify's
+    three-line blocks and their text. Each dataset holds pages of its own."""
+    from surya_tpu_torch.benchmark.utils.data import synthetic_table_pages, synthetic_text_pages
+
+    def pages():
+        return synthetic_text_pages(n)
+
+    images, boxes, texts = pages()
+    scale = [[rescale_bbox(b, images[0].size, (1000, 1000)) for b in page] for page in boxes]
+    tables, rows, cols = synthetic_table_pages(n)
+    blocks, _, block_texts = synthetic_text_pages(n, lines=3, size=(800, 260))
+    return {
+        "detection": InMemoryDataset(image=images, bboxes=scale),
+        "recognition": InMemoryDataset(image=pages()[0], bboxes=boxes, text=texts, language=[["en"]] * n),
+        "layout": InMemoryDataset(image=pages()[0], bboxes=boxes,
+                                  labels=[["Title"] + ["Text"] * (len(b) - 2) + ["List"] for b in boxes]),
+        "ordering": InMemoryDataset(image=pages()[0], bboxes=boxes, labels=[list(range(len(b))) for b in boxes]),
+        "table_recognition": InMemoryDataset(image=tables, rows=rows, cols=cols),
+        "texify": InMemoryDataset(image=blocks, text=[" ".join(t) for t in block_texts]),
+    }
+
+
+def dataset_loader(gate: str, dataset: InMemoryDataset):
+    """A stand-in for a stage's load_hf_dataset: the first max_rows rows of
+    ``dataset``, once the stage asked for its own dataset by name."""
+    def load_hf_dataset(name: str, max_rows: int):
+        want = getattr(settings, DATASET_SETTINGS[gate])
+        if name != want:
+            raise AssertionError(f"the {gate} stage asked for dataset {name!r}, not {want!r}")
+        return dataset.head(max_rows)
+    return load_hf_dataset
+
+
+# rows a stage in phase 27, and the keys of each stage's result file (the JAX
+# stages'): its top level, and those of the entry below it (None: no check)
+VALIDATION_ROWS = 2
+RESULT_KEYS = {
+    "detection": ({"metrics", "page_metrics"}, ("metrics", "surya"), {"precision", "recall", "time_per_image"}),
+    "recognition": ({"surya"}, ("surya",), {"avg_score", "time_per_img", "total_time"}),
+    "layout": ({"metrics", "time_per_image"}, None, None),
+    "ordering": ({"mean_accuracy", "time_per_image"}, None, None),
+    "table_recognition": ({"surya"}, ("surya",), {"mean_row_iou", "mean_col_iou", "time_per_image"}),
+    "texify": ({"scores", "total_time", "n"}, None, None),
+}
+# the stages whose predictor decodes with the recognition model, through K1, K2 and K3
+DECODING_GATES = ("recognition", "texify")
+
+
+def check_result_keys(gate: str, data: dict) -> None:
+    top, path, inner = RESULT_KEYS[gate]
+    entry = data
+    for key in path or ():
+        entry = entry[key]
+    if set(data) != top or (inner is not None and set(entry) != inner):
+        raise AssertionError(f"{gate}: the result file's keys {sorted(data)} (below {path}: "
+                             f"{sorted(entry) if path else None}) are not the JAX stage's")
+    if gate == "layout" and any(set(m) != {"precision", "recall"} for m in data["metrics"].values()):
+        raise AssertionError(f"layout: a label's metrics have other keys: {data['metrics']}")
+
+
+def check_validation_gated(pred, det, lay, tab, power):
+    """Phase 27a: validate_checkpoints.main() over all six gates at full
+    width, as on real checkpoints. The detection, recognition, layout and
+    table rec models of the earlier phases are written as upstream
+    checkpoint directories (``write_checkpoint``); the settings are read anew
+    with ALLOW_RANDOM_WEIGHTS off and the four ``*_MODEL_CHECKPOINT`` settings
+    naming those directories, so that every stage builds its predictor from
+    a checkpoint, with no cap on the tokens a line; each stage module's
+    load_hf_dataset returns the in-memory rows of ``stage_datasets``. Random
+    weights cannot pass the gates: the command must exit non-zero with
+    "gates failed", every gate "below threshold" or "pass" (never "error" or
+    a structure error), and the six result files must carry the JAX stages'
+    keys. The launches are counted around each stage: K1, K2 and K3 in
+    recognition and texify, K3q in neither, no kernel in the other four.
+    The settings, the stage modules and the directory are restored after."""
+    from surya_tpu_torch.scripts import validate_checkpoints
+
+    t_phase = time.perf_counter()
+    settings.RECOGNITION_WEIGHT_QUANTIZE = settings.RECOGNITION_MODEL_QUANTIZE = False
+    set_pin(False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    root = Path(tempfile.mkdtemp(prefix="surya_validation_"))
+    modules = {gate: importlib.import_module(name) for name, _, gate, _ in validate_checkpoints.STAGES}
+    saved_modules = {gate: (mod.run, mod.load_hf_dataset) for gate, mod in modules.items()}
+    saved_settings = dict(vars(settings))
+    stages = {}
+
+    def counted(gate, run):
+        def run_counted(**kwargs):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                return run(**kwargs)
+            finally:
+                torch.cuda.synchronize()
+                stages[gate] = (time.perf_counter() - t0, read_counts())
+        return run_counted
+
+    try:
+        t0 = time.perf_counter()
+        checkpoints = {}
+        for kind, src, setting in [("detection", det, "DETECTOR_MODEL_CHECKPOINT"),
+                                   ("recognition", pred, "RECOGNITION_MODEL_CHECKPOINT"),
+                                   ("layout", lay, "LAYOUT_MODEL_CHECKPOINT"),
+                                   ("table_rec", tab, "TABLE_REC_MODEL_CHECKPOINT")]:
+            write_checkpoint(root / kind, kind, src.model, src.config, gen)
+            checkpoints[setting] = str(root / kind)
+        print(f"    {len(checkpoints)} checkpoints written in {time.perf_counter() - t0:.1f} s")
+        vars(settings).update(vars(Settings({**load_dotenv(), **os.environ, "ALLOW_RANDOM_WEIGHTS": "false",
+                                             **checkpoints})))
+        if settings.ALLOW_RANDOM_WEIGHTS or settings.RECOGNITION_MAX_TOKENS:
+            raise AssertionError("phase 27a must run without random weights and without a token cap")
+        datasets = stage_datasets(VALIDATION_ROWS)
+        for gate, mod in modules.items():
+            mod.load_hf_dataset = dataset_loader(gate, datasets[gate])
+            mod.run = counted(gate, mod.run)
+        results = root / "results"
+        try:
+            validate_checkpoints.main(["--results_dir", str(results), "--max_rows", str(VALIDATION_ROWS)])
+            exit_message = None
+        except SystemExit as e:
+            exit_message = e.code
+        summary = json.loads((results / "validation_summary.json").read_text())
+        for gate, status in summary.items():
+            wall, counts = stages.get(gate, (None, None))
+            launched = {k: v for k, v in (counts or {}).items() if k in COUNTERS and v}
+            print(f"    {gate}: {status['status']}, stage wall {wall:.2f} s, launches {launched} [{power}]")
+        if list(summary) != list(DATASET_SETTINGS) or any(
+                s["status"] not in ("below threshold", "pass") for s in summary.values()):
+            raise AssertionError(f"the gated run's summary: {json.dumps(summary)}")
+        if not (isinstance(exit_message, str) and exit_message.startswith("gates failed")):
+            raise AssertionError(f"the gated run on random weights exited with {exit_message!r}, not gates failed")
+        print(f"    the command exited: {exit_message}")
+        for _, result_file, gate, _ in validate_checkpoints.STAGES:
+            check_result_keys(gate, json.loads((results / result_file).read_text()))
+        for gate, (_, counts) in stages.items():
+            label = f"validation stage {gate}"
+            counts = {k: v for k, v in counts.items() if k in COUNTERS}
+            if gate in DECODING_GATES:
+                assert_launched(label, counts, RECOGNITION_KERNELS, [k for k in COUNTERS if k not in
+                                                                     RECOGNITION_KERNELS])
+            else:
+                assert_launched(label, counts, [], list(COUNTERS))
+        print(f"    phase 27a took {time.perf_counter() - t_phase:.1f} s [{power}]")
+        return stages
+    finally:
+        for gate, mod in modules.items():
+            mod.run, mod.load_hf_dataset = saved_modules[gate]
+        vars(settings).clear()
+        vars(settings).update(saved_settings)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_validation_smoke(power):
+    """Phase 27b: ``python -m surya_tpu_torch.scripts.validate_checkpoints
+    --smoke --max_rows 2`` as a process of its own, with the smoke's
+    environment (random weights, the checkpoint settings naming a path that
+    does not exist), at full width: exit 0 with "smoke run complete",
+    detection, recognition and table recognition "below threshold" or
+    "pass", layout, ordering and texify "skipped"."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([sys.executable, "-m", "surya_tpu_torch.scripts.validate_checkpoints", "--smoke",
+                               "--max_rows", str(VALIDATION_ROWS), "--results_dir", tmp],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), env=dict(os.environ),
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode or "smoke run complete" not in proc.stdout:
+            raise AssertionError(f"validate_checkpoints --smoke exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        summary = json.loads((Path(tmp) / "validation_summary.json").read_text())
+    statuses = {g: s["status"] for g, s in summary.items()}
+    want = {"detection": ("below threshold", "pass"), "recognition": ("below threshold", "pass"),
+            "layout": ("skipped",), "ordering": ("skipped",), "table_recognition": ("below threshold", "pass"),
+            "texify": ("skipped",)}
+    if list(statuses) != list(want) or any(statuses[g] not in ok for g, ok in want.items()):
+        raise AssertionError(f"validate_checkpoints --smoke: {statuses}")
+    for gate, s in summary.items():
+        print(f"    {gate}: {s['status']}" + (f", {s['seconds']} s" if "seconds" in s else ""))
+    print(f"    python -m surya_tpu_torch.scripts.validate_checkpoints --smoke --max_rows {VALIDATION_ROWS} "
+          f"(a process of its own, full width, random weights): exit 0, smoke run complete; wall {wall:.1f} s "
+          f"with the start and the models' builds [{power}]")
+
+
 def assert_launched(label, run_counts, launched, not_launched=()):
     print(f"    {label}: {run_counts}")
     for n in launched:
@@ -3214,6 +3454,13 @@ def main():
           f"font_size=22), {PIN_TOKENS} pinned tokens a line, a {PIN_TOKENS}-step decode chunk, bf16 cache, "
           f"new predictors at full width; the best of {BENCH_TRIALS} trials")
     bench_counts, bench_held = check_bench_workload(gen, power)
+    print(f"[27] the checkpoint-validation command (surya_tpu_torch.scripts.validate_checkpoints): (a) all six "
+          f"gates on checkpoints written from the models above, {VALIDATION_ROWS} in-memory rows a stage, random "
+          f"weights off; (b) --smoke as a process of its own")
+    t27 = time.perf_counter()
+    check_validation_gated(pred, det, lay, tab, power)
+    check_validation_smoke(power)
+    print(f"    phase 27 took {time.perf_counter() - t27:.1f} s [{power}]")
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and

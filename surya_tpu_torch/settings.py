@@ -133,6 +133,7 @@ class Settings:
         )
         self.DETECTOR_MIN_PARALLEL_THRESH = int(env.get("DETECTOR_MIN_PARALLEL_THRESH", "3") or 3)
         self.DETECTOR_BOX_Y_EXPAND_MARGIN = _float(env, "DETECTOR_BOX_Y_EXPAND_MARGIN", 0.05)
+        self.DETECTOR_BENCH_DATASET_NAME = env.get("DETECTOR_BENCH_DATASET_NAME") or "vikp/doclaynet_bench"
         # the C++ CRAFT host op (native/craft_ops.cpp); off: the OpenCV path
         self.USE_NATIVE_POSTPROCESS = _bool(env, "USE_NATIVE_POSTPROCESS", True)
         # None = auto, on for CUDA: the double-LANCZOS chunk resize on the
@@ -171,14 +172,17 @@ class Settings:
         # stream(): finished pages held for a slow consumer before the feeder
         # stops taking new pages (None = 4 x the page group)
         self.RECOGNITION_STREAM_BUFFER_PAGES = _opt_int(env, "RECOGNITION_STREAM_BUFFER_PAGES")
+        self.RECOGNITION_BENCH_DATASET_NAME = env.get("RECOGNITION_BENCH_DATASET_NAME") or "vikp/rec_bench"
         # layout and table recognition (defaults of surya_tpu/settings.py;
-        # the image-size and dataset fields wait for a benchmark, since
-        # nothing in the port reads them yet)
+        # the image-size fields are left out, since nothing in the port
+        # reads them)
         # pages above these sides are cut into tiles of about these sides
         self.LAYOUT_SLICE_MIN = _json_dict(env, "LAYOUT_SLICE_MIN", {"height": 1500, "width": 1500})
         self.LAYOUT_SLICE_SIZE = _json_dict(env, "LAYOUT_SLICE_SIZE", {"height": 1200, "width": 1200})
         self.LAYOUT_BATCH_SIZE = _opt_int(env, "LAYOUT_BATCH_SIZE")
         self.LAYOUT_MAX_BOXES = int(env.get("LAYOUT_MAX_BOXES", "") or 100)
+        self.LAYOUT_BENCH_DATASET_NAME = env.get("LAYOUT_BENCH_DATASET_NAME") or "vikp/publaynet_bench"
+        self.ORDER_BENCH_DATASET_NAME = env.get("ORDER_BENCH_DATASET_NAME") or "vikp/order_bench"
         # tiles per layout dispatch (None = auto: 8 on CUDA, the whole batch
         # on the CPU), so that a multi-page call keeps one dispatch in flight
         self.LAYOUT_PIPELINE_BATCH = _opt_int(env, "LAYOUT_PIPELINE_BATCH")
@@ -186,6 +190,11 @@ class Settings:
         self.TABLE_REC_BATCH_SIZE = _opt_int(env, "TABLE_REC_BATCH_SIZE")
         # widest batch of the cell pass (pass 2): its batch doubles up to this
         self.TABLE_REC_CELL_BATCH_MAX = int(env.get("TABLE_REC_CELL_BATCH_MAX", "") or 128)
+        self.TABLE_REC_BENCH_DATASET_NAME = (env.get("TABLE_REC_BENCH_DATASET_NAME")
+                                             or "datalab-to/fintabnet_bench")
+        # the accuracy stages' Hugging Face datasets (benchmark/, the
+        # checkpoint-validation command)
+        self.TEXIFY_BENCHMARK_DATASET = env.get("TEXIFY_BENCHMARK_DATASET") or "datalab-to/texify_bench"
         # OCR error detection
         self.OCR_ERROR_BATCH_SIZE = _opt_int(env, "OCR_ERROR_BATCH_SIZE")
         # the mesh (parallel/mesh.py): with USE_MESH on and more than one

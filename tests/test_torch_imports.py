@@ -164,3 +164,63 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+VALIDATE_SCRIPT = textwrap.dedent(
+    """
+    import importlib, json, pathlib, pkgutil, sys, tempfile
+    BLOCKED = ("jax", "surya_tpu", "benchmark", "click", "rapidfuzz", "tabulate", "datasets")
+    for name in BLOCKED:
+        sys.modules[name] = None  # any import of it now raises ImportError
+
+    import torch
+    torch.set_num_threads(1)
+    import surya_tpu_torch
+    # every module of the port imports with all of them blocked
+    for info in pkgutil.walk_packages(surya_tpu_torch.__path__, "surya_tpu_torch."):
+        importlib.import_module(info.name)
+
+    import surya_tpu_torch.benchmark.detection as detection
+    import surya_tpu_torch.benchmark.recognition as recognition
+    import surya_tpu_torch.benchmark.table_recognition as table_recognition
+    from surya_tpu_torch.benchmark.utils.data import load_hf_dataset
+    from surya_tpu_torch.detection import DetectionPredictor
+    from surya_tpu_torch.recognition import RecognitionPredictor
+    from surya_tpu_torch.scripts.validate_checkpoints import main
+    from surya_tpu_torch.table_rec import TableRecPredictor
+
+    detection.DetectionPredictor = lambda *a, **k: DetectionPredictor(None, True)
+    recognition.RecognitionPredictor = lambda *a, **k: RecognitionPredictor(None, True)
+    table_recognition.TableRecPredictor = lambda *a, **k: TableRecPredictor(None, True)
+    with tempfile.TemporaryDirectory() as tmp:
+        main(["--smoke", "--max_rows", "1", "--results_dir", tmp])
+        summary = json.loads((pathlib.Path(tmp) / "validation_summary.json").read_text())
+    assert [g for g, s in summary.items() if s["status"] in ("pass", "below threshold")] == [
+        "detection", "recognition", "table_recognition"], summary
+    try:  # the datasets package is imported at the call, and only there
+        load_hf_dataset("vikp/rec_bench", 1)
+        raise AssertionError("load_hf_dataset ran without the datasets package")
+    except ImportError:
+        pass
+    for name in BLOCKED:
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] == name)
+        assert loaded == [name], loaded  # only the blocking sentinel
+    print("OK")
+    """
+)
+
+
+def test_validation_command_runs_without_jax_or_the_benchmark_dependencies():
+    """The port's validate_checkpoints --smoke at tiny width in a subprocess
+    where jax, the JAX package, the repo's benchmark/, click, rapidfuzz,
+    tabulate and datasets cannot be imported; every module of the port
+    imports there, and none of those is loaded afterwards."""
+    env = dict(os.environ, ALLOW_RANDOM_WEIGHTS="true", TORCH_DEVICE="cpu", RECOGNITION_MAX_TOKENS="8",
+               DISABLE_TQDM="true")
+    for name in ("DETECTOR", "RECOGNITION", "LAYOUT", "TABLE_REC", "OCR_ERROR"):
+        env[f"{name}_MODEL_CHECKPOINT"] = os.devnull  # no default s3:// checkpoint is fetched
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", VALIDATE_SCRIPT], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("smoke run complete\nOK")
