@@ -24,8 +24,9 @@ where one PyTorch call computes the same function, that call. Then:
   through the int8 cache three ways, as above;
 - holds K3 and K3q against their plain versions at the shape the pinned
   runs gave them (K3: given lines, K3q: whole page; the first decode call's
-  lengths, cache rows S and chunk columns K, recorded by a stand-in for the
-  decoder's `decode_attn` in this script), at steps 0, K/2 - 1 and K - 1;
+  lengths, cache rows S and chunk columns K, recorded by a stand-in for
+  ``FoundationModel.launch_chunk`` in this script), at steps 0, K/2 - 1 and
+  K - 1;
 - runs detection of 16 such pages with the device resize and the component
   stats on the card (their auto setting) and holds the boxes against the
   host path's (PIL, maps, the C++ CRAFT op) by the IoU rule of
@@ -45,8 +46,8 @@ where one PyTorch call computes the same function, that call. Then:
   768x768, depths (2, 2, 16, 2); ADETR 8 layers, 1024 wide) with random bf16
   weights over 16 pages of bench.py's shape (1240x1754, two tiles each), as
   called and cap-bound (no class taken for EOS or PAD, so every row decodes
-  its 100 steps), printing each dispatch's AR steps and host syncs and the
-  host enqueue time against the wall; and ``TableRecPredictor`` at full
+  its 100 steps), printing each dispatch's AR steps and the host enqueue
+  time against the wall; and ``TableRecPredictor`` at full
   width with ``install_synthetic_tables`` (14 rows x 8 columns) over 4 crops
   of 768x768, whose rows, columns and recorded steps must be the script's.
   Neither path runs a hand-written kernel (the JAX package runs no Pallas
@@ -55,8 +56,8 @@ where one PyTorch call computes the same function, that call. Then:
   encoder outputs within relative error 1e-3;
 - runs two ``RecognitionPredictor``s, each on its own stream, in two
   threads on the same given-lines pages: the token ids must equal those of
-  the same two calls one after the other, and the decode kernel's merge
-  counts must be a buffer per stream; and K3 on two streams in turn at a
+  the same two calls one after the other, and each predictor's decode
+  graphs must hold merge-count buffers of their own; and K3 on two streams in turn at a
   4096-row cache, so that calls of both run at once, each within tolerance
   of its plain version;
 - drives ``RecognitionPredictor`` with int8 decoder weights
@@ -110,7 +111,7 @@ where one PyTorch call computes the same function, that call. Then:
   and driven by layout) on 2 PNG pages of bench.py's shape, twice each:
   every answer's result equals the same predictor's direct call, the ocr
   requests launch K1, K2 and K3 (no K3q) and the others launch none, and
-  K3's merge counts in the handler threads are recognition's stream's;
+  the handler threads' decode-chunk replays run on recognition's stream;
   ``GET /``, ``/healthz``, an unknown action (404) and ``ocr_error`` on an
   image (400); four ocr requests at once each answered with the sequential
   result; ten warm ocr requests with the same ``memory_allocated`` after
@@ -135,10 +136,12 @@ where one PyTorch call computes the same function, that call. Then:
   count and decode exactly 40 tokens a line. One line, ``BENCH_WORKLOAD
   {...}``, gives the best trial's pages/s, the three walls, boxes and
   tokens a page, its ``common/profiling`` stage split, its launches and the
-  card; then K1, K2 and K3 are held against their plain versions at the
-  shapes of the last warm-up's first wave and first decode call, and the
-  kernels line carries those times and the best trial's launches under
-  ``bench_workload``.
+  card, one more trial's device busy share under ``torch.profiler``, and
+  the same for 3 trials with the decode chunk's eager loop put in place of
+  its CUDA graphs (``eager_loop``); then K1, K2 and K3 are held against
+  their plain versions at the shapes of the last warm-up's first wave and
+  first decode call, and the kernels line carries those times and the best
+  graphed trial's launches under ``bench_workload``.
 - (phase 27) the checkpoint-validation command,
   ``surya_tpu_torch.scripts.validate_checkpoints``, and its six accuracy
   stages (``surya_tpu_torch/benchmark``): (a) ``main()`` over all six
@@ -154,6 +157,20 @@ where one PyTorch call computes the same function, that call. Then:
   a process of its own: exit 0, "smoke run complete", detection,
   recognition and table recognition "below threshold" or "pass", the other
   three "skipped".
+- (phase 28) the AR loops as the predictors run them on the card, a CUDA
+  graph replay whose steps sit in IF nodes (``common/graphs.py``), against
+  their eager loop (the same step function, the cond read on the host) on
+  the same inputs: recognition's decode chunk at production width from a
+  random cache of 129 slots (bf16 cache pinned and free-running, a wave
+  whose every slot stops at its first step, the int8 cache, int8 weights),
+  twice each; layout of the 16 pages as called and cap-bound; table rec of
+  the synthetic tables. Token ids, classes, valid flags, cache lengths and
+  the steps run must be equal; score and box differences, the cache's
+  bytes, each graph's capture time and memory pool are printed. Then whole
+  recognition calls whose cache lengths alternate (three lengths in turn,
+  then a longer one, then all four in turn) from an empty slot-cache store:
+  each length captured once while the store is long enough, the longer one
+  replacing the store and its graphs once (7 captures in all).
 
 The random-weight phases point the five ``*_MODEL_CHECKPOINT`` settings at
 a path that does not exist, so that no predictor resolves or fetches a
@@ -245,7 +262,6 @@ from surya_tpu_torch.layout.slicer import ImageSlicer  # noqa: E402
 from surya_tpu_torch.models import qwen_decoder, qwen_encoder  # noqa: E402
 from surya_tpu_torch.models.foundation import prefill_routes  # noqa: E402
 from surya_tpu_torch.parallel.mesh import Sharded, make_mesh, split_range  # noqa: E402
-from surya_tpu_torch.models.adetr import DoneWatch  # noqa: E402
 from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
 from surya_tpu_torch.models.qwen_encoder import EncoderConfig, plan_layout  # noqa: E402
 from surya_tpu_torch.ops import _build, decode_attn, flash  # noqa: E402
@@ -257,7 +273,7 @@ from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_table
 from surya_tpu_torch.models.distilbert import DistilBert  # noqa: E402
 from surya_tpu_torch.models.foundation import FoundationModel  # noqa: E402
 from surya_tpu_torch import nn as pnn  # noqa: E402
-from surya_tpu_torch.common import profiling  # noqa: E402
+from surya_tpu_torch.common import graphs, profiling  # noqa: E402
 from surya_tpu_torch.common.checkpoint import cache_path  # noqa: E402
 from surya_tpu_torch.common.weights import fold_batchnorm  # noqa: E402
 from surya_tpu_torch.nn import QuantLinear  # noqa: E402
@@ -266,6 +282,7 @@ from surya_tpu_torch.recognition.tokenizer import DEFAULT_SPECIAL_TOKENS  # noqa
 from surya_tpu_torch.ocr_error import OCRErrorPredictor  # noqa: E402
 from surya_tpu_torch.ocr_error import random_model as ocr_error_random_model  # noqa: E402
 from surya_tpu_torch.recognition.loader import random_model  # noqa: E402
+from surya_tpu_torch.recognition.util import REPEAT_WINDOW  # noqa: E402
 from surya_tpu_torch.scripts import (  # noqa: E402
     detect_layout, detect_text, ocr_latex, ocr_text, streamlit_app, table_recognition, texify_app, web_app,
 )
@@ -761,28 +778,32 @@ def check_decode(results, gen):
 
 
 class DecodeShapes:
-    """For one predictor run, the decoder's `decode_attn` becomes a stand-in
-    (in this script only) whose `gqa_decode` keeps, for each decode kernel,
-    the first call's lengths (a device copy: no sync) and its cache and
-    chunk shapes, then calls the wrapper."""
+    """For one predictor run, FoundationModel.launch_chunk becomes a
+    stand-in (in this script only) that keeps, for each decode kernel, the
+    shapes of its first call in the run: the first chunk's cache lengths (a
+    device copy: no sync), which its first step gives K3 or K3q, and the
+    cache and chunk shapes; then it launches the chunk (a graph replay, whose
+    kernels Python does not see)."""
 
     def __init__(self):
         self.first = {}
 
     def __enter__(self):
-        def record(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale=None, v_scale=None):
-            kernel = "gqa_decode" if k_scale is None else "gqa_decode_int8"
-            if kernel not in self.first:
-                self.first[kernel] = dict(lengths=lengths.clone(), cache=tuple(k_cache.shape),
-                                          chunk=tuple(chunk_k.shape))
-            return decode_attn.gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
+        launch = FoundationModel.launch_chunk
 
-        qwen_decoder.decode_attn = types.SimpleNamespace(
-            gqa_decode=record, gqa_decode_reference=decode_attn.gqa_decode_reference)
+        def record(model, cache, last_token, active, num_steps, *args):
+            kernel = "gqa_decode_int8" if "k_scale" in cache else "gqa_decode"
+            if kernel not in self.first:
+                k = cache["k"]
+                self.first[kernel] = dict(lengths=cache["len"].clone(), cache=tuple(k.shape),
+                                          chunk=(*k.shape[:3], num_steps, k.shape[4]))
+            return launch(model, cache, last_token, active, num_steps, *args)
+
+        self.launch, FoundationModel.launch_chunk = launch, record
         return self
 
     def __exit__(self, *exc):
-        qwen_decoder.decode_attn = decode_attn
+        FoundationModel.launch_chunk = self.launch
 
 
 class MainPathShapes(DecodeShapes):
@@ -1311,7 +1332,7 @@ def run_layout(lay, pages, label, power):
             if b.label not in ID_TO_LABEL.values() or not np.isfinite(np.asarray(b.polygon)).all():
                 raise AssertionError(f"bad layout box {b.label} {b.polygon}")
     print(f"    {label}: {n} pages, {sum(run['tiles'])} tiles in {len(run['tiles'])} dispatches of {run['tiles']} "
-          f"tiles; AR steps run {run['steps']}, host syncs {run['host_syncs']} (per dispatch); "
+          f"tiles; AR steps run {run['steps']} (per dispatch); "
           f"{sum(len(r.bboxes) for r in results)} boxes after joining")
     print(f"    {label}: wall {wall:.4f} s, {wall / n:.4f} s/page; host enqueue of the dispatches "
           f"{run['enqueue_s']:.4f} s of the wall [{power}]")
@@ -1338,10 +1359,11 @@ def check_layout(pages, power):
           f"{c.decoder.num_attention_heads}/{c.decoder.num_key_value_heads} heads, double residual "
           f"{c.decoder.double_residual_flow}; max_boxes {c.max_boxes}; {lay.dtype} [{power}]")
     capped = dataclasses.replace(c, eos_token_id=-1, pad_token_id=-1)
-    lay(pages[:2])  # warm-up (cuBLAS, cuDNN, allocator)
+    lay(pages)  # warm-up (cuBLAS, cuDNN, allocator, the box loop's graphs)
     run_layout(lay, pages, "as called", power)
     lay.model.config = capped
     try:
+        lay(pages)  # the cap-bound loop's graphs
         run_layout(lay, pages, f"cap-bound ({c.max_boxes} steps)", power)
     finally:
         lay.model.config = c
@@ -1382,7 +1404,7 @@ def check_table_rec(pages, power):
           f"{c.decoder.double_residual_flow}; max_boxes {c.max_boxes}; {tab.dtype} [{power}]")
     install_synthetic_tables(tab, TABLE_ROWS, TABLE_COLS, TABLE_CELLS)
     crops = [p.crop((100, 100, 868, 868)) for p in pages[:TABLE_CROPS]]
-    tab(crops[:1])  # warm-up
+    tab(crops)  # warm-up (the box loops' graphs)
     reset_counts()
     results, wall = synchronised(tab, crops)
     launches = read_counts()
@@ -1402,7 +1424,7 @@ def check_table_rec(pages, power):
     print(f"    {n} tables: rows {[len(r.rows) for r in results]}, columns {[len(r.cols) for r in results]}, cells "
           f"{[len(r.cells) for r in results]} (unmerged {[len(r.unmerged_cells) for r in results]}); recorded "
           f"steps {got[0]} rows and columns, {got[1]} cell candidates, as the script gives")
-    print(f"    passes: {[(p['rows'], p['steps'], p['host_syncs']) for p in passes]} (rows, AR steps, host syncs); "
+    print(f"    passes: {[(p['rows'], p['steps']) for p in passes]} (rows, AR steps); "
           f"cell pass batch {run['cell_batch']}")
     print(f"    wall {wall:.4f} s, {wall / n:.4f} s/table; host enqueue of the passes "
           f"{sum(p['enqueue_s'] for p in passes):.4f} s of the wall [{power}]")
@@ -1433,7 +1455,7 @@ def check_two_predictors(pred, pages, bboxes, power):
     """Two RecognitionPredictors (each on its own stream, the same weights,
     the same pages and slot count) decoding at once in two threads give the
     token ids of the same two calls one after the other, and the decode
-    kernel's merge counts are two buffers, one per stream."""
+    kernel's merge counts are buffers of each predictor's own decode graphs."""
     set_pin(True)
     settings.RECOGNITION_MODEL_QUANTIZE = False
     pred2 = RecognitionPredictor(device="cuda")
@@ -1460,18 +1482,16 @@ def check_two_predictors(pred, pages, bboxes, power):
     if errors:
         raise errors[0]
     launches = read_counts()
-    n_slots = {key[2] for key in decode_attn._COUNTS}
-    buffers = {key[1]: buf.data_ptr() for key, buf in decode_attn._COUNTS.items()
-               if key[1] in (pred._stream.cuda_stream, pred2._stream.cuda_stream)}
+    buffers = [{buf.data_ptr() for cap in p.loops.loops.values() for buf in cap.scratch.values()} for p in (pred, pred2)]
     same = [a == b for a, b in zip(out, seq)]
     print(f"    two predictors in two threads: {sum(map(len, out))} lines, wall {wall:.4f} s (one after the other "
           f"{seq_wall:.4f} s); token ids equal to the sequential calls' for each: {same}; K3 launches "
-          f"{launches['gqa_decode']}; merge-count buffers by stream {len(buffers)} ({len(set(buffers.values()))} "
-          f"distinct, slot x kv-head sizes {sorted(n_slots)}) [{power}]")
+          f"{launches['gqa_decode']}; merge-count buffers of each one's decode graphs {[len(b) for b in buffers]}, "
+          f"shared {len(buffers[0] & buffers[1])} [{power}]")
     if not all(same) or len(out[0]) != len(pages) * LINES_PER_PAGE:
         raise AssertionError("two predictors decoding at once gave other token ids than one after the other")
-    if len(buffers) != 2 or len(set(buffers.values())) != 2:
-        raise AssertionError(f"the two predictors' streams do not have a merge-count buffer each: {buffers}")
+    if not all(buffers) or buffers[0] & buffers[1]:
+        raise AssertionError("the two predictors' decode graphs do not have merge-count buffers of their own")
     if launches["gqa_decode"] <= 0:
         raise AssertionError("the threaded run launched no K3")
 
@@ -2046,7 +2066,7 @@ def check_checkpoints(pred, det, lay, tab, oe, power):
         try:
             boxes, boxes_ck = (p([q.copy() for q in pages[:2]]) for p in (lay, llay))
             with torch.inference_mode():  # the box loop's raw outputs: boxes, class logits, valid flags
-                steps, steps_ck = (p._generate(tile_pixels, DoneWatch(p.device)) for p in (lay, llay))
+                steps, steps_ck = (p._generate(tile_pixels)[0] for p in (lay, llay))
         finally:
             lay.model.config, llay.model.config = lay.config, llay.config
         if [r.model_dump() for r in boxes] != [r.model_dump() for r in boxes_ck] or not torch.equal(steps, steps_ck):
@@ -2469,9 +2489,8 @@ def check_mesh_batch_predictors(det, pages, power, devices=None):
             [pg.convert("RGB") for pg in lay_pages])
         px = np.stack([lays[0].prepare_image(t) for t in tiles])
         with torch.inference_mode():
-            raw = [lays[0]._generate(lays[0]._upload(px), DoneWatch(lays[0].device)).cpu(),
-                   lays[1].data_parallel(lambda model, x: lays[1]._generate(x, DoneWatch(x.device), model),
-                                         lays[1]._upload(px)).cpu()]
+            raw = [lays[0]._generate(lays[0]._upload(px))[0].cpu(),
+                   lays[1].data_parallel(lambda model, x: lays[1]._generate(x, model)[0], lays[1]._upload(px)).cpu()]
         crops = [pg.crop((100, 100, 868, 868)) for pg in lay_pages]
         tables = []
         for p in tabs:
@@ -2590,35 +2609,36 @@ def check_launches(label, counts, launched):
     return {k: v for k, v in counts.items() if v}
 
 
-class MergeCountStreams:
-    """Inside the block, each call of the decode kernel's merge-count lookup
-    records its thread and the stream it was made on (a stand-in for
-    decode_attn._merge_counts, in this script only)."""
+class ReplayStreams:
+    """Inside the block, each run of a store of captured loops records the
+    store, its thread and the current stream (a stand-in for
+    graphs.LoopGraphs.run, in this script only)."""
 
     def __enter__(self):
-        self.calls, original = [], decode_attn._merge_counts
+        self.calls, original = [], graphs.LoopGraphs.run
 
-        def record(dev, n):
-            self.calls.append((threading.get_ident(), torch.cuda.current_stream(dev).cuda_stream))
-            return original(dev, n)
+        def record(store, key, build, inputs):
+            self.calls.append((store, threading.get_ident(), torch.cuda.current_stream().cuda_stream))
+            return original(store, key, build, inputs)
 
-        self.original, decode_attn._merge_counts = original, record
+        self.original, graphs.LoopGraphs.run = original, record
         return self
 
     def __exit__(self, *exc):
-        decode_attn._merge_counts = self.original
+        graphs.LoopGraphs.run = self.original
 
-    def check(self, stream) -> str:
-        """Every lookup made on another thread than this one (a request
-        handler's) was on `stream`; returns a summary."""
+    def check(self, pred) -> str:
+        """Every replay of pred's decode graphs made on another thread than
+        this one (a request handler's) was on pred's stream; returns a
+        summary."""
         here = threading.get_ident()
-        handlers = {t for t, _ in self.calls if t != here}
-        streams = {s for t, s in self.calls if t != here}
-        if not handlers or streams != {stream.cuda_stream}:
-            raise AssertionError(f"the handler threads' decode calls ran on streams {streams}, not only on "
-                                 f"recognition's {stream.cuda_stream}")
-        return (f"{sum(t != here for t, _ in self.calls)} lookups from {len(handlers)} handler threads, all on "
-                f"recognition's stream {stream.cuda_stream}")
+        calls = [(t, s) for store, t, s in self.calls if store is pred.loops and t != here]
+        handlers, streams = {t for t, _ in calls}, {s for _, s in calls}
+        if not handlers or streams != {pred._stream.cuda_stream}:
+            raise AssertionError(f"the handler threads' decode chunks ran on streams {streams}, not only on "
+                                 f"recognition's {pred._stream.cuda_stream}")
+        return (f"{len(calls)} decode-chunk replays from {len(handlers)} handler threads, all on recognition's "
+                f"stream {pred._stream.cuda_stream}")
 
 
 class GradOutputs:
@@ -2697,7 +2717,7 @@ def check_web_in_process(preds, pages, power):
 
         # (a) every action on every page: the answer against the direct call
         answers = {}
-        with MergeCountStreams() as merges:
+        with ReplayStreams() as replays:
             for label, (action, extra, launched) in WEB_ACTIONS.items():
                 walls, direct_walls, first_launches = [], [], None
                 for i, image in enumerate(pages):
@@ -2726,7 +2746,7 @@ def check_web_in_process(preds, pages, power):
                       f"the direct call; first request {walls[0]:.4f} s, warm median {warm:.4f} s over "
                       f"{len(walls) - 1}, the direct call {direct:.4f} s, difference (HTTP, decode, drawing, PNG) "
                       f"{warm - direct:.4f} s; launches {first_launches} [{power}]")
-        print(f"    K3's merge counts in the requests: {merges.check(preds['recognition']._stream)}")
+        print(f"    the decode graphs in the requests: {replays.check(preds['recognition'])}")
         ocr_host_work(preds, pages[0], power)
 
         # (b) concurrent requests: the sequential answer each
@@ -2983,11 +3003,14 @@ def check_bench_workload(gen, power):
     warm-ups det(pages), rec(pages, polygons=...) and rec(pages,
     det_predictor=det), the last with the kernels' first shapes recorded;
     then the best of 3 timed rec(pages, det_predictor=det) calls, each with
-    the counts at 0 just before and read just after. Every trial must launch
-    K1, K2 and K3 and never K3q, give every page the warm-up detection's
-    line count and decode exactly 40 tokens a line. K1, K2 and K3 are then
-    held against their plain versions at the recorded shapes. Returns
-    (the best trial's launch counts, the held cases' results)."""
+    the counts at 0 just before and read just after, and one more under
+    torch.profiler for the device's busy share; then the same with the
+    decode chunk's eager loop put in place of its graphs (graphs.EagerLoops).
+    Every trial must launch K1, K2 and K3 and never K3q, give every page the
+    warm-up detection's line count and decode exactly 40 tokens a line. K1,
+    K2 and K3 are then held against their plain versions at the recorded
+    shapes. Returns (the best graphed trial's launch counts, the held cases'
+    results)."""
     saved = dict(vars(settings))
     vars(settings).update(vars(Settings({**load_dotenv(), **os.environ, **BENCH_ENV})))
     try:
@@ -3019,32 +3042,54 @@ def check_bench_workload(gen, power):
         print(f"    warm-ups (det, rec with polygons, rec with det_predictor) {time.perf_counter() - t0:.1f} s; "
               f"{sum(boxes) / len(boxes):.1f} boxes a page {boxes}")
 
-        trials = []
-        for i in range(BENCH_TRIALS):
-            reset_counts()
-            profiling.report(reset=True)
-            t0 = time.perf_counter()
-            results = rec(pages, det_predictor=det)
-            wall = time.perf_counter() - t0
-            prof, counts, tokens = profiling.report(reset=True), read_counts(), rec.last_decoded_tokens
-            n_l = check_lines(results, pages, boxes)  # the warm-up detection's count on every page
-            print(f"    trial {i}: {wall:.4f} s, {BENCH_PAGES / wall:.4f} pages/s, {n_l} lines, {tokens} "
-                  f"tokens [{power}]")
-            if tokens != PIN_TOKENS * n_l:
-                raise AssertionError(f"trial {i}: {tokens} tokens for {n_l} lines, want {PIN_TOKENS} a line")
-            assert_launched(f"bench.py's workload, trial {i}", counts,
-                            ["segmented_block_attention", "causal_flash_attention", "gqa_decode"], ["gqa_decode_int8"])
-            trials.append((wall, prof, counts, tokens))
-        wall, prof, counts, tokens = min(trials, key=lambda t: t[0])
+        def trials(label):
+            out = []
+            for i in range(BENCH_TRIALS):
+                reset_counts()
+                profiling.report(reset=True)
+                t0 = time.perf_counter()
+                results = rec(pages, det_predictor=det)
+                wall = time.perf_counter() - t0
+                prof, counts, tokens = profiling.report(reset=True), read_counts(), rec.last_decoded_tokens
+                n_l = check_lines(results, pages, boxes)  # the warm-up detection's count on every page
+                print(f"    {label} trial {i}: {wall:.4f} s, {BENCH_PAGES / wall:.4f} pages/s, {n_l} lines, {tokens} "
+                      f"tokens, K3 launches {counts['gqa_decode']} [{power}]")
+                if tokens != PIN_TOKENS * n_l:
+                    raise AssertionError(f"trial {i}: {tokens} tokens for {n_l} lines, want {PIN_TOKENS} a line")
+                assert_launched(f"bench.py's workload, {label} trial {i}", counts,
+                                ["segmented_block_attention", "causal_flash_attention", "gqa_decode"],
+                                ["gqa_decode_int8"])
+                out.append((wall, prof, counts, tokens))
+            return out
+
+        def summarise(runs) -> dict:
+            wall, prof, counts, tokens = min(runs, key=lambda t: t[0])
+            return {"pages_per_s": BENCH_PAGES / wall, "trial_walls_s": [t[0] for t in runs],
+                    "decoded_tokens_per_page": tokens / BENCH_PAGES,
+                    "stages": {k: {"total_s": v["total_s"], "calls": v["calls"]} for k, v in sorted(prof.items())},
+                    "launches": {n: counts[n] for n in ("segmented_block_attention", "causal_flash_attention",
+                                                        "gqa_decode", "gqa_decode_int8")},
+                    "k1_launches_by_kv_range": counts[K1_BY_RANGE]}
+
+        graphed = trials("graphed loops")
+        traced_graphed = busy_share(lambda: rec(pages, det_predictor=det))
+        # the same trials with the decode chunk's plain version put back
+        # (the eager loop, its cond read on the host after each step)
+        store, rec.loops = rec.loops, graphs.EagerLoops()
+        try:
+            eager = trials("eager loop")
+            traced_eager = busy_share(lambda: rec(pages, det_predictor=det))
+        finally:
+            rec.loops = store
         summary = {
-            "pages_per_s": BENCH_PAGES / wall, "trial_walls_s": [t[0] for t in trials],
-            "boxes_per_page": sum(boxes) / len(boxes), "decoded_tokens_per_page": tokens / BENCH_PAGES,
-            "pinned_tokens_per_line": PIN_TOKENS, "decode_chunk": rec.decode_chunk,
-            "stages": {k: {"total_s": v["total_s"], "calls": v["calls"]} for k, v in sorted(prof.items())},
-            "launches": {n: counts[n] for n in ("segmented_block_attention", "causal_flash_attention",
-                                                "gqa_decode", "gqa_decode_int8")},
-            "k1_launches_by_kv_range": counts[K1_BY_RANGE], "card": power,
+            **summarise(graphed), "boxes_per_page": sum(boxes) / len(boxes), "pinned_tokens_per_line": PIN_TOKENS,
+            "decode_chunk": rec.decode_chunk,
+            "traced_trial": {"wall_s": traced_graphed[0], "device_busy_share": traced_graphed[1]},
+            "eager_loop": {**summarise(eager),
+                           "traced_trial": {"wall_s": traced_eager[0], "device_busy_share": traced_eager[1]}},
+            "decode_graphs": {str(k[2:5]): v for k, v in rec.loops.captures.items()}, "card": power,
         }
+        counts = min(graphed, key=lambda t: t[0])[2]
         print("BENCH_WORKLOAD " + json.dumps(summary))
 
         print("    K1, K2 and K3 against their plain versions at the shapes of the last warm-up's first wave and "
@@ -3057,6 +3102,248 @@ def check_bench_workload(gen, power):
         vars(settings).clear()
         vars(settings).update(saved)
     return counts, held
+
+
+# -- graphed loops against eager loops (phase 28) --------------------------------
+# Each AR loop once as the predictors run it on the card (a CUDA graph replay,
+# its steps in IF nodes) and once through graphs.EagerLoops, the plain version
+# (the same step function, the cond read on the host after each step), on the
+# same inputs. The recognition chunk at full width from a random cache of
+# GRAPH_SLOTS slots (the production 128 and the trash slot) of GRAPH_CACHE_LEN
+# rows, GRAPH_ACTIVE of them decoding, each case: (pinned, repeat window, int8
+# cache, int8 weights). A repeat window of 1 stops every slot at its first
+# step, so the graph's IF nodes skip the chunk's other steps.
+GRAPH_SLOTS, GRAPH_CACHE_LEN, GRAPH_ACTIVE = 129, 512, 100
+GRAPH_CASES = {
+    "bf16 cache, pinned": (True, 0, False, False),
+    "bf16 cache, free-running": (False, REPEAT_WINDOW, False, False),
+    "bf16 cache, free-running, every slot stops at step 0 (repeat window 1)": (False, 1, False, False),
+    "int8 cache (K3q), pinned": (True, 0, True, False),
+    "int8 weights, bf16 cache, pinned": (True, 0, False, True),
+}
+
+
+def random_slot_cache(model, gen, quantize: bool) -> dict:
+    dec = model.config.decoder
+    cache = qwen_decoder.init_cache(dec, GRAPH_SLOTS, GRAPH_CACHE_LEN, torch.bfloat16, "cuda", quantize=quantize)
+    for key in ("k", "v"):
+        x = torch.randn(cache[key].shape, generator=gen, device="cuda") * 0.5
+        if quantize:
+            cache[key], cache[f"{key}_scale"] = qwen_decoder.quantize_kv(x)
+        else:
+            cache[key].copy_(x)
+    cache["len"].copy_(torch.randint(64, GRAPH_CACHE_LEN - 2 * PIN_TOKENS, (GRAPH_SLOTS,), generator=gen,
+                                     device="cuda", dtype=torch.int32))
+    return cache
+
+
+def pool_mib(store) -> str:
+    return ", ".join(f"capture {c['capture_s']:.3f} s, pool {c['pool_bytes'] / 2**20:.1f} MiB"
+                     for c in store.captures.values())
+
+
+def check_graphed_chunks(pred, gen, power):
+    """Phase 28, recognition: FoundationModel.launch_chunk on a new
+    graphs.LoopGraphs and on graphs.EagerLoops, from two copies of one
+    random cache and slot state, twice each (the second replays the graph,
+    from the first call's slot state):
+    token ids, boxes, the slot state and the cache's bytes and lengths must
+    be equal, and the graph must run the eager loop's steps (fewer than K
+    where every slot stops early)."""
+    side = torch.cuda.Stream()
+    for label, (pin, window, quantize, int8_weights) in GRAPH_CASES.items():
+        model = pred.model
+        if int8_weights:
+            model = copy.deepcopy(pred.model)
+            qwen_decoder.quantize_weights(model.decoder)
+        cache_g = random_slot_cache(model, gen, quantize)
+        cache_e = {k: v.clone() for k, v in cache_g.items()}
+        active = torch.zeros(GRAPH_SLOTS, dtype=torch.bool, device="cuda")
+        active[torch.randperm(GRAPH_SLOTS - 1, generator=gen, device="cuda")[:GRAPH_ACTIVE]] = True
+        state = (torch.randint(4, model.config.vocab_size, (GRAPH_SLOTS,), generator=gen, device="cuda",
+                               dtype=torch.int32), active, torch.zeros(GRAPH_SLOTS, dtype=torch.int32, device="cuda"))
+        store = graphs.LoopGraphs()
+        rows = []
+        with torch.cuda.stream(side), torch.inference_mode():
+            for call in range(2):
+                reset_counts()
+                (out_g, ran_g), wall_g = synchronised(model.launch_chunk, cache_g, *state[:2], PIN_TOKENS, state[2],
+                                                      window, pin, store)
+                steps_g, k3 = ran_g.credit(), read_counts()
+                out_g = tuple(t.clone() for t in out_g)
+                (out_e, ran_e), wall_e = synchronised(model.launch_chunk, cache_e, *state[:2], PIN_TOKENS, state[2],
+                                                      window, pin, graphs.EagerLoops())
+                steps_e = ran_e.credit()
+                same = [torch.equal(a, b) for a, b in zip(out_g, out_e)]
+                kv_same = all(torch.equal(cache_g[k], cache_e[k]) for k in cache_g if k != "len")
+                len_same = torch.equal(cache_g["len"], cache_e["len"])
+                score_diff = (out_g[1] - out_e[1]).abs().max().item()
+                box_diff = (out_g[2] - out_e[2]).abs().max().item()
+                rows.append(f"call {call}: steps {steps_g} (eager {steps_e}), K3/K3q credited "
+                            f"{k3['gqa_decode']}/{k3['gqa_decode_int8']}, wall {wall_g:.4f} s (eager {wall_e:.4f} s), "
+                            f"token ids/state equal {same[0]}/{all(same[3:])}, scores and boxes max |diff| "
+                            f"{score_diff:.3e}/{box_diff}, cache bytes equal {kv_same}, len equal {len_same}")
+                if not (same[0] and all(same[3:]) and len_same and steps_g == steps_e):
+                    raise AssertionError(f"{label}: the graph's chunk differs from the eager loop's: {rows[-1]}")
+                if window == 1 and steps_g != (0 if call else 1):  # the second call starts with no slot active
+                    raise AssertionError(f"{label}: every slot stops at step 0, yet call {call} ran {steps_g} steps")
+                state = tuple(t.clone() for t in out_g[3:])
+        print(f"    {label}: {GRAPH_ACTIVE} of {GRAPH_SLOTS} slots, cache {GRAPH_CACHE_LEN} rows, chunk {PIN_TOKENS}; "
+              f"{pool_mib(store)} [{power}]")
+        for row in rows:
+            print(f"      {row}")
+        del store, cache_g, cache_e, model
+        torch.cuda.empty_cache()
+
+
+# whole calls whose cache lengths alternate, as a server's requests do: a
+# line, a square region and a wide line (three prompt buckets of lines), then
+# a page-sized block (a longer cache than the kept store), each a name:
+# (task, box on ALTERNATE_PAGE); ALTERNATE_ORDER is the calls in turn
+ALTERNATE_CALLS = {"line": ("ocr_with_boxes", [4, 4, 200, 40]), "square": ("ocr_with_boxes", [4, 4, 400, 400]),
+                   "wide line": ("ocr_with_boxes", [4, 4, 1000, 200]),
+                   "page block": ("block_without_boxes", [4, 4, 1100, 1100])}
+ALTERNATE_PAGE = (1200, 1200)
+ALTERNATE_ORDER = ("wide line", "line", "square") * 3 + ("page block",) + ("line", "page block", "square",
+                                                                             "wide line") * 2
+
+
+def check_alternating_cache_lengths(pred, power):
+    """Phase 28, recognition: whole calls (one region each, pinned,
+    PIN_TOKENS tokens) whose cache lengths alternate through the predictor's
+    own graphs and kept slot-cache store, from an empty store. Each length
+    must be captured once while the store is long enough, and a longer one
+    replace the store and its graphs once: the calls of three lengths in
+    turn capture 3 graphs, the longer call 1, and the four in turn twice 3
+    more, no other."""
+    saved = (settings.RECOGNITION_PIN_DECODE, settings.RECOGNITION_MAX_TOKENS)
+    set_pin(True)
+    if pred._kept_cache is not None:  # start from no store: its graphs go with it
+        pred._forget_cache(pred._kept_cache)
+        pred._kept_cache = None
+    store, take = pred.loops, pred._take_cache
+    captured, lengths = [], {}
+    capture = store._capture
+    store._capture = lambda *a: captured.append(1) or capture(*a)
+    pred._take_cache = lambda *a: lengths.__setitem__(name, a[1]) or take(*a)
+    page = Image.new("RGB", ALTERNATE_PAGE, "white")
+    reserved = torch.cuda.memory_reserved()
+    rows = []
+    try:
+        for i, name in enumerate(ALTERNATE_ORDER):
+            task, box = ALTERNATE_CALLS[name]
+            before = len(captured)
+            (res,), wall = synchronised(lambda: pred([page], bboxes=[[box]], task_names=[task]))
+            rows.append(f"{name} ({lengths[name]} rows): wall {wall:.4f} s, captures {len(captured) - before}")
+            if len(res.text_lines) != 1:
+                raise AssertionError(f"{name}: {len(res.text_lines)} lines for one region")
+            if i in (8, 9, len(ALTERNATE_ORDER) - 1):
+                rows[-1] += (f"; after {i + 1} calls {len(captured)} captures, {len(store.loops)} graphs, store "
+                             f"{pred._kept_cache['k'].shape[3]} rows, reserved +"
+                             f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB")
+            if i == 8 and len(captured) != 3:
+                raise AssertionError(f"three cache lengths in turn: {len(captured)} captures, not 3")
+            if i == 9 and len(captured) != 4:
+                raise AssertionError(f"a longer cache: {len(captured)} captures after it, not 4")
+    finally:
+        store._capture, pred._take_cache = capture, take
+        settings.RECOGNITION_PIN_DECODE, settings.RECOGNITION_MAX_TOKENS = saved
+    short = sorted({lengths[n] for n in ALTERNATE_ORDER[:3]})
+    print(f"    recognition, whole calls alternating cache lengths {short} then {lengths['page block']} rows "
+          f"(one region each, pinned, {PIN_TOKENS} tokens, {pred.n_slots + 1}-slot store) [{power}]")
+    for row in rows:
+        print(f"      {row}")
+    if len(short) != 3 or lengths["page block"] <= short[-1]:
+        raise AssertionError(f"the calls' cache lengths {lengths} are not three in turn and one longer")
+    if len(captured) != 7:
+        raise AssertionError(f"{len(captured)} captures over the alternating calls, not 7")
+
+
+def graphed_against_eager(p, call, label, power):
+    """call() through predictor p's graphs, then through graphs.EagerLoops
+    put in their place; returns both results."""
+    store = p.loops
+    out_g, wall_g = synchronised(call)
+    run_g = copy.deepcopy(p.last_run)
+    p.loops = graphs.EagerLoops()
+    try:
+        out_e, wall_e = synchronised(call)
+    finally:
+        p.loops = store
+    print(f"    {label}: wall {wall_g:.4f} s (eager {wall_e:.4f} s) [{power}]")
+    return (out_g, run_g), (out_e, p.last_run)
+
+
+def check_graphed_box_loops(lay, tab, pages, power):
+    """Phase 28, layout and table rec: the predictors as called, with their
+    graphs and with the eager loop, on LAYOUT_PAGES pages of bench.py's
+    shape (as called and cap-bound) and on the synthetic tables' crops: the
+    results, the box loop's raw outputs and the steps run must be equal."""
+    c = lay.config
+    tiles, _ = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE).slice([pages[0]])
+    tile_pixels = torch.from_numpy(np.stack([lay.prepare_image(t) for t in tiles])).cuda()
+    for label, config in (("as called", c), ("cap-bound", dataclasses.replace(c, eos_token_id=-1, pad_token_id=-1))):
+        lay.model.config = config
+        try:
+            (res_g, run_g), (res_e, run_e) = graphed_against_eager(
+                lay, lambda: lay([p.copy() for p in pages]), f"layout {len(pages)} pages, {label}", power)
+            store = lay.loops
+            with torch.inference_mode():
+                raw_g, ran_g = lay._generate(tile_pixels)  # a new tensor: the next replay leaves it
+                lay.loops = graphs.EagerLoops()
+                try:
+                    raw_e, ran_e = lay._generate(tile_pixels)
+                finally:
+                    lay.loops = store
+        finally:
+            lay.model.config = c
+        n = c.label_count
+        valid_same = torch.equal(raw_g[..., -1], raw_e[..., -1])
+        class_same = torch.equal(raw_g[..., 6], raw_e[..., 6])
+        box_diff = (raw_g[..., :6] - raw_e[..., :6]).abs().max().item()
+        logit_diff = (raw_g[..., 7:7 + n] - raw_e[..., 7:7 + n]).abs().max().item()
+        labels_same = [[b.label for b in r.bboxes] for r in res_g] == [[b.label for b in r.bboxes] for r in res_e]
+        bitwise = [r.model_dump() for r in res_g] == [r.model_dump() for r in res_e]
+        steps = (run_g["steps"], run_e["steps"], ran_g.credit(), ran_e.credit())
+        print(f"      steps by dispatch {steps[0]} (eager {steps[1]}); labels equal {labels_same}, results equal "
+              f"bit for bit {bitwise}; one page's tiles: steps {steps[2]} (eager {steps[3]}), valid equal "
+              f"{valid_same}, classes equal {class_same}, boxes max |diff| {box_diff:.3e}, logits max |diff| "
+              f"{logit_diff:.3e}")
+        if not (labels_same and valid_same and class_same and steps[0] == steps[1] and steps[2] == steps[3]):
+            raise AssertionError(f"layout {label}: the graphed box loop differs from the eager loop")
+    print(f"      layout graphs: {pool_mib(lay.loops)}")
+    crops = [p.crop((100, 100, 868, 868)) for p in pages[:TABLE_CROPS]]
+    (res_g, run_g), (res_e, run_e) = graphed_against_eager(
+        tab, lambda: tab([c.copy() for c in crops]), f"table rec {len(crops)} synthetic tables", power)
+    passes = [[(p["rows"], p["steps"], p["recorded"]) for p in r["passes"]] for r in (run_g, run_e)]
+    shape = [[(len(r.rows), len(r.cols), len(r.cells)) for r in res] for res in (res_g, res_e)]
+    bitwise = [r.model_dump() for r in res_g] == [r.model_dump() for r in res_e]
+    print(f"      passes (rows, steps, recorded) {passes[0]} (eager {passes[1]}); rows, columns and cells "
+          f"{shape[0]} (eager {shape[1]}); results equal bit for bit {bitwise}")
+    print(f"      table rec graphs: {pool_mib(tab.loops)}")
+    if shape[0] != shape[1] or passes[0] != passes[1]:
+        raise AssertionError("table rec: the graphed box loops differ from the eager loops")
+
+
+def busy_share(fn) -> tuple:
+    """fn() under torch.profiler: (its wall, the device's busy time over it:
+    the union of its kernel, copy and memset intervals), as profile_smoke.py
+    measures it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = synchronised(fn)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device events")
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    return wall, (busy + cur_e - cur_s) / 1e6 / wall
 
 
 # -- the checkpoint-validation command (phase 27) -------------------------------
@@ -3325,7 +3612,8 @@ def main():
     pred = RecognitionPredictor(device="cuda")
     print(f"    model built in {time.perf_counter() - t0:.1f} s")
     pages, bboxes = synthetic_pages(np.random.default_rng(SEED))
-    run_predictor(pred, pages[:1], bboxes[:1], pin=True)  # warm-up (cuBLAS, allocator)
+    for pin in (True, False):  # warm-up at the measured shapes (cuBLAS, allocator, each decode graph's capture)
+        run_predictor(pred, pages, bboxes, pin=pin)
     counts, shapes = {}, {}
     for label, pin in [("pinned 40", True), ("free-running", False)]:
         reset_counts()
@@ -3358,7 +3646,8 @@ def main():
     print(f"    detection model built in {time.perf_counter() - t0:.1f} s")
     settings.RECOGNITION_MODEL_QUANTIZE = True
     ocr_pages = synthetic_full_pages(np.random.default_rng(SEED + 1))
-    run_full_page(pred, det, ocr_pages, pin=True)  # warm-up at the measured shapes (cuDNN, cuBLAS, allocator)
+    for pin in (True, False):  # warm-up at the measured shapes (cuDNN, cuBLAS, allocator, decode graphs)
+        run_full_page(pred, det, ocr_pages, pin=pin)
     for label, pin in [("whole-page pinned 40", True), ("whole-page free-running", False)]:
         reset_counts()
         with DecodeShapes() as rec:
@@ -3461,6 +3750,15 @@ def main():
     check_validation_gated(pred, det, lay, tab, power)
     check_validation_smoke(power)
     print(f"    phase 27 took {time.perf_counter() - t27:.1f} s [{power}]")
+    print(f"[28] the AR loops as CUDA graph replays (each step in an IF node) against the eager loop on the same "
+          f"inputs: recognition's decode chunk at production width ({GRAPH_SLOTS} slots, {PIN_TOKENS} steps), "
+          f"layout of {LAYOUT_PAGES} pages as called and cap-bound, table rec of the synthetic tables")
+    t28 = time.perf_counter()
+    check_graphed_chunks(pred, gen, power)
+    check_graphed_box_loops(lay, tab, layout_pages, power)
+    print(f"    recognition's own decode graphs: {pool_mib(pred.loops)}")
+    check_alternating_cache_lengths(pred, power)
+    print(f"    phase 28 took {time.perf_counter() - t28:.1f} s [{power}]")
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and

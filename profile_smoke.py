@@ -20,14 +20,16 @@ each mode it prints:
   dispatches (waves, chunks), its waits for their outputs, and the rest of
   its host time; for whole-page OCR also the detection calls' wall (in the
   streaming run it overlaps recognition) and their waits for the device;
-  for layout and table rec the host time enqueueing the box loops (event
-  waits of the all-done check included) and the waits for their outputs;
+  for layout and table rec the host time enqueueing the box loops (on the
+  card each a CUDA graph replay, captured in the warm-up run) and the waits
+  for their outputs;
 - traced, one more run under torch.profiler: that run's own wall, the
   device's busy time in it (the union of kernel, copy and memset intervals),
   the number of kernels, device time by kind and the largest kernels.
 
 Busy time is set only against the traced run's wall, never against an
-untraced one. The last line is one JSON object holding every number.
+untraced one. Each mode runs in a process of its own (see main). The last
+line is one JSON object holding every number.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -178,7 +182,7 @@ def box_loop_modes():
             lay.model.config = as_called
         run = lay.last_run
         SPLITS.append({"wall_s": wall, "enqueue_s": run["enqueue_s"], "wait_s": sum(waits["lay._wait"]),
-                       "steps": run["steps"], "host_syncs": run["host_syncs"]})
+                       "steps": run["steps"]})
         return wall, [], sum(run["steps"])
 
     def tables():
@@ -186,8 +190,7 @@ def box_loop_modes():
         _, wall = chip_smoke.synchronised(tab, crops)
         passes = tab.last_run["passes"]
         SPLITS.append({"wall_s": wall, "enqueue_s": sum(p["enqueue_s"] for p in passes),
-                       "wait_s": sum(waits["tab._wait"]), "steps": [p["steps"] for p in passes],
-                       "host_syncs": [p["host_syncs"] for p in passes]})
+                       "wait_s": sum(waits["tab._wait"]), "steps": [p["steps"] for p in passes]})
         return wall, [], sum(p["steps"] for p in passes)
 
     return [("layout 16 pages, as called", lambda: layout(as_called)),
@@ -198,9 +201,9 @@ def box_loop_modes():
 SPLITS: list = []
 
 
-def main():
-    power = chip_smoke.card()
-    print(f"card: {power}")
+def recognition_modes(stats):
+    """(label, run) of the recognition modes; a run returns (wall,
+    detection calls' walls, tokens), timed into stats."""
     pred = RecognitionPredictor(device="cuda")
     det = DetectionPredictor(device="cuda")
     install_blob_detector(det)
@@ -208,7 +211,6 @@ def main():
     ocr_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 1))
     stream_pages = chip_smoke.synthetic_full_pages(np.random.default_rng(chip_smoke.SEED + 2),
                                                    chip_smoke.STREAM_PAGES)
-    stats = defaultdict(list)
     time_calls(pred, ("_dispatch_prefill", "_dispatch_decode", "_wait"), stats)
     time_calls(det, ("_wait",), stats, prefix="det.")
 
@@ -225,14 +227,34 @@ def main():
             settings.RECOGNITION_MODEL_QUANTIZE = False
         return wall, det_calls, sum(len(t) for t in tokens)
 
-    report = {"card": power}
-    for label, run in [("pinned", lambda: given_lines(True)), ("free-running", lambda: given_lines(False)),
-                       ("whole-page 8 pages pinned, int8 cache", lambda: whole_page(ocr_pages)),
-                       ("whole-page 16 pages streaming pinned, int8 cache", lambda: whole_page(stream_pages))]:
+    return [("pinned", lambda: given_lines(True)), ("free-running", lambda: given_lines(False)),
+            ("whole-page 8 pages pinned, int8 cache", lambda: whole_page(ocr_pages)),
+            ("whole-page 16 pages streaming pinned, int8 cache", lambda: whole_page(stream_pages))]
+
+
+RECOGNITION_MODES = ("pinned", "free-running", "whole-page 8 pages pinned, int8 cache",
+                     "whole-page 16 pages streaming pinned, int8 cache")
+BOX_LOOP_MODES = ("layout 16 pages, as called", "layout 16 pages, cap-bound", "table rec 4 synthetic tables")
+
+
+def print_trace(trace):
+    print(f"  traced: wall {trace['wall_s']:.4f} s, device busy {trace['device_busy_s']:.4f} s "
+          f"({trace['busy_share']:.1%} of that wall), {trace['device_events']} device events")
+    for k, v in trace["by_kind"].items():
+        print(f"    {v['share']:6.1%} {v['s'] * 1e3:9.3f} ms  {k}")
+    for t in trace["top"]:
+        print(f"    top: {t['s'] * 1e3:9.3f} ms {t['calls']:6d} calls  {t['name'][:110]}")
+
+
+def measure(label: str, power: str) -> dict:
+    """One mode: its warm-up (which captures its CUDA graphs), REPS untraced
+    runs and one traced run; prints them and returns its report."""
+    if label in RECOGNITION_MODES:
+        stats = defaultdict(list)
+        run = dict(recognition_modes(stats))[label]
         run()  # warm-up at this mode's shapes
         runs = untraced(run, stats)
         trace = traced(run)
-        report[label] = {"untraced": runs, "traced": trace}
         print(f"[{label}] {runs[0]['tokens']} tokens [{power}]")
         for r in runs:
             det_part = (f"; detection {r['detection_s']:.4f} s in {r['detection_calls']} calls = waits "
@@ -242,31 +264,42 @@ def main():
                   f"{r['prefill_enqueue_s']:.4f} s ({r['waves']} waves) + {r['decode_enqueue_s']:.4f} s "
                   f"({r['chunks']} chunks) + waits {r['recognition_wait_s']:.4f} s + other host "
                   f"{r['recognition_host_rest_s']:.4f} s{det_part}")
-        print(f"  traced: wall {trace['wall_s']:.4f} s, device busy {trace['device_busy_s']:.4f} s "
-              f"({trace['busy_share']:.1%} of that wall), {trace['device_events']} device events")
-        for k, v in trace["by_kind"].items():
-            print(f"    {v['share']:6.1%} {v['s'] * 1e3:9.3f} ms  {k}")
-        for t in trace["top"]:
-            print(f"    top: {t['s'] * 1e3:9.3f} ms {t['calls']:6d} calls  {t['name'][:110]}")
-    for label, run in box_loop_modes():
+    else:
+        run = dict(box_loop_modes())[label]
         run()  # warm-up
         SPLITS.clear()
         for _ in range(REPS):
             run()
         runs = list(SPLITS)
         trace = traced(run)
-        report[label] = {"untraced": runs, "traced": trace}
-        print(f"[{label}] AR steps {runs[0]['steps']}, host syncs {runs[0]['host_syncs']} [{power}]")
+        print(f"[{label}] AR steps {runs[0]['steps']} [{power}]")
         for r in runs:
             print(f"  untraced: wall {r['wall_s']:.4f} s = enqueue {r['enqueue_s']:.4f} s + output waits "
                   f"{r['wait_s']:.4f} s + other host {r['wall_s'] - r['enqueue_s'] - r['wait_s']:.4f} s")
-        print(f"  traced: wall {trace['wall_s']:.4f} s, device busy {trace['device_busy_s']:.4f} s "
-              f"({trace['busy_share']:.1%} of that wall), {trace['device_events']} device events")
-        for k, v in trace["by_kind"].items():
-            print(f"    {v['share']:6.1%} {v['s'] * 1e3:9.3f} ms  {k}")
-        for t in trace["top"]:
-            print(f"    top: {t['s'] * 1e3:9.3f} ms {t['calls']:6d} calls  {t['name'][:110]}")
+    print_trace(trace)
     torch.cuda.synchronize()
+    return {"untraced": runs, "traced": trace}
+
+
+def main():
+    """Each mode in a process of its own (this script with the mode's label
+    as its argument), so that every CUDA graph a mode replays is captured
+    before the process's first torch.profiler session: on the H100 a decode
+    chunk's graph captured after one session hit an illegal address when
+    replayed many times under the next, and graphs captured so lost device
+    events (graph_profile_check.py; PERF.md, section 7). The child prints
+    its lines and, last, its report as JSON."""
+    power = chip_smoke.card()
+    if len(sys.argv) > 1:
+        print(json.dumps(measure(sys.argv[1], power)))
+        return
+    print(f"card: {power}")
+    report = {"card": power}
+    for label in RECOGNITION_MODES + BOX_LOOP_MODES:
+        child = subprocess.run([sys.executable, __file__, label], capture_output=True, text=True, check=True)
+        *lines, last = child.stdout.splitlines()
+        print("\n".join(lines))
+        report[label] = json.loads(last)
     print(json.dumps(report))
 
 

@@ -16,8 +16,10 @@ Counterpart of surya_tpu/layout/__init__.py, with the same outputs:
 
 One batch stays in flight: batch k's outputs are fetched and assembled only
 after batch k + 1 is enqueued. On CUDA the predictor runs on a stream of its
-own. Reading order is emission order (``position``). Batches are not padded:
-rows do not interact in the eager loop.
+own, and the box loop is one replay of a CUDA graph (common/graphs.py),
+captured at the first batch of its row count on each device. Reading order
+is emission order (``position``). Batches are not padded: rows do not
+interact in the box loop.
 """
 
 from __future__ import annotations
@@ -31,12 +33,12 @@ import torch
 from PIL import Image
 from tqdm import tqdm
 
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.common.util import clean_boxes
 from surya_tpu_torch.layout.loader import load_layout_model
 from surya_tpu_torch.layout.schema import LayoutBox, LayoutResult
 from surya_tpu_torch.layout.slicer import ImageSlicer
-from surya_tpu_torch.models.adetr import DoneWatch
 from surya_tpu_torch.models.layout_model import ID_TO_LABEL, LayoutConfig
 from surya_tpu_torch.settings import settings
 
@@ -106,25 +108,26 @@ class LayoutPredictor(BasePredictor):
                                                   self._config, self._dtype)
         self._jax_params = None
         self.dtype = self.model.lm_head.weight.dtype
-        # the last call's dispatches: tiles, AR steps and host syncs of each
-        # (the loop's event waits and the output's), and the host time spent
-        # enqueuing them
+        # the last call's dispatches: tiles and AR steps of each, and the
+        # host time spent enqueuing them
         self.last_run: dict = {}
         self.setup_mesh()  # a mesh: the tiles split over its data axis
+        self.loops = graphs.loops_for(self.device)  # the box loops, a graph per key and device on CUDA
 
     def prepare_image(self, img: Image.Image) -> np.ndarray:
         """Squish-resize to the encoder size (no aspect kept), HWC uint8."""
         size = self.config.encoder.image_size
         return cv2.resize(np.asarray(img, dtype=np.uint8), (size[1], size[0]), interpolation=cv2.INTER_LANCZOS4)
 
-    def _generate(self, pixels: torch.Tensor, watch: DoneWatch, model=None) -> torch.Tensor:
-        """uint8 tiles [B, H, W, 1 or 3] -> one float32 array [B, MAX, 7 +
-        label_count + 1]: boxes, class logits and the valid flag (through
-        `model`, default the predictor's)."""
+    def _generate(self, pixels: torch.Tensor, model=None) -> tuple:
+        """uint8 tiles [B, H, W, 1 or 3] -> (one float32 array [B, MAX, 7 +
+        label_count + 1]: boxes, class logits and the valid flag, a new
+        tensor; the box loop's graphs.Ran), through `model`, default the
+        predictor's."""
         x = pixels.expand(*pixels.shape[:-1], 3).to(self.dtype) / 255.0
         x = (x - IMAGE_MEAN) / IMAGE_STD
-        boxes, logits, valid = (model or self.model).generate(x, watch)
-        return torch.cat([boxes, logits, valid[..., None].float()], dim=-1)
+        (boxes, logits, valid), ran = (model or self.model).launch_generate(x, self.loops)
+        return torch.cat([boxes, logits, valid[..., None].float()], dim=-1), ran
 
     def __call__(self, images: List[Image.Image], batch_size: Optional[int] = None,
                  top_k: int = 5) -> List[LayoutResult]:
@@ -140,7 +143,7 @@ class LayoutPredictor(BasePredictor):
         slicer = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE)
         img_counts = [slicer.slice_count(image) for image in images]
         batches = pack_by_tiles(img_counts, self.pipeline_cap(settings.LAYOUT_PIPELINE_BATCH, batch_size))
-        run = self.last_run = {"tiles": [], "steps": [], "host_syncs": [], "enqueue_s": 0.0}
+        run = self.last_run = {"tiles": [], "steps": [], "enqueue_s": 0.0}
 
         results: List[LayoutResult] = []
         inflight = None
@@ -151,30 +154,29 @@ class LayoutPredictor(BasePredictor):
             if rows > len(tiles):
                 pixels = np.pad(pixels, [(0, rows - len(tiles))] + [(0, 0)] * 3, mode="edge")
             t0 = time.perf_counter()
-            watches = []  # a loop's own on each data shard
+            rans = []  # a box loop's on each data shard
 
             def generate(model, px):
-                watches.append(DoneWatch(px.device))
-                return self._generate(px, watches[-1], model)
+                packed, ran = self._generate(px, model)
+                rans.append(ran)
+                return packed
 
             with self._on_stream(), torch.inference_mode():
                 handle = self._fetch(self.data_parallel(generate, self._upload(pixels)))
             run["enqueue_s"] += time.perf_counter() - t0
             run["tiles"].append(len(tiles))
-            run["steps"].append(max(w.steps for w in watches))
-            # the loops' event waits and the output's
-            run["host_syncs"].append(sum(w.syncs for w in watches) + 1)
             # fetch the previous batch only now that this one is enqueued
             if inflight is not None:
                 results.extend(self._finish(*inflight, slicer, top_k))
-            inflight = (handle, [im.size for im in tiles], tile_positions)
+            inflight = (handle, rans, [im.size for im in tiles], tile_positions)
         if inflight is not None:
             results.extend(self._finish(*inflight, slicer, top_k))
         assert len(results) == len(images)
         return results
 
-    def _finish(self, handle, orig_sizes, tile_positions, slicer, top_k) -> List[LayoutResult]:
+    def _finish(self, handle, rans, orig_sizes, tile_positions, slicer, top_k) -> List[LayoutResult]:
         [packed] = self._wait(handle)
+        self.last_run["steps"].append(max(ran.credit() for ran in rans))
         return self._assemble_batch(packed[..., :7], packed[..., 7:-1], packed[..., -1] > 0.5, orig_sizes,
                                     tile_positions, slicer, top_k)
 

@@ -202,54 +202,6 @@ class ADETRDecoder(nn.Module):
         return self.final_norm(x)[:, 0]
 
 
-class DoneWatch:
-    """When to end an AR box loop, without a host sync every step.
-
-    The JAX package runs the loop as a device ``while_loop`` that stops once
-    every row is done. Eagerly, asking the device that each step would sync
-    the host with it every step. A row records nothing once it is done (done
-    is sticky), so steps run past the point where every row is done leave
-    the outputs unchanged: ``poll`` posts all(done) every ``every`` steps, a
-    non-blocking copy into pinned memory behind an event, and reads the flag
-    posted at the check before, whose event the device has usually passed.
-    The loop then ends at most 2 * every - 1 steps late, with the same
-    outputs. On the CPU the flag is read at once. ``steps`` counts the polls,
-    one per recorded step, and ``syncs`` the event waits."""
-
-    every = 8
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.cuda = device.type == "cuda"
-        self.pending = None
-        self.steps = 0
-        self.syncs = 0
-
-    def poll(self, done) -> bool:
-        """Call after each recorded step with the rows' done flags; True: stop."""
-        self.steps += 1
-        if self.steps % self.every:
-            return False
-        if self.pending is not None:
-            flag, event = self.pending
-            if event is not None:
-                event.synchronize()
-                self.syncs += 1
-            if bool(flag):
-                return True
-        if self.cuda:
-            # the copy runs on the current stream of done's device, which on
-            # a mesh need not be the current device: the event goes there too
-            flag = torch.empty((), dtype=torch.bool, pin_memory=True)
-            flag.copy_(done.all(), non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            self.pending = (flag, event)
-        else:
-            self.pending = (done.all(), None)
-        return False
-
-
 # -- checkpoint conversion ----------------------------------------------------
 
 def convert_torch(bag, config: ADETRConfig, prefix: str) -> dict:

@@ -3,12 +3,14 @@
 Counterpart of surya_tpu/models/foundation.py. ``prefill`` encodes the
 images, scatters them into the prompt's <IMAGE> positions, runs the decoder
 prefill, writes the KV into the slot cache and samples token 0.
-``decode_chunk`` runs ``num_steps`` greedy steps on the device: a Python loop
-with no host synchronisation inside (nor in ``prefill``: no copy from the
-host, no read of a device value), over a read-only cache plus a chunk
-buffer that is committed once at the end. Where the JAX loop exits early once
-no slot is active, the port runs every step; a slot that is no longer active
-emits pad and does not advance, so the outputs are the same.
+``decode_chunk`` runs up to ``num_steps`` greedy steps over a read-only
+cache plus a chunk buffer that is committed once at the end, as the JAX
+package's ``while_loop`` does: ``chunk_loop`` builds it as a
+``common.graphs.Loop`` whose ``pred`` is the JAX cond (some slot active),
+which a CUDA graph replays with each step in an IF node (no host
+synchronisation inside, nor in ``prefill``: no copy from the host, no read
+of a device value), and the CPU runs eagerly with the cond read after each
+step.
 
 The lm head shares the token embedding matrix (plus ``lm_head_bias``).
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.models import qwen_decoder, qwen_encoder
 from surya_tpu_torch.parallel.mesh import Placement, Sharded, split_range
 
@@ -105,24 +108,69 @@ class FoundationModel(nn.Module):
 
     def decode_chunk(self, cache: dict, last_token, active, num_steps: int, run=None,
                      repeat_window: int = 0, pin_decode: bool = False):
-        """Up to num_steps greedy decode steps on the device.
+        """Up to num_steps greedy decode steps; the loop exits once no slot
+        is active. The plain version of ``launch_chunk`` (the eager loop,
+        the cond read on the host after each step) on any device.
 
         A slot stops when it emits EOS/PAD (the token is still recorded); with
         ``pin_decode`` only the host stops it. With ``run``/``repeat_window``
         a slot also stops after repeat_window identical tokens in a row.
         Returns (tokens [B, K], scores [B, K], bboxes [B, K, 6], last_token,
         active, run); the cache is updated in place."""
+        outputs, _ = self.launch_chunk(cache, last_token, active, num_steps, run, repeat_window, pin_decode,
+                                       graphs.EagerLoops())
+        return outputs
+
+    def launch_chunk(self, cache: dict, last_token, active, num_steps: int, run, repeat_window: int,
+                     pin_decode: bool, loops) -> tuple:
+        """decode_chunk through `loops` (a predictor's store: CUDA graphs
+        on the card), without waiting: returns (its outputs, which a graph
+        owns until its next replay, and common.graphs.Ran)."""
         run = run if run is not None else torch.zeros_like(last_token)
+        key = ("decode_chunk", cache_id(cache), last_token.shape[0], num_steps, bool(pin_decode), repeat_window,
+               type(self.decoder.layers[0].self_attn.q_proj).__name__, self.config)
+        return loops.run(key, lambda: self.chunk_loop(cache, last_token.shape[0], num_steps, repeat_window,
+                                                      pin_decode),
+                         {"last_token": last_token, "active": active, "run": run})
+
+    def chunk_loop(self, cache: dict, n_slots: int, num_steps: int, repeat_window: int,
+                   pin_decode: bool) -> graphs.Loop:
+        """The decode chunk over `cache` as a graphs.Loop: static inputs
+        last_token, active and run [n_slots]; begin zeroes the chunk
+        buffers (so that commit_chunk writes the same bytes however many
+        steps ran) and takes the cache lengths; step i is the embedding,
+        decode_step_chunked and decode_step_update; the cond is any(active);
+        end commits the chunk. Outputs: decode_chunk's."""
+        dev = cache["len"].device
+        state = {"last_token": torch.zeros((n_slots,), dtype=torch.int32, device=dev),
+                 "active": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
+                 "run": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
+        last_token, active, run = state.values()
         bufs = self.chunk_buffers(last_token, self.config.decoder.num_key_value_heads, num_steps)
         tokens_buf, scores_buf, bbox_buf, chunk_k, chunk_v, advance = bufs
-        base_len = cache["len"].clone()
-        for step in range(num_steps):
+        base_len = torch.zeros_like(cache["len"])
+        pred = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def begin():
+            tokens_buf.fill_(self.config.pad_token_id)
+            for buf in (scores_buf, bbox_buf, chunk_k, chunk_v, advance):
+                buf.zero_()
+            base_len.copy_(cache["len"])
+            pred.copy_(active.any())
+
+        def step(i: int):
             emb = self.token_embed(last_token.long())
-            hidden = self.decoder.decode_step_chunked(cache, chunk_k, chunk_v, emb, step, base_len)
-            last_token, active, run = self.decode_step_update(hidden, step, bufs, last_token, active, run,
-                                                              repeat_window, pin_decode)
-        qwen_decoder.commit_chunk(cache, chunk_k, chunk_v, base_len, advance)
-        return tokens_buf, scores_buf, bbox_buf, last_token, active, run
+            hidden = self.decoder.decode_step_chunked(cache, chunk_k, chunk_v, emb, i, base_len)
+            for dst, src in zip((last_token, active, run), self.decode_step_update(
+                    hidden, i, bufs, last_token, active, run, repeat_window, pin_decode)):
+                dst.copy_(src)
+            pred.copy_(active.any())
+
+        def end():
+            qwen_decoder.commit_chunk(cache, chunk_k, chunk_v, base_len, advance)
+
+        return graphs.Loop(num_steps, state, (tokens_buf, scores_buf, bbox_buf, last_token, active, run), pred,
+                           begin, step, end)
 
     def chunk_buffers(self, last_token, n_kv_heads: int, num_steps: int) -> tuple:
         """A decode chunk's buffers over last_token's B slots, on its device:
@@ -161,6 +209,12 @@ class FoundationModel(nn.Module):
         if repeat_window:
             next_active = next_active & (run < repeat_window)
         return torch.where(next_active, token, pad), next_active, run
+
+
+def cache_id(cache: dict) -> tuple:
+    """What a decode chunk's graph keys a slot cache by: the device, dtype,
+    shape and address of each of its tensors (the graph reads them there)."""
+    return tuple((name, t.device, t.dtype, tuple(t.shape), t.data_ptr()) for name, t in sorted(cache.items()))
 
 
 class MeshedFoundation:

@@ -2,23 +2,23 @@
 
 Counterpart of surya_tpu/models/layout_model.py, with the same outputs. The
 JAX package runs the whole box loop as one device ``while_loop`` that stops
-once every row is done; here it is an eager loop of up to ``max_boxes``
-steps that asks the device whether every row is done only every
-``adetr.DoneWatch.every`` steps, through a non-blocking copy read after an
-event (a done row records nothing, so the extra steps change no output).
-Each step applies the PageHeader/PageFooter rewrite in token space, as
-there. Reading order is emission order.
+once every row is done; here the encoder runs eagerly and the box loop is a
+``common.graphs.Loop`` of up to ``max_boxes`` steps whose cond is the same
+(some row not done): a CUDA graph on the card that skips the steps after it
+fails, the eager loop with the cond read after each step on the CPU. Each
+step applies the PageHeader/PageFooter rewrite in token space, as there.
+Reading order is emission order.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
 
 import torch
 from torch import nn
 
 from surya_tpu_torch import nn as pnn
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.models import adetr, donut_swin
 
 SPECIAL_TOKENS = 3
@@ -136,36 +136,62 @@ class LayoutModel(nn.Module):
         hi = 0.8 * c.bbox_size
         return is_hf & (y0 < hi) & (y2 > lo) & (x0 < hi) & (x2 > lo)
 
-    def generate(self, pixel_values, watch: Optional[adetr.DoneWatch] = None):
-        """Layout of a batch of normalized pages [B, H, W, 3].
+    def generate(self, pixel_values):
+        """Layout of a batch of normalized pages [B, H, W, 3]: the plain
+        version of ``launch_generate`` (the eager box loop, the cond read on
+        the host after each step) on any device.
 
         Returns (boxes [B, MAX, 7] fp32: the 6 box values in 0..bbox_size and
         the final class id; class_logits [B, MAX, label_count] fp32, after the
         rewrite; valid [B, MAX] bool: the step was recorded, its row not yet
-        done). ``watch`` (made here if not given) counts the steps and syncs."""
-        c = self.config
-        B = pixel_values.shape[0]
-        MAX = c.max_boxes
-        dev = pixel_values.device
-        watch = watch or adetr.DoneWatch(dev)
+        done)."""
+        outputs, _ = self.launch_generate(pixel_values, graphs.EagerLoops())
+        return outputs
 
+    def launch_generate(self, pixel_values, loops) -> tuple:
+        """generate through `loops` (a predictor's store: CUDA graphs on the
+        card), without waiting: the encoder and the cross-attention K/V
+        eagerly, then the box loop. Returns (generate's outputs, which a
+        graph owns until its next replay, and common.graphs.Ran)."""
         enc = self.encoder(pixel_values)
         cross_k, cross_v = self.decoder.precompute_cross_kv(enc)
-        cache = self.decoder.init_cache(B, MAX + 1, enc.dtype, dev)
+        key = ("layout", cross_k.device, tuple(cross_k.shape), cross_k.dtype, self.config)
+        return loops.run(key, lambda: self.box_loop(cross_k.shape, cross_k.dtype, cross_k.device),
+                         {"cross_k": cross_k, "cross_v": cross_v})
 
-        last_box = torch.full((B, 7), c.bos_token_id, dtype=torch.int32, device=dev)
+    def box_loop(self, cross_shape, dtype, dev) -> graphs.Loop:
+        """The box loop as a graphs.Loop over cross-attention K/V of
+        cross_shape [layers, B, L, kvh, hd]: begin zeroes the self-attention
+        cache and the buffers; step i embeds the last box, runs the decoder
+        step and records the box unless its row is done; the cond is that
+        some row is not done."""
+        c = self.config
+        B, MAX = cross_shape[1], c.max_boxes
+        inputs = {"cross_k": torch.zeros(cross_shape, dtype=dtype, device=dev),
+                  "cross_v": torch.zeros(cross_shape, dtype=dtype, device=dev)}
+        cross_k, cross_v = inputs.values()
+        cache = self.decoder.init_cache(B, MAX + 1, dtype, dev)
+        last_box = torch.zeros((B, 7), dtype=torch.int32, device=dev)
         boxes_buf = torch.zeros((B, MAX, 7), dtype=torch.float32, device=dev)
         logits_buf = torch.zeros((B, MAX, c.label_count), dtype=torch.float32, device=dev)
         valid_buf = torch.zeros((B, MAX), dtype=torch.bool, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
-        for i in range(MAX):
+        pred = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def begin():
+            for buf in (cache["k"], cache["v"], boxes_buf, logits_buf, valid_buf, done):
+                buf.zero_()
+            last_box.fill_(c.bos_token_id)
+            pred.fill_(B > 0)
+
+        def step(i: int):
             emb = self.embed_boxes(last_box)
             pos = torch.full((B,), i, dtype=torch.int32, device=dev)
             hidden = self.decoder.step(cache, cross_k, cross_v, emb, pos)
             class_logits, bbox = self.heads(hidden)
             box_f = bbox * c.bbox_size  # float box values, recorded as they are
             class_pred = class_logits.argmax(-1)
-            done = done | (class_pred == c.eos_token_id) | (class_pred == c.pad_token_id)
+            done.logical_or_((class_pred == c.eos_token_id) | (class_pred == c.pad_token_id))
 
             rule = self.position_rule(box_f, class_pred)
             onehot = class_pred[:, None] == torch.arange(c.label_count, device=dev)
@@ -177,10 +203,10 @@ class LayoutModel(nn.Module):
             boxes_buf[:, i] = torch.where(record[:, None], token, 0.0)
             logits_buf[:, i] = torch.where(record[:, None], new_logits, 0.0)
             valid_buf[:, i] = record
-            last_box = torch.cat([box_f.to(torch.int32), class_final[:, None].to(torch.int32)], dim=-1)
-            if watch.poll(done):
-                break
-        return boxes_buf, logits_buf, valid_buf
+            last_box.copy_(torch.cat([box_f.to(torch.int32), class_final[:, None].to(torch.int32)], dim=-1))
+            pred.copy_(~done.all())
+
+        return graphs.Loop(MAX, inputs, (boxes_buf, logits_buf, valid_buf), pred, begin, step)
 
 
 # -- checkpoint conversion ----------------------------------------------------

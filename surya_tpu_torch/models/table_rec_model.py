@@ -8,7 +8,10 @@ and read out through five heads. A prompt (the query, or the query with the
 columns' labels for the cell pass) is right-padded to a bucket and prefilled
 causally; the steps then write the cache at rows >= the padded length while
 their positions continue from the true one, with the padded rows masked. The
-box loop is eager and checks for all-done through ``adetr.DoneWatch``.
+prefill runs eagerly; the box loop is a ``common.graphs.Loop`` whose cond is
+the JAX package's (some row not done): a CUDA graph on the card that skips
+the steps after it fails, the eager loop with the cond read after each step
+on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from torch import nn
 
 from surya_tpu_torch import nn as pnn
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.models import adetr, donut_swin
 
 BOX_DIM = 1024
@@ -128,45 +132,75 @@ class TableRecModel(nn.Module):
         return self.encoder(pixel_values)
 
     def generate(self, encoder_hidden, input_vectors, seq_lens, max_steps: int,
-                 category_script: Optional[Sequence[int]] = None, watch: Optional[adetr.DoneWatch] = None):
+                 category_script: Optional[Sequence[int]] = None):
         """AR decode of a batch of query prompts against encoder states.
         input_vectors: [B, L, 10] int, right-padded; seq_lens [B] int32.
 
         Per step: bbox sigmoid * 1024; category, merges and is_header argmax
         shifted down by SPECIAL_TOKENS; colspan round(max(x, 1)); a row is
         done at category EOS or PAD (before the shift) and records nothing
-        after. category_script: a host sequence of max_steps raw category
-        ids; an entry >= 0 replaces the argmax at its step (random weights'
-        category logits sit near zero, so benches and tests pin the control
-        flow with it). Returns bbox [B, M, 6] fp32, category, merges,
-        colspan, is_header [B, M] int32, valid [B, M] bool."""
-        c = self.config
+        after. category_script: a sequence of max_steps raw category ids (a
+        host sequence or a device int vector); an entry >= 0 replaces the
+        argmax at its step (random weights' category logits sit near zero,
+        so benches and tests pin the control flow with it). The plain
+        version of ``launch_generate`` (the eager box loop, the cond read on
+        the host after each step) on any device. Returns bbox [B, M, 6]
+        fp32, category, merges, colspan, is_header [B, M] int32, valid
+        [B, M] bool."""
+        bufs, _ = self.launch_generate(encoder_hidden, input_vectors, seq_lens, max_steps, category_script,
+                                       graphs.EagerLoops())
+        return bufs
+
+    def launch_generate(self, encoder_hidden, input_vectors, seq_lens, max_steps: int, category_script,
+                        loops) -> tuple:
+        """generate through `loops` (a predictor's store: CUDA graphs on the
+        card), without waiting: the cross-attention K/V and the prompt's
+        prefill eagerly, then the box loop. Returns (generate's buffers,
+        which a graph owns until its next replay, and common.graphs.Ran)."""
         B, L, _ = input_vectors.shape
         dev = encoder_hidden.device
-        watch = watch or adetr.DoneWatch(dev)
         cross_k, cross_v = self.decoder.precompute_cross_kv(encoder_hidden)
         cache = self.decoder.init_cache(B, L + max_steps + 1, encoder_hidden.dtype, dev)
         last_hidden = self.decoder.prefill(cache, cross_k, cross_v, self.embed_labels(input_vectors), seq_lens)
+        script = torch.full((max_steps,), -1, dtype=torch.int64, device=dev)
+        if category_script is not None:
+            script.copy_(torch.as_tensor(category_script))
+        inputs = {"cross_k": cross_k, "cross_v": cross_v, "cache_k": cache["k"], "cache_v": cache["v"],
+                  "last_hidden": last_hidden, "seq_lens": seq_lens.to(torch.int32), "script": script}
+        key = ("table_rec", dev, B, L, max_steps, tuple(cross_k.shape), cross_k.dtype, self.config)
+        return loops.run(key, lambda: self.box_loop({k: torch.zeros_like(v) for k, v in inputs.items()}, L,
+                                                    max_steps), inputs)
 
+    def box_loop(self, inputs: Dict[str, torch.Tensor], L: int, max_steps: int) -> graphs.Loop:
+        """The box loop as a graphs.Loop over static inputs shaped as
+        launch_generate's: begin records step 0 from the prefill's last
+        hidden state; step i - 1 embeds the last vector, runs the decoder
+        step at cache row L + i - 1 and records step i; the cond is that some
+        row is not done."""
+        c = self.config
+        B = inputs["last_hidden"].shape[0]
+        dev = inputs["last_hidden"].device
+        cache = {"k": inputs["cache_k"], "v": inputs["cache_v"]}
+        cross_k, cross_v, seq_lens, script = (inputs[k] for k in ("cross_k", "cross_v", "seq_lens", "script"))
         bufs = {"bbox": torch.zeros((B, max_steps, 6), dtype=torch.float32, device=dev)}
         for k in ("category", "merges", "colspan", "is_header"):
             bufs[k] = torch.zeros((B, max_steps), dtype=torch.int32, device=dev)
         bufs["valid"] = torch.zeros((B, max_steps), dtype=torch.bool, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        vec = torch.zeros((B, 10), dtype=torch.int64, device=dev)
+        write_base = torch.full((B,), L, dtype=torch.int32, device=dev)
+        pred = torch.zeros((), dtype=torch.bool, device=dev)
 
         def process(hidden, i):
-            """Record step i; returns (done, the next input vector [B, 10])."""
+            """Record step i; set done, the next input vector and the cond."""
             out = self.head_outputs(hidden)
             bbox = out["bbox"] * BOX_DIM
-            if category_script is not None and category_script[i] >= 0:
-                cat_raw = torch.full((B,), int(category_script[i]), dtype=torch.int64, device=dev)
-            else:
-                cat_raw = out["category"].argmax(-1)
+            cat_raw = torch.where(script[i] >= 0, script[i], out["category"].argmax(-1))
             merges_raw = out["merges"].argmax(-1)
             header_raw = out["is_header"].argmax(-1)
             colspan = torch.round(torch.clamp(out["colspan"][..., 0], min=1.0)).long()
-            done_after = done | (cat_raw == c.eos_token_id) | (cat_raw == c.pad_token_id)
-            record = ~done_after
+            done.logical_or_((cat_raw == c.eos_token_id) | (cat_raw == c.pad_token_id))
+            record = ~done
             bufs["bbox"][:, i] = torch.where(record[:, None], bbox, 0.0)
             bufs["category"][:, i] = torch.where(record, cat_raw - SPECIAL_TOKENS, 0).int()
             bufs["merges"][:, i] = torch.where(record, merges_raw - SPECIAL_TOKENS, 0).int()
@@ -175,20 +209,22 @@ class TableRecModel(nn.Module):
             bufs["valid"][:, i] = record
             # the next input: bbox truncated to ints and clamped, the
             # classification fields as raw (shifted-up) ids
-            nxt = torch.cat([torch.clamp(bbox, 0, BOX_DIM).long(), cat_raw[:, None], merges_raw[:, None],
-                             colspan[:, None], header_raw[:, None]], dim=-1)
-            return done_after, nxt
+            vec.copy_(torch.cat([torch.clamp(bbox, 0, BOX_DIM).long(), cat_raw[:, None], merges_raw[:, None],
+                                 colspan[:, None], header_raw[:, None]], dim=-1))
+            pred.copy_(~done.all())
 
-        done, vec = process(last_hidden, 0)
-        write_base = torch.full((B,), L, dtype=torch.int32, device=dev)
-        i = 1
-        while not watch.poll(done) and i < max_steps:  # a poll after every recorded step
-            hidden = self.decoder.step(cache, cross_k, cross_v, self.embed_labels(vec),
-                                       pos=seq_lens + i - 1, write_idx=write_base + i - 1,
-                                       seq_lens=seq_lens, prompt_len=L)
-            done, vec = process(hidden, i)
-            i += 1
-        return bufs
+        def begin():
+            for buf in (*bufs.values(), done):
+                buf.zero_()
+            process(inputs["last_hidden"], 0)
+
+        def step(k: int):
+            i = k + 1
+            hidden = self.decoder.step(cache, cross_k, cross_v, self.embed_labels(vec), pos=seq_lens + i - 1,
+                                       write_idx=write_base + i - 1, seq_lens=seq_lens, prompt_len=L)
+            process(hidden, i)
+
+        return graphs.Loop(max_steps - 1, inputs, bufs, pred, begin, step)
 
 
 # -- checkpoint conversion ----------------------------------------------------

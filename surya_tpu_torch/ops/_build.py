@@ -46,6 +46,8 @@ SIGNATURES = {
     "surya_gqa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "surya_gqa_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P],
+    "surya_graph_if_begin": [_P, _P, _P],
+    "surya_graph_if_end": [_P],
 }
 
 

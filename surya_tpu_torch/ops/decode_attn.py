@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.ops import _build
 from surya_tpu_torch.ops.attention import NEG_INF
 from surya_tpu_torch.parallel.mesh import Sharded, kernel_shardable
@@ -116,8 +117,14 @@ def _merge_counts(dev: torch.device, n: int) -> torch.Tensor:
     mesh that sit on one device run in turn on its stream and may share one;
     a predictor keeps a stream on each device of its mesh. Kept for the life
     of the process, since a captured graph holds its address; PyTorch takes
-    streams from a fixed pool, so the buffers are few."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
+    streams from a fixed pool, so the buffers are few. A loop that
+    common/graphs.py captures gets a buffer of its own (its steps run on a
+    stream of the graph's), made by its warm-up step and kept by the graph."""
+    own = graphs.scratch(("gqa_decode merge counts", dev.index, n),
+                         lambda: torch.zeros(n, dtype=torch.int32, device=dev))
+    if own is not None:
+        return own
+    key =(dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
     if key not in _COUNTS:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("gqa_decode: call it once on the capturing stream outside CUDA graph capture "
@@ -141,10 +148,7 @@ def gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer:
     if q.device.type == "cpu":
         return gqa_decode_reference(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
     out = _launch_decode("gqa_decode", q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
-    if k_scale is not None:
-        gqa_decode.launches_q += 1
-    else:
-        gqa_decode.launches += 1
+    graphs.count(gqa_decode, "launches_q" if k_scale is not None else "launches")
     return out
 
 

@@ -19,7 +19,11 @@ device runs; a wave that is built waits, held, for its slots; when the
 in-flight outputs already exhaust every budget the loop drains first; and
 when no further wave can follow, the decode chunk is fused into the prefill
 dispatch (``fuse_decode``), both outputs read together. On CUDA the
-predictor runs on a stream of its own.
+predictor runs on a stream of its own, and a decode chunk is one replay of a
+CUDA graph (common/graphs.py) captured at the first chunk of its shapes,
+which skips its remaining steps on the card once no slot is active; one
+slot-cache store is kept between runs and every run's cache is a view of
+it, so that the address a graph reads holds (_take_cache).
 
 Whole-page OCR of more than RECOGNITION_DET_PIPELINE_PAGES pages streams:
 detection of page group k + 1 runs in a worker thread and feeds the live
@@ -50,12 +54,13 @@ import numpy as np
 import torch
 from tqdm import tqdm
 
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
 from surya_tpu_torch.models import qwen_decoder
-from surya_tpu_torch.models.foundation import MeshedFoundation, prefill_routes
+from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, prefill_routes
 from surya_tpu_torch.parallel.mesh import Mesh, gather_rows, split_range, split_sizes
 from surya_tpu_torch.recognition.loader import load_recognition_model
 from surya_tpu_torch.recognition.postprocessing import fix_unbalanced_tags
@@ -87,6 +92,13 @@ class RecognitionPrompt:
     image: np.ndarray
     text: Optional[str]
     math_mode: bool
+
+
+def _rows_view(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """The first bytes of a contiguous cache tensor [layers, slots, kvh, S,
+    ...] seen as one of `rows` rows in place of S."""
+    shape = t.shape[:3] + (rows,) + t.shape[4:]
+    return t.view(-1)[:shape.numel()].view(shape)
 
 
 def _pack(tokens, scores, bboxes):
@@ -151,6 +163,12 @@ class RecognitionPredictor(BasePredictor):
             caps.append(min(caps[-1] * 2, max_cap))
         self.patch_caps = tuple(caps)
         self.patch_cap = max_cap
+        # the decode chunk's store (CUDA graphs on the card), and the slot
+        # cache store that its graphs read, kept between runs (_take_cache;
+        # calls from several threads take and hand it back under the lock)
+        self.loops = graphs.loops_for(self.device)
+        self._kept_cache: Optional[dict] = None
+        self._kept_cache_lock = threading.Lock()
 
     # -- device programs -------------------------------------------------------
     # Nothing here waits for the device: no read of a device value, no copy
@@ -195,17 +213,19 @@ class RecognitionPredictor(BasePredictor):
 
     def _decode(self, cache, state, kill, pin: bool):
         """One decode chunk on the device (kill: None when it was applied by a
-        prefill fused before it). Returns (packed outputs [slots, K, 8], state)."""
+        prefill fused before it). Returns (packed outputs [slots, K, 8], state,
+        the chunk's graphs.Ran or None on a mesh). The state is the graph's
+        own: the next dispatch makes new tensors of it (_apply_kill) before
+        the next replay."""
         if self.meshed is not None:
             return self._decode_on_mesh(cache, state, kill, pin)
         last_token, active, run = state
         if kill is not None:
             last_token, active = self._apply_kill(last_token, active, self._upload(kill))
-        toks, scores, bboxes, last_token, active, run = self.model.decode_chunk(
-            cache, last_token, active, self.decode_chunk, run=run,
-            repeat_window=0 if pin else REPEAT_WINDOW, pin_decode=pin,
-        )
-        return _pack(toks, scores, bboxes), (last_token, active, run)
+        (toks, scores, bboxes, last_token, active, run), ran = self.model.launch_chunk(
+            cache, last_token, active, self.decode_chunk, run, 0 if pin else REPEAT_WINDOW, pin, self.loops)
+        # _pack makes a new tensor: the next replay leaves it alone
+        return _pack(toks, scores, bboxes), (last_token, active, run), ran
 
     # -- the same programs on a mesh: the slot state is {(d, m): tensor}, each
     # shard holding its data shard's block of slots; outputs gather on the
@@ -285,22 +305,66 @@ class RecognitionPredictor(BasePredictor):
         )
         packed = gather_rows([_pack(toks[d, 0], scores[d, 0], bboxes[d, 0]) for d in range(self.mesh.n_data)],
                              self.device)
-        return packed, tuple(state)
+        return packed, tuple(state), None
 
     def _dispatch_prefill(self, cache, batch, slot_idx, row_valid, state, kill, pin: bool, fuse: bool):
         """Enqueue a prefill wave, fused with the decode chunk after it, and
-        the copies of their packed outputs. Returns (fetch handle, state)."""
+        the copies of their packed outputs. Returns (fetch handle, state,
+        the chunk's Ran or None)."""
         packed, state = self._prefill(cache, batch, slot_idx, row_valid, state, kill, pin)
         if not fuse:
-            return self._fetch(packed), state
-        decode_packed, state = self._decode(cache, state, None, pin)
-        return self._fetch(packed, decode_packed), state
+            return self._fetch(packed), state, None
+        decode_packed, state, ran = self._decode(cache, state, None, pin)
+        return self._fetch(packed, decode_packed), state, ran
 
     def _dispatch_decode(self, cache, state, kill, pin: bool):
         """Enqueue a decode chunk and the copy of its packed outputs.
-        Returns (fetch handle, state)."""
-        packed, state = self._decode(cache, state, kill, pin)
-        return self._fetch(packed), state
+        Returns (fetch handle, state, the chunk's Ran or None)."""
+        packed, state, ran = self._decode(cache, state, kill, pin)
+        return self._fetch(packed), state, ran
+
+    def _take_cache(self, n_slots: int, cache_len: int, quantize: bool) -> tuple:
+        """A run's slot cache of n_slots slots (the trash slot included) and
+        cache_len rows, its lengths zeroed, and the store it is a view of
+        (None on a mesh, where every run makes its own: its decode chunk runs
+        eagerly). A decode graph reads the cache at its address, so on one
+        device the predictor keeps one store between runs, as long as the
+        longest cache a run has asked for: a shorter cache is a view of its
+        first bytes (rows past a length are never read), and the graphs of
+        every length stay valid. A store of other slots or quantisation, or
+        a shorter one, is replaced, and the graphs that read it go with it.
+        A run that starts while another holds the store makes its own."""
+        if self.mesh is not None:
+            return qwen_decoder.init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device,
+                                           quantize=quantize, mesh=self.mesh), None
+        with self._kept_cache_lock:
+            store, self._kept_cache = self._kept_cache, None
+        if store is not None and (store["len"].shape[0] != n_slots or ("k_scale" in store) != quantize
+                                  or store["k"].shape[3] < cache_len):
+            self._forget_cache(store)  # before the new one is made
+            store = None
+        if store is None:
+            store = qwen_decoder.init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device,
+                                            quantize=quantize)
+        store["len"].zero_()
+        return {name: t if name == "len" else _rows_view(t, cache_len) for name, t in store.items()}, store
+
+    def _keep_cache(self, store: Optional[dict]) -> None:
+        """Hand a run's store back; if a run that ran meanwhile kept its own,
+        this one goes, with its graphs."""
+        if store is None:
+            return
+        with self._kept_cache_lock:
+            if self._kept_cache is None:
+                self._kept_cache = store
+                return
+        self._forget_cache(store)
+
+    def _forget_cache(self, store: dict) -> None:
+        """Drop the decode graphs that read `store` (each keys its cache's
+        tensors, "len" among them, by address: foundation.cache_id)."""
+        entry = cache_id({"len": store["len"]})[0]
+        self.loops.drop(lambda k: k[0] == "decode_chunk" and entry in k[1])
 
     # -- slicing (host) --------------------------------------------------------
 
@@ -470,10 +534,7 @@ class RecognitionPredictor(BasePredictor):
             cfg.max_sequence_length,
             -(-(prompt_bucket + max(max_tokens.values(), default=0)) // 256) * 256,
         )
-        cache = qwen_decoder.init_cache(
-            cfg.decoder, n_slots + 1, cache_len, self.dtype, self.device,
-            quantize=settings.RECOGNITION_MODEL_QUANTIZE, mesh=self.mesh,
-        )
+        cache, cache_store = self._take_cache(n_slots + 1, cache_len, bool(settings.RECOGNITION_MODEL_QUANTIZE))
         slot_prompt: List[Optional[int]] = [None] * n_slots
         # the slot state on the device (last token, active, repeat run), its
         # shadow on the host for scheduling, and the kill mask that carries
@@ -611,6 +672,8 @@ class RecognitionPredictor(BasePredictor):
             rec, inflight = inflight, None
             with stage(f"recognition.drain_{rec['kind']}"):
                 packed = self._wait(rec["handle"])
+            if rec["ran"] is not None:
+                rec["ran"].credit()  # the chunk's launches, now that its outputs are in
             if rec["kind"] == "prefill":
                 seed_from_prefill(packed[0], rec["slots"], rec["prompts"], rec["rows"])
             if len(packed) > 1 or rec["kind"] == "decode":
@@ -658,8 +721,8 @@ class RecognitionPredictor(BasePredictor):
                         not queue or (len(frees) - len(round_prompts)) / n_slots <= self.min_prefill_ratio
                     )
                     with stage("recognition.prefill"):
-                        handle, state = self._dispatch_prefill(cache, batch, slot_idx, row_valid, state,
-                                                               take_kill(), pin, fuse)
+                        handle, state, ran = self._dispatch_prefill(cache, batch, slot_idx, row_valid, state,
+                                                                    take_kill(), pin, fuse)
                     # the dispatch is in flight: build the next wave meanwhile,
                     # sized to this one (at steady state its slots free up)
                     if queue and pending is None:
@@ -667,8 +730,8 @@ class RecognitionPredictor(BasePredictor):
                     for slot, prompt in zip(target_slots, round_prompts):
                         slot_prompt[slot] = prompt.id
                         host_active[slot] = True
-                    inflight = {"kind": "prefill", "handle": handle, "slots": target_slots, "prompts": round_prompts,
-                                "rows": batch.valid_rows, "fused": fuse}
+                    inflight = {"kind": "prefill", "handle": handle, "ran": ran, "slots": target_slots,
+                                "prompts": round_prompts, "rows": batch.valid_rows, "fused": fuse}
                 elif held is None and pending is None and queue and len(frees) / n_slots > self.min_prefill_ratio:
                     # no wave built or building: start one; while slots decode
                     # the loop keeps sending decode chunks under it
@@ -695,14 +758,15 @@ class RecognitionPredictor(BasePredictor):
                             continue
                     # decode chunk N + 1 is enqueued before chunk N is read
                     with stage("recognition.decode"):
-                        handle, state = self._dispatch_decode(cache, state, take_kill(), pin)
+                        handle, state, ran = self._dispatch_decode(cache, state, take_kill(), pin)
                     drain_inflight()
-                    inflight = {"kind": "decode", "handle": handle}
+                    inflight = {"kind": "decode", "handle": handle, "ran": ran}
                 else:
                     drain_inflight()
         finally:
             builder.shutdown(wait=True)
             pbar.close()
+            self._keep_cache(cache_store)
 
         self.last_decoded_tokens += sum(len(t) for t in predicted_tokens)
 

@@ -13,7 +13,9 @@ matching, rowspan merging). The encoder states stay on the device: each
 query row reads its crop's states through a gather by ``enc_idx`` there,
 never fetched and uploaded again. Prompts are right-padded to
 PROMPT_BUCKETS, with the padded rows masked; batches are not padded, since
-rows do not interact. On CUDA the predictor runs on a stream of its own.
+rows do not interact. On CUDA the predictor runs on a stream of its own,
+and each pass's box loop is one replay of a CUDA graph (common/graphs.py),
+captured at the first pass of its rows and prompt length on each device.
 """
 
 from __future__ import annotations
@@ -29,10 +31,10 @@ import torch
 from PIL import Image
 from tqdm import tqdm
 
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.models import table_rec_model
-from surya_tpu_torch.models.adetr import DoneWatch
 from surya_tpu_torch.models.table_rec_model import BOX_DIM, CATEGORY_TO_ID, MERGE_KEYS, MERGE_VALUES, TableRecConfig
 from surya_tpu_torch.settings import settings
 from surya_tpu_torch.table_rec.loader import load_table_rec_model
@@ -105,10 +107,11 @@ class TableRecPredictor(BasePredictor):
         self.shaper = LabelShaper()
         self._script_rowcol = None  # install_synthetic_tables
         self._script_cells = None
-        # the last call's passes (rows, AR steps, host syncs, the host time
-        # spent enqueuing, steps recorded) and cell-pass batches
+        # the last call's passes (rows, AR steps, the host time spent
+        # enqueuing, steps recorded) and cell-pass batches
         self.last_run: dict = {}
         self.setup_mesh()  # a mesh: crops and prompts split over its data axis
+        self.loops = graphs.loops_for(self.device)  # the box loops, a graph per key and device on CUDA
 
     def prepare_image(self, img: Image.Image) -> np.ndarray:
         size = self.config.encoder.image_size
@@ -154,12 +157,12 @@ class TableRecPredictor(BasePredictor):
         vec_pad[n:] = vec_pad[n - 1]
         enc_idx = np.concatenate([enc_idx, np.repeat(enc_idx[-1:], rows - n)]).astype(np.int64)
         t0 = time.perf_counter()
-        watches = []  # a loop's own on each data shard
+        rans = []  # a box loop's on each data shard
 
         def generate(model, enc, vec, seq_lens):
-            watches.append(DoneWatch(enc.device))
-            bufs = model.generate(enc, vec, seq_lens, self.config.max_boxes, category_script=script,
-                                  watch=watches[-1])
+            steps = self._upload(script.astype(np.int64), enc.device) if script is not None else None
+            bufs, ran = model.launch_generate(enc, vec, seq_lens, self.config.max_boxes, steps, self.loops)
+            rans.append(ran)
             return torch.cat(
                 [bufs["bbox"]] + [bufs[k][..., None].float() for k in ("category", "merges", "colspan", "is_header",
                                                                         "valid")],
@@ -172,8 +175,8 @@ class TableRecPredictor(BasePredictor):
         enqueue_s = time.perf_counter() - t0
         [packed] = self._wait(handle)
         packed = packed[:n]
-        self.last_run["passes"].append({"rows": n, "steps": max(w.steps for w in watches),
-                                        "host_syncs": sum(w.syncs for w in watches) + 1,
+        # the JAX loop's steps: the prefill's, then the box loop's
+        self.last_run["passes"].append({"rows": n, "steps": 1 + max(ran.credit() for ran in rans),
                                         "enqueue_s": enqueue_s, "recorded": int((packed[..., 10] > 0.5).sum())})
 
         predictions: List[List[dict]] = []

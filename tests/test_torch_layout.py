@@ -221,22 +221,6 @@ def test_layout_generate_matches_jax(heads):
     assert compare_ar(3, jcfg.max_boxes, same, gap, compare_step) > 0
 
 
-def test_done_watch_stops_late_with_the_same_outputs():
-    """A loop that polls every step stops at most 2 * every - 1 steps after
-    every row is done; the steps past it record nothing."""
-    watch = adetr.DoneWatch(torch.device("cpu"))
-    done = torch.zeros(2, dtype=torch.bool)
-    stopped = None
-    for step in range(1, 100):
-        if step == 5:
-            done[:] = True
-        if watch.poll(done):
-            stopped = step
-            break
-    assert stopped is not None and 5 <= stopped < 5 + 2 * adetr.DoneWatch.every
-    assert watch.steps == stopped and watch.syncs == 0
-
-
 # -- predictors ------------------------------------------------------------------
 
 

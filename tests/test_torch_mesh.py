@@ -621,41 +621,6 @@ def test_meshed_recognition_unaligned_batch(unsharded_recognition):
     assert ours.tokens == single.tokens and got.text_lines[0].text == base.text_lines[0].text
 
 
-def test_done_watch_waits_on_its_own_card(monkeypatch):
-    """Layout's and table rec's box loops on a data shard's card run with the
-    predictor's card current: the shard's DoneWatch records its event on its
-    own card's stream, where the flag's copy runs, so that the wait covers
-    the copy. Fake CUDA streams and events stand in for two cards."""
-    from surya_tpu_torch.models import adetr
-
-    streams, recorded = {}, []
-
-    class FakeStream:
-        def __init__(self, device):
-            self.device = device
-
-    def current_stream(device=None):
-        dev = torch.device("cuda", 0) if device is None else torch.device(device)
-        return streams.setdefault(dev, FakeStream(dev))
-
-    class FakeEvent:
-        def record(self, stream=None):
-            recorded.append((stream or current_stream()).device)
-
-        def synchronize(self):
-            pass
-
-    empty = torch.empty
-    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
-    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
-    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: empty(*a, **k))
-    watch = adetr.DoneWatch(torch.device("cuda", 1))
-    done = torch.ones(2, dtype=torch.bool)
-    stopped = next(step for step in range(1, 100) if watch.poll(done))
-    assert recorded == [torch.device("cuda", 1)]
-    assert stopped == 2 * adetr.DoneWatch.every and watch.syncs == 1
-
-
 def test_meshed_batch_predictors():
     """Detection, layout, table recognition and OCR error on an 8x1 mesh of
     the CPU: the port's unsharded results (boxes, labels, table rows, columns
