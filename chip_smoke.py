@@ -115,7 +115,9 @@ where one PyTorch call computes the same function, that call. Then:
   ``GET /``, ``/healthz``, an unknown action (404) and ``ocr_error`` on an
   image (400); four ocr requests at once each answered with the sequential
   result; ten warm ocr requests with the same ``memory_allocated`` after
-  the 2nd and the 10th and no module output carrying a grad_fn; a PDF
+  the 2nd and the 10th, and no module output carrying a grad_fn in any
+  request from the first (whose captures run the modules in Python; a
+  warm ocr request only replays graphs); a PDF
   through detect where pypdfium2 imports; then ``python -m
   surya_tpu_torch.scripts.web_app --port 0`` as a process of its own (full
   width, random weights, build directories of its own): its URL line,
@@ -136,12 +138,14 @@ where one PyTorch call computes the same function, that call. Then:
   count and decode exactly 40 tokens a line. One line, ``BENCH_WORKLOAD
   {...}``, gives the best trial's pages/s, the three walls, boxes and
   tokens a page, its ``common/profiling`` stage split, its launches and the
-  card, one more trial's device busy share under ``torch.profiler``, and
-  the same for 3 trials with the decode chunk's eager loop put in place of
-  its CUDA graphs (``eager_loop``); then K1, K2 and K3 are held against
-  their plain versions at the shapes of the last warm-up's first wave and
-  first decode call, and the kernels line carries those times and the best
-  graphed trial's launches under ``bench_workload``.
+  card, one more trial's device busy share under ``torch.profiler``; the
+  same for 3 trials with the programs eager and the loops graphed
+  (``programs_eager``: the AR loops alone graphed) and for 3 with everything plain
+  (``plain``), each trial's launches equal to the graphed trials'; then
+  K1, K2 and K3 are held against their plain versions at the shapes of the
+  first wave and first decode call of a warm-up whose prefill ran eagerly,
+  and the kernels line carries those times and the best graphed trial's
+  launches under ``bench_workload``.
 - (phase 27) the checkpoint-validation command,
   ``surya_tpu_torch.scripts.validate_checkpoints``, and its six accuracy
   stages (``surya_tpu_torch/benchmark``): (a) ``main()`` over all six
@@ -171,6 +175,21 @@ where one PyTorch call computes the same function, that call. Then:
   then a longer one, then all four in turn) from an empty slot-cache store:
   each length captured once while the store is long enough, the longer one
   replacing the store and its graphs once (7 captures in all).
+- (phase 29) the one-shot programs as the predictors run them on the card,
+  CUDA graph replays (``common/graphs.ProgramGraphs``), against their plain
+  version (``graphs.EagerPrograms``) on the same inputs, each twice: the
+  detection stats program with and without the device resize on 4 pages of
+  ``build_page()`` and on a page whose one line is a spiral, the maps
+  program, and the component flood alone on the spiral's mask (its loop a
+  WHILE node: as many blocks of rounds as the host loop); recognition's
+  prefill wave of 2 pages' lines into a 129-slot cache whose other slots
+  decode, alone and fused with its decode chunk, pinned and free-running;
+  and whole-page OCR through the streaming path whose second page group has
+  another page size, so that the detection worker thread captures while the
+  main thread replays. Every output must be equal (labels, stats, counts,
+  thresholds, token ids, scores, boxes, slot state, cache bytes); each
+  key's capture time and reserved memory, and the keys the whole-page
+  phases and phase 26 captured, are printed.
 
 The random-weight phases point the five ``*_MODEL_CHECKPOINT`` settings at
 a path that does not exist, so that no predictor resolves or fetches a
@@ -210,6 +229,7 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import dataclasses
 import importlib
@@ -256,6 +276,8 @@ if __name__ == "__main__":  # the settings are read when the port is first impor
 from PIL import Image, ImageDraw  # noqa: E402
 
 from surya_tpu_torch.detection import DetectionPredictor, resize_on_device  # noqa: E402
+from surya_tpu_torch.detection.util import get_total_splits, split_image  # noqa: E402
+from surya_tpu_torch.ops import connected_components as cc  # noqa: E402
 from surya_tpu_torch.layout import LayoutPredictor  # noqa: E402
 from surya_tpu_torch.layout.loader import layout_config  # noqa: E402
 from surya_tpu_torch.layout.slicer import ImageSlicer  # noqa: E402
@@ -305,6 +327,11 @@ STREAM_PAGES, PIPELINE_PAGES = 16, 8
 # (:50-57; it never sets RECOGNITION_MODEL_QUANTIZE, so the KV cache is bf16),
 # 16 pages of its build_page() of 40 lines each, and the best of 3 full trials
 BENCH_PAGES, BENCH_LINES, BENCH_TRIALS = 16, 40, 3
+# phase 26's configurations: label -> (programs graphed, loops graphed), the
+# summary key of each after the first, and the stages whose split it prints
+BENCH_CONFIGS = {"graphed": (True, True), "loops graphed, programs eager": (False, True), "plain": (False, False)}
+BENCH_CONFIG_KEYS = {"loops graphed, programs eager": "programs_eager", "plain": "plain"}
+BENCH_STAGES = ("recognition.prefill", "recognition.detect", "recognition.prefill_build", "recognition.drain_prefill")
 BENCH_ENV = {"ALLOW_RANDOM_WEIGHTS": "true", "RECOGNITION_MAX_TOKENS": str(PIN_TOKENS),
              "RECOGNITION_PIN_DECODE": "true", "RECOGNITION_DECODE_CHUNK": str(PIN_TOKENS), "DISABLE_TQDM": "true"}
 # the share of lines whose token ids must agree between the pipelined
@@ -811,7 +838,9 @@ class MainPathShapes(DecodeShapes):
     stand-ins too (in this script only): the first `depth` K1 calls (one
     prefill wave's blocks, in block order) keep their group ids and window
     starts (device copies) and window lengths, and the first K2 call its
-    shapes."""
+    shapes. A prefill wave replayed from its graph calls no stand-in: the
+    caller runs the recorded call with the prefill eager
+    (graphs.EagerPrograms)."""
 
     def __init__(self, encoder_config):
         super().__init__()
@@ -2701,6 +2730,7 @@ def check_web_in_process(preds, pages, power):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
+    stack = contextlib.ExitStack()
     try:
         status, page, _ = http(base + "/")
         status2, health, _ = http(base + "/healthz")
@@ -2714,6 +2744,13 @@ def check_web_in_process(preds, pages, power):
             raise AssertionError(f"ocr_error on an image answered {status}: {out}")
         print("    GET / 200, /healthz {\"ok\": true}, an unknown action 404, ocr_error on an image 400 "
               "(\"This feature only works with PDFs.\")")
+
+        # every module output from here to (c) is watched for a grad_fn: the
+        # first requests of a key run each model's modules in Python (a
+        # graph's warm-up and capture), and layout's and table rec's encoders
+        # run eagerly in every request; a warm ocr request replays graphs only
+        grads = GradOutputs([p.model for p in preds.values()])
+        stack.enter_context(grads)
 
         # (a) every action on every page: the answer against the direct call
         answers = {}
@@ -2777,18 +2814,18 @@ def check_web_in_process(preds, pages, power):
             raise AssertionError("a concurrent ocr request answered other than the sequential request")
 
         # (c) memory over warm requests, and no autograd graph in a handler
-        models = [p.model for p in preds.values()]
         needs_grad = {name: sum(q.requires_grad for q in p.model.parameters()) for name, p in preds.items()}
-        allocated = []
-        with GradOutputs(models) as grads:
-            for _ in range(WEB_WARM):
-                status, out, _ = http(f"{base}/api/ocr", body)
-                torch.cuda.synchronize()
-                allocated.append(torch.cuda.memory_allocated())
-                if status != 200 or out["result"] != ref:
-                    raise AssertionError(f"a warm ocr request answered {status} or another result")
+        allocated, calls_before = [], grads.calls
+        for _ in range(WEB_WARM):
+            status, out, _ = http(f"{base}/api/ocr", body)
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated())
+            if status != 200 or out["result"] != ref:
+                raise AssertionError(f"a warm ocr request answered {status} or another result")
+        stack.close()
         print(f"    {WEB_WARM} warm ocr requests: memory_allocated after each {allocated}; module outputs with a "
-              f"grad_fn {len(grads.found)} of {grads.calls}; parameters that require grad {needs_grad}")
+              f"grad_fn {len(grads.found)} of {grads.calls} since (a), {grads.calls - calls_before} of them in the "
+              f"warm ocr requests; parameters that require grad {needs_grad}")
         if allocated[1] != allocated[-1]:
             raise AssertionError(f"device memory grew over warm requests: {allocated[1]} -> {allocated[-1]}")
         if grads.found or not grads.calls:
@@ -2806,6 +2843,7 @@ def check_web_in_process(preds, pages, power):
             print(f"    PDF upload: detect on a one-page PDF 200, image_bbox {out['result']['image_bbox']}, wall "
                   f"{wall:.4f} s [{power}]")
     finally:
+        stack.close()
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
@@ -3010,7 +3048,15 @@ def check_bench_workload(gen, power):
     warm-up detection's line count and decode exactly 40 tokens a line. K1,
     K2 and K3 are then held against their plain versions at the recorded
     shapes. Returns (the best graphed trial's launch counts, the held cases'
-    results)."""
+    results).
+
+    The trials run in three configurations in turn (BENCH_CONFIGS): every
+    program graphed (detection's stats program and recognition's prefill
+    waves through their ProgramGraphs, the decode chunk through its
+    LoopGraphs), the programs eager with the loops graphed (graphs.
+    EagerPrograms), and all plain (EagerLoops too): each with its stage
+    split and a traced trial's busy share. The kernels' shapes are recorded
+    in a warm-up whose prefill runs eagerly."""
     saved = dict(vars(settings))
     vars(settings).update(vars(Settings({**load_dotenv(), **os.environ, **BENCH_ENV})))
     try:
@@ -3036,11 +3082,20 @@ def check_bench_workload(gen, power):
         boxes = [len(r.bboxes) for r in det_results]
         polys = [[b.polygon for b in r.bboxes] for r in det_results]
         rec(pages, polygons=polys)
+        # the kernels' first shapes, recorded in a call whose prefill waves
+        # run eagerly: a replay calls no stand-in, and under a capture the
+        # stand-ins' copies would be graph memory
         shapes = MainPathShapes(rec.config.encoder)
-        with shapes:
-            rec(pages, det_predictor=det)
-        print(f"    warm-ups (det, rec with polygons, rec with det_predictor) {time.perf_counter() - t0:.1f} s; "
-              f"{sum(boxes) / len(boxes):.1f} boxes a page {boxes}")
+        stores = {"rec.programs": rec.programs, "det.programs": det.programs, "rec.loops": rec.loops}
+        rec.programs = graphs.EagerPrograms()
+        try:
+            with shapes:
+                rec(pages, det_predictor=det)
+        finally:
+            rec.programs = stores["rec.programs"]
+        rec(pages, det_predictor=det)  # the programs' graphs captured before the first profiler session
+        print(f"    warm-ups (det, rec with polygons, rec with det_predictor twice: eager prefill, then graphed) "
+              f"{time.perf_counter() - t0:.1f} s; {sum(boxes) / len(boxes):.1f} boxes a page {boxes}")
 
         def trials(label):
             out = []
@@ -3053,7 +3108,8 @@ def check_bench_workload(gen, power):
                 prof, counts, tokens = profiling.report(reset=True), read_counts(), rec.last_decoded_tokens
                 n_l = check_lines(results, pages, boxes)  # the warm-up detection's count on every page
                 print(f"    {label} trial {i}: {wall:.4f} s, {BENCH_PAGES / wall:.4f} pages/s, {n_l} lines, {tokens} "
-                      f"tokens, K3 launches {counts['gqa_decode']} [{power}]")
+                      f"tokens, K1/K2/K3 launches {counts['segmented_block_attention']}/"
+                      f"{counts['causal_flash_attention']}/{counts['gqa_decode']} [{power}]")
                 if tokens != PIN_TOKENS * n_l:
                     raise AssertionError(f"trial {i}: {tokens} tokens for {n_l} lines, want {PIN_TOKENS} a line")
                 assert_launched(f"bench.py's workload, {label} trial {i}", counts,
@@ -3062,35 +3118,50 @@ def check_bench_workload(gen, power):
                 out.append((wall, prof, counts, tokens))
             return out
 
-        def summarise(runs) -> dict:
+        def summarise(runs, traced) -> dict:
             wall, prof, counts, tokens = min(runs, key=lambda t: t[0])
             return {"pages_per_s": BENCH_PAGES / wall, "trial_walls_s": [t[0] for t in runs],
                     "decoded_tokens_per_page": tokens / BENCH_PAGES,
                     "stages": {k: {"total_s": v["total_s"], "calls": v["calls"]} for k, v in sorted(prof.items())},
                     "launches": {n: counts[n] for n in ("segmented_block_attention", "causal_flash_attention",
                                                         "gqa_decode", "gqa_decode_int8")},
-                    "k1_launches_by_kv_range": counts[K1_BY_RANGE]}
+                    "k1_launches_by_kv_range": counts[K1_BY_RANGE],
+                    "traced_trial": {"wall_s": traced[0], "device_busy_share": traced[1]}}
 
-        graphed = trials("graphed loops")
-        traced_graphed = busy_share(lambda: rec(pages, det_predictor=det))
-        # the same trials with the decode chunk's plain version put back
-        # (the eager loop, its cond read on the host after each step)
-        store, rec.loops = rec.loops, graphs.EagerLoops()
-        try:
-            eager = trials("eager loop")
-            traced_eager = busy_share(lambda: rec(pages, det_predictor=det))
-        finally:
-            rec.loops = store
+        # the three configurations, in one run: each trial's launches must be
+        # the graphed trials' (a replay credits what the eager program counts)
+        runs = {}
+        for label, (programs_graphed, loops_graphed) in BENCH_CONFIGS.items():
+            rec.programs = stores["rec.programs"] if programs_graphed else graphs.EagerPrograms()
+            det.programs = stores["det.programs"] if programs_graphed else graphs.EagerPrograms()
+            rec.loops = stores["rec.loops"] if loops_graphed else graphs.EagerLoops()
+            try:
+                out = trials(label)
+                runs[label] = summarise(out, busy_share(lambda: rec(pages, det_predictor=det)))
+            finally:
+                rec.programs, det.programs, rec.loops = stores.values()
+            split = {k: round(runs[label]["stages"].get(k, {}).get("total_s", 0.0), 4) for k in BENCH_STAGES}
+            print(f"    {label}: best {runs[label]['pages_per_s']:.4f} pages/s, busy "
+                  f"{runs[label]['traced_trial']['device_busy_share']:.1%} of a traced trial; stages {split}")
+            want = runs[next(iter(BENCH_CONFIGS))]
+            for t in out:
+                if {n: t[2][n] for n in want["launches"]} != want["launches"] or \
+                        t[2][K1_BY_RANGE] != want["k1_launches_by_kv_range"]:
+                    raise AssertionError(f"{label}: launches {t[2]} differ from the graphed trials' {want}")
+        graphed = runs[next(iter(BENCH_CONFIGS))]
         summary = {
-            **summarise(graphed), "boxes_per_page": sum(boxes) / len(boxes), "pinned_tokens_per_line": PIN_TOKENS,
+            **graphed, "boxes_per_page": sum(boxes) / len(boxes), "pinned_tokens_per_line": PIN_TOKENS,
             "decode_chunk": rec.decode_chunk,
-            "traced_trial": {"wall_s": traced_graphed[0], "device_busy_share": traced_graphed[1]},
-            "eager_loop": {**summarise(eager),
-                           "traced_trial": {"wall_s": traced_eager[0], "device_busy_share": traced_eager[1]}},
-            "decode_graphs": {str(k[2:5]): v for k, v in rec.loops.captures.items()}, "card": power,
+            **{BENCH_CONFIG_KEYS[label]: r for label, r in list(runs.items())[1:]},
+            "decode_graphs": {str(k[2:5]): v for k, v in rec.loops.captures.items()},
+            "program_graphs": {program_key_label(k): v for store in (rec.programs, det.programs)
+                               for k, v in store.captures.items()},
+            "card": power,
         }
-        counts = min(graphed, key=lambda t: t[0])[2]
+        counts = {**graphed["launches"], K1_BY_RANGE: graphed["k1_launches_by_kv_range"]}
         print("BENCH_WORKLOAD " + json.dumps(summary))
+        print(f"    program keys captured: {len(rec.programs.captures)} prefill, {len(det.programs.captures)} "
+              f"detection; {len(rec.loops.captures)} decode chunk keys")
 
         print("    K1, K2 and K3 against their plain versions at the shapes of the last warm-up's first wave and "
               "first decode call")
@@ -3344,6 +3415,274 @@ def busy_share(fn) -> tuple:
         else:
             cur_e = max(cur_e, e_)
     return wall, (busy + cur_e - cur_s) / 1e6 / wall
+
+
+# -- one-shot programs as CUDA graphs against their plain version (phase 29) -----
+# Detection's stats and maps programs and recognition's prefill wave, each
+# through a new graphs.ProgramGraphs (captured at its first call, replayed at
+# the second) and through graphs.EagerPrograms, the plain version (the same
+# body run eagerly, the flood's loop read on the host), on the same inputs;
+# every output must be equal, bit for bit. The spiral: a rectangular spiral
+# of SPIRAL_PITCH px, whose label creeps one arm a round.
+PROGRAM_PAGES, SPIRAL_PITCH = 4, 48
+
+
+def program_key_label(key) -> str:
+    """A program store's key, short: the program, its flags and shapes."""
+    if isinstance(key, str):
+        return key
+    if key[0] == "prefill":
+        shapes = {name: shape for name, shape, _ in key[7:]}
+        return (f"prefill rows={shapes['input_ids'][0]} L={shapes['input_ids'][1]} patches={shapes['patches'][0]} "
+                f"kv_range={key[2]} win_range={key[3]} pin={key[4]}")
+    shapes = {name: shape for name, shape, _ in key[2:]}
+    return (f"detection {key[0][0]}{list(key[0][1:])} pixels={list(shapes['pixels'])}"
+            + (f" pages={list(shapes['page_gather'])}" if "page_gather" in shapes else ""))
+
+
+def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b|, equal elements (infinities too) counting 0."""
+    if not a.numel():
+        return 0.0
+    a, b = a.float(), b.float()
+    return torch.where(a == b, 0.0, (a - b).abs()).max().item()
+
+
+def store_report(store) -> str:
+    """Each key of a program store: its capture's seconds (build, warm-up
+    and capture), the memory its warm-up reserved outside the graphs and
+    the growth of the store's shared pools; then the pools' size."""
+    keys = "; ".join(f"{program_key_label(k)}: capture {c['capture_s']:.3f} s, warm-up +{c['warm_up_bytes'] / 2**20:.1f} "
+                     f"MiB, pools +{c['pool_bytes'] / 2**20:.1f} MiB" for k, c in store.captures.items())
+    return f"{keys}; the store's pools {store.pool_bytes() / 2**20:.1f} MiB" if store.captures else "no key"
+
+
+def spiral_page(width=1240, height=1754) -> Image.Image:
+    """A page whose one dark line winds inward as a rectangular spiral."""
+    img = Image.new("RGB", (width, height), "white")
+    draw = ImageDraw.Draw(img)
+    x0, y0, x1, y1 = 60, 60, width - 60, height - 60
+    while x1 - x0 > 2 * SPIRAL_PITCH and y1 - y0 > 2 * SPIRAL_PITCH:
+        for box in ((x0, y0, x1, y0 + 6), (x1 - 6, y0, x1, y1), (x0, y1 - 6, x1, y1),
+                    (x0, y0 + SPIRAL_PITCH, x0 + 6, y1)):
+            draw.rectangle(box, fill="black")
+        draw.rectangle((x0, y0 + SPIRAL_PITCH, x0 + SPIRAL_PITCH, y0 + SPIRAL_PITCH + 6), fill="black")
+        x0, y0, x1, y1 = x0 + SPIRAL_PITCH, y0 + SPIRAL_PITCH, x1 - SPIRAL_PITCH, y1 - SPIRAL_PITCH
+    return img
+
+
+def detection_inputs(det, images, resize: bool):
+    """One detection batch's program inputs on the card, as batch_detection
+    builds them: (pixels, (Vs, Hs, gid) or None, page_gather, valid_rows,
+    rows with a chunk)."""
+    proc_h = det.processor_size[0]
+    splits = [get_total_splits(im.size, proc_h) for im in images]
+    parts, index, heights = [], [], []
+    for i, im in enumerate(images):
+        chunks, h = split_image(im.convert("RGB"), proc_h)
+        parts += chunks
+        index += [i] * len(chunks)
+        heights += h
+    rows = 1 << (len(parts) - 1).bit_length()
+    if resize:
+        pixels, (uniq, gid) = det._canvas(parts, rows)
+        mats = (*det._resize_mats(uniq, 1 << (len(uniq) - 1).bit_length(), pixels.shape[1:3]), det._upload(gid))
+    else:
+        pixels, mats = det._prepared(parts, rows), None
+    page_gather, valid_rows = det._page_plan(index, heights, splits, list(range(len(images))))
+    return det._upload(pixels), mats, det._upload(page_gather), det._upload(valid_rows), len(parts)
+
+
+def graph_and_plain(owner, attr, call, label, power, calls=2):
+    """call() with owner.attr a new ProgramGraphs (capture, then replays),
+    then with an EagerPrograms in its place, `calls` times each, the
+    outputs copied after each call: every output must be equal. Returns the
+    graphed store and its last outputs."""
+    saved, store = getattr(owner, attr), graphs.ProgramGraphs()
+    outs = {}
+    try:
+        for name, programs in (("graph", store), ("plain", graphs.EagerPrograms())):
+            setattr(owner, attr, programs)
+            outs[name] = []
+            for _ in range(calls):
+                out, wall = synchronised(call)
+                outs[name].append(([t.clone() for t in out], wall))
+    finally:
+        setattr(owner, attr, saved)
+    rows = []
+    for i, ((g, wg), (e, we)) in enumerate(zip(outs["graph"], outs["plain"])):
+        diff = max(max_diff(a, b) for a, b in zip(g, e))
+        equal = all(torch.equal(a, b) for a, b in zip(g, e))
+        rows.append(f"call {i}: outputs equal {equal} (max |diff| {diff}), wall {wg:.4f} s (plain {we:.4f} s)")
+        if not equal:
+            raise AssertionError(f"{label}: the graph's outputs differ from the plain program's: {rows[-1]}")
+    print(f"    {label}: {'; '.join(rows)}; {store_report(store)} [{power}]")
+    return store, outs["graph"][-1][0]
+
+
+def check_detection_programs(det, power):
+    """Phase 29, detection: the stats program with and without the device
+    resize on PROGRAM_PAGES pages of build_page() and on a spiral page (its
+    flood's blocks counted on the card and on the host), and the maps
+    program; then the flood alone on the spiral page's mask."""
+    pages = [build_page() for _ in range(PROGRAM_PAGES)]
+    for label, images in (("build_page() pages", pages), ("a spiral page", [spiral_page()])):
+        for resize in (False, True):
+            with det._on_stream(), torch.inference_mode():
+                pixels, mats, page_gather, valid_rows, n_real = detection_inputs(det, images, resize)
+
+                def stats():
+                    return (det._stats_program(pixels, mats, page_gather, valid_rows, settings.DETECTOR_MAX_COMPONENTS),)
+
+                _, (result,) = graph_and_plain(det, "programs", stats, f"stats program, {label}, "
+                                               f"{'device' if resize else 'host'} resize", power)
+                result = result.cpu()
+                print(f"      components a page {result[:len(images), -3].int().tolist()} (raw "
+                      f"{result[:len(images), -2].int().tolist()}), thresholds "
+                      f"{[round(v, 4) for v in result[:len(images), -1].tolist()]}")
+                if (result[:len(images), -3] < 1).any():
+                    raise AssertionError(f"stats program, {label}: a page without components")
+    with det._on_stream(), torch.inference_mode():
+        pixels, mats, _, _, n_real = detection_inputs(det, pages, True)
+        graph_and_plain(det, "programs", lambda: (det._maps_program(pixels, mats, n_real, 2),),
+                        f"maps program, {PROGRAM_PAGES} pages, 2 maps", power)
+
+        # the flood alone, on the spiral page's head-resolution mask
+        heat = det._heat(*detection_inputs(det, [spiral_page(896, 896)], True)[:2])[:1, 0]
+        mask = heat > 0.5
+
+        def flood_program():
+            x = graphs.static_inputs({"mask": mask}, mask.device)
+            out = (torch.empty(mask.shape, dtype=torch.int64, device=mask.device),
+                   torch.empty((), dtype=torch.int32, device=mask.device))
+
+            def body():
+                labels, blocks = cc.flood(x["mask"])
+                out[0].copy_(labels)
+                out[1].copy_(blocks)
+
+            return graphs.Program(x, out, body)
+
+        store, outs = graphs.ProgramGraphs(), {}
+        for name, programs in (("graph", store), ("plain", graphs.EagerPrograms())):
+            for _ in range(2):
+                res, wall = synchronised(lambda: programs.run("flood", flood_program, {"mask": mask}))
+                outs[name] = (res[0].clone(), int(res[1]), wall)
+        (lg, bg, wg), (le, be, we) = outs["graph"], outs["plain"]
+        n_comp = int(((lg.reshape(-1) > 0) & (lg.reshape(-1) == torch.arange(1, lg.numel() + 1, device=lg.device))).sum())
+        print(f"    the flood alone on the spiral's mask {list(mask.shape)}: {bg} blocks of {cc.ROUNDS_PER_CHECK} rounds "
+              f"on the card's WHILE node, {be} on the host's loop; labels equal {torch.equal(lg, le)}, "
+              f"{n_comp} components; wall {wg:.4f} s (host loop {we:.4f} s); {store_report(store)} [{power}]")
+        if not torch.equal(lg, le) or bg != be or bg < 2:
+            raise AssertionError(f"the flood's WHILE node: {bg} blocks (host {be}), labels equal {torch.equal(lg, le)}")
+
+
+def check_prefill_programs(pred, det, power):
+    """Phase 29, recognition: one prefill wave of the lines of 2 pages of
+    build_page() into a slot cache whose other slots hold random rows and
+    decode, alone and fused with its decode chunk, pinned and
+    free-running: the packed outputs, the slot state and the cache's bytes
+    and lengths through the graphs (ProgramGraphs and the decode chunk's
+    LoopGraphs) against the eager program and loop, twice each."""
+    pages = [build_page() for _ in range(2)]
+    flat = pred.detect_and_slice_bboxes([p.copy() for p in pages], ["ocr_with_boxes"] * 2, det)
+    batch, n = first_wave(pred, flat)
+    rows = batch.input_ids.shape[0]
+    n_slots = pred.n_slots + 1
+    cache_len = -(-(batch.input_ids.shape[1] + PIN_TOKENS) // 256) * 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    rng = np.random.default_rng(SEED + 29)
+    slot_idx = np.full(rows, n_slots - 1, np.int32)
+    slot_idx[batch.valid_rows] = rng.permutation(n_slots - 1)[:n]
+    row_valid = np.zeros(rows, bool)
+    row_valid[batch.valid_rows] = True
+    dec = pred.config.decoder
+    base = qwen_decoder.init_cache(dec, n_slots, cache_len, pred.dtype, "cuda")
+    others = torch.from_numpy(~np.isin(np.arange(n_slots), slot_idx)).cuda()
+    for key in ("k", "v"):
+        base[key].copy_(torch.randn(base[key].shape, generator=gen, device="cuda") * 0.5)
+    base["len"].copy_(torch.where(others, torch.randint(8, 64, (n_slots,), generator=gen, device="cuda",
+                                                        dtype=torch.int32), 0))
+    state0 = (torch.randint(4, pred.config.vocab_size, (n_slots,), generator=gen, device="cuda", dtype=torch.int32),
+              others.clone(), torch.ones(n_slots, dtype=torch.int32, device="cuda"))
+    kill = rng.random(n_slots) < 0.05
+    print(f"    a wave of {n} lines ({rows} rows, L={batch.input_ids.shape[1]}, {batch.patches.shape[0]} patches, "
+          f"kv_range {batch.layout.kv_range}) into {n_slots} slots of {cache_len} rows, "
+          f"{int(others.sum())} other slots decoding, {int(kill.sum())} killed")
+    for pin in (True, False):
+        for fuse in (False, True):
+            label = f"prefill{' + decode chunk' if fuse else ''}, {'pinned' if pin else 'free-running'}"
+            results = {}
+            for name, programs, loops in (("graph", graphs.ProgramGraphs(), graphs.LoopGraphs()),
+                                          ("plain", graphs.EagerPrograms(), graphs.EagerLoops())):
+                cache = {k: v.clone() for k, v in base.items()}
+                saved = (pred.programs, pred.loops)
+                pred.programs, pred.loops = programs, loops
+                try:
+                    runs, state = [], state0
+                    with pred._on_stream(), torch.inference_mode():
+                        for call in range(2):
+                            (handle, state, ran), wall = synchronised(
+                                pred._dispatch_prefill, cache, batch, slot_idx, row_valid, state, kill, pin, fuse)
+                            state = tuple(t.clone() for t in state)
+                            runs.append(([torch.from_numpy(a.copy()) for a in pred._wait(handle)],
+                                         [t.cpu() for t in state], wall, ran.credit() if ran else 0))
+                finally:
+                    pred.programs, pred.loops = saved
+                results[name] = (runs, {k: v.clone() for k, v in cache.items()}, programs)
+            (g_runs, g_cache, g_store), (e_runs, e_cache, _) = results["graph"], results["plain"]
+            rows_out = []
+            for i, (g, e) in enumerate(zip(g_runs, e_runs)):
+                same = [torch.equal(a, b) for a, b in zip(g[0] + g[1], e[0] + e[1])]
+                diff = max(max_diff(a, b) for a, b in zip(g[0], e[0]))
+                rows_out.append(f"call {i}: packed and state equal {all(same)} (max |diff| {diff}), steps "
+                                f"{g[3]}/{e[3]}, wall {g[2]:.4f} s (plain {e[2]:.4f} s)")
+                if not all(same) or g[3] != e[3]:
+                    raise AssertionError(f"{label}: the graphs differ from the plain programs: {rows_out[-1]}")
+            kv_diff = max(max_diff(g_cache[k], e_cache[k]) for k in ("k", "v"))
+            cache_same = all(torch.equal(g_cache[k], e_cache[k]) for k in g_cache)
+            print(f"    {label}: {'; '.join(rows_out)}; cache bytes and lengths equal {cache_same} (max |diff| "
+                  f"{kv_diff}); {store_report(g_store)} [{power}]")
+            if not cache_same:
+                raise AssertionError(f"{label}: the graphs' slot cache differs from the plain programs'")
+
+
+def check_streaming_capture(pred, det, power):
+    """Phase 29: whole-page OCR through the streaming path, its second page
+    group of another page size than the first, so that the detection
+    worker thread captures the new group's detection program while the main
+    thread replays recognition's graphs; the lines equal the same call's
+    with every program eager."""
+    pages = synthetic_full_pages(np.random.default_rng(SEED + 30), PIPELINE_PAGES) + bench_pages(PIPELINE_PAGES)
+    saved = (settings.RECOGNITION_DET_PIPELINE_PAGES, pred.programs, det.programs)
+    settings.RECOGNITION_DET_PIPELINE_PAGES = PIPELINE_PAGES
+    set_pin(True)
+    threads, outs = [], {}
+    try:
+        for name, make in (("graph", graphs.ProgramGraphs), ("plain", graphs.EagerPrograms)):
+            pred.programs, det.programs = make(), make()
+            if name == "graph":
+                capture = det.programs._capture
+
+                def on_thread(*args, _capture=capture):
+                    threads.append(threading.current_thread().name)
+                    return _capture(*args)
+
+                det.programs._capture = on_thread
+            results, wall = synchronised(lambda: pred([p.copy() for p in pages], det_predictor=det))
+            outs[name] = ([[(ln.text, ln.confidence, ln.polygon) for ln in r.text_lines] for r in results], wall,
+                          det.programs, pred.programs)
+    finally:
+        settings.RECOGNITION_DET_PIPELINE_PAGES, pred.programs, det.programs = saved
+    (g, wg, g_det, g_rec), (e, we, _, _) = outs["graph"], outs["plain"]
+    workers = [t for t in threads if t != threading.main_thread().name]
+    print(f"    streaming, {len(pages)} pages in groups of {PIPELINE_PAGES} (1024x1024, then 1240x1754): "
+          f"{len(threads)} detection captures, {len(workers)} on the worker thread; lines equal {g == e} "
+          f"({sum(len(r) for r in g)} lines); wall {wg:.4f} s (eager programs {we:.4f} s) [{power}]")
+    print(f"      detection: {store_report(g_det)}")
+    print(f"      recognition: {store_report(g_rec)}")
+    if g != e or not workers:
+        raise AssertionError(f"streaming capture: lines equal {g == e}, worker-thread captures {len(workers)}")
 
 
 # -- the checkpoint-validation command (phase 27) -------------------------------
@@ -3612,7 +3951,9 @@ def main():
     pred = RecognitionPredictor(device="cuda")
     print(f"    model built in {time.perf_counter() - t0:.1f} s")
     pages, bboxes = synthetic_pages(np.random.default_rng(SEED))
-    for pin in (True, False):  # warm-up at the measured shapes (cuBLAS, allocator, each decode graph's capture)
+    # warm-up at the measured shapes (cuBLAS, allocator, each graph's capture), the longer
+    # free-running cache first: the pinned run's then is a view of the kept store, as measured
+    for pin in (False, True):
         run_predictor(pred, pages, bboxes, pin=pin)
     counts, shapes = {}, {}
     for label, pin in [("pinned 40", True), ("free-running", False)]:
@@ -3646,7 +3987,7 @@ def main():
     print(f"    detection model built in {time.perf_counter() - t0:.1f} s")
     settings.RECOGNITION_MODEL_QUANTIZE = True
     ocr_pages = synthetic_full_pages(np.random.default_rng(SEED + 1))
-    for pin in (True, False):  # warm-up at the measured shapes (cuDNN, cuBLAS, allocator, decode graphs)
+    for pin in (False, True):  # warm-up at the measured shapes (cuDNN, cuBLAS, allocator, graphs), as above
         run_full_page(pred, det, ocr_pages, pin=pin)
     for label, pin in [("whole-page pinned 40", True), ("whole-page free-running", False)]:
         reset_counts()
@@ -3687,6 +4028,12 @@ def main():
     check_sync_free_dispatch(pred, det, stream_pages, power)
     print(f"[12] stream() over a generator of the {STREAM_PAGES} pages")
     check_stream(pred, det, stream_pages, batch_results, power)
+    whole_page_keys = (f"{len(pred.programs.captures)} prefill and {len(det.programs.captures)} detection program "
+                       f"keys, {len(pred.loops.captures)} decode chunk keys; reserved "
+                       f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    print(f"    captured by the whole-page phases (6 to 12): {whole_page_keys}")
+    print(f"      recognition: {store_report(pred.programs)}")
+    print(f"      detection: {store_report(det.programs)}")
     settings.RECOGNITION_MODEL_QUANTIZE = False
     set_pin(False)
 
@@ -3759,6 +4106,16 @@ def main():
     print(f"    recognition's own decode graphs: {pool_mib(pred.loops)}")
     check_alternating_cache_lengths(pred, power)
     print(f"    phase 28 took {time.perf_counter() - t28:.1f} s [{power}]")
+    print("[29] the one-shot programs as CUDA graph replays against their plain version on the same inputs: "
+          "detection's stats program (the flood a WHILE node) and maps program, recognition's prefill wave alone "
+          "and fused with its decode chunk, and a capture on the streaming path's detection worker thread")
+    t29 = time.perf_counter()
+    print(f"    keys the whole-page phases captured: {whole_page_keys}")
+    check_detection_programs(det, power)
+    check_prefill_programs(pred, det, power)
+    check_streaming_capture(pred, det, power)
+    print(f"    phase 29 took {time.perf_counter() - t29:.1f} s; reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB [{power}]")
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given
     # lines; the others: whole-page OCR, int8 cache). K1's full-attention and

@@ -22,7 +22,8 @@ each mode it prints:
   streaming run it overlaps recognition) and their waits for the device;
   for layout and table rec the host time enqueueing the box loops (on the
   card each a CUDA graph replay, captured in the warm-up run) and the waits
-  for their outputs;
+  for their outputs; recognition's prefill waves and detection's stats
+  programs are CUDA graph replays too, captured in the same warm-up run;
 - traced, one more run under torch.profiler: that run's own wall, the
   device's busy time in it (the union of kernel, copy and memset intervals),
   the number of kernels, device time by kind and the largest kernels.
@@ -165,6 +166,7 @@ def box_loop_modes():
     lay = LayoutPredictor(device="cuda")
     tab = TableRecPredictor(device="cuda")
     install_synthetic_tables(tab, chip_smoke.TABLE_ROWS, chip_smoke.TABLE_COLS, chip_smoke.TABLE_CELLS)
+    STORES.extend([lay.loops, tab.loops])
     pages = chip_smoke.bench_pages(chip_smoke.LAYOUT_PAGES)
     crops = [p.crop((100, 100, 868, 868)) for p in pages[: chip_smoke.TABLE_CROPS]]
     as_called = lay.config
@@ -199,6 +201,11 @@ def box_loop_modes():
 
 
 SPLITS: list = []
+STORES: list = []  # the graph stores of the mode's predictors (captures, by key)
+
+
+def captured_keys() -> int:
+    return sum(len(store.captures) for store in STORES)
 
 
 def recognition_modes(stats):
@@ -213,6 +220,7 @@ def recognition_modes(stats):
                                                    chip_smoke.STREAM_PAGES)
     time_calls(pred, ("_dispatch_prefill", "_dispatch_decode", "_wait"), stats)
     time_calls(det, ("_wait",), stats, prefix="det.")
+    STORES.extend([pred.loops, pred.programs, det.programs])
 
     def given_lines(pin):
         wall, _, toks = chip_smoke.run_predictor(pred, pages, bboxes, pin=pin)
@@ -247,13 +255,15 @@ def print_trace(trace):
 
 
 def measure(label: str, power: str) -> dict:
-    """One mode: its warm-up (which captures its CUDA graphs), REPS untraced
-    runs and one traced run; prints them and returns its report."""
+    """One mode: its warm-up (which captures its CUDA graphs: the AR loops'
+    and the one-shot programs'), REPS untraced runs and one traced run,
+    which must capture nothing; prints them and returns its report."""
     if label in RECOGNITION_MODES:
         stats = defaultdict(list)
         run = dict(recognition_modes(stats))[label]
         run()  # warm-up at this mode's shapes
         runs = untraced(run, stats)
+        keys = captured_keys()
         trace = traced(run)
         print(f"[{label}] {runs[0]['tokens']} tokens [{power}]")
         for r in runs:
@@ -271,14 +281,19 @@ def measure(label: str, power: str) -> dict:
         for _ in range(REPS):
             run()
         runs = list(SPLITS)
+        keys = captured_keys()
         trace = traced(run)
         print(f"[{label}] AR steps {runs[0]['steps']} [{power}]")
         for r in runs:
             print(f"  untraced: wall {r['wall_s']:.4f} s = enqueue {r['enqueue_s']:.4f} s + output waits "
                   f"{r['wait_s']:.4f} s + other host {r['wall_s'] - r['enqueue_s'] - r['wait_s']:.4f} s")
+    if captured_keys() != keys:
+        raise RuntimeError(f"{label}: the traced run captured a graph (graphs must be captured before the first "
+                           f"torch.profiler session)")
+    print(f"  graph keys captured before the traced run: {keys}")
     print_trace(trace)
     torch.cuda.synchronize()
-    return {"untraced": runs, "traced": trace}
+    return {"untraced": runs, "traced": trace, "graph_keys": keys}
 
 
 def main():

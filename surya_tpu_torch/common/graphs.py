@@ -1,5 +1,5 @@
-"""Captured AR loops: the port's counterpart of ``jax.jit`` over a
-``jax.lax.while_loop``.
+"""Captured programs: the port's counterpart of ``jax.jit``, over a
+``jax.lax.while_loop`` or over a one-shot program.
 
 The JAX package runs each of its autoregressive loops (recognition's decode
 chunk, layout's and table recognition's box loops) as one compiled program
@@ -18,18 +18,33 @@ static inputs; the outputs belong to the graph, so the caller copies or
 packs them before the next replay of the same key. A failed capture or
 replay raises: nothing falls back to eager launches on the card.
 
-``EagerLoops`` is the plain version, which the CPU runs: every call builds
-its loop and runs it eagerly, the cond read on the host after each step (an
-exact ``break``), so it runs the same steps as the graph.
+A jitted program without an AR loop is a ``Program``: static inputs, outputs
+allocated when it is built, and ``body()``, which reads the one and writes
+the other in place. ``ProgramGraphs`` captures one per key and replays it
+once per call, as ``LoopGraphs`` does a loop. Captured so: detection's stats
+and maps programs (surya_tpu detection ``forward_stats``,
+``forward_resize_stats``, ``forward``, ``forward_resize``) and recognition's
+prefill wave (surya_tpu recognition ``prefill_fn``; its fused
+``prefill_decode_fn`` is the prefill's replay, then the decode chunk's). A
+loop of unknown trip count inside a program, the component flood's, is
+``until(pred, body)``: a WHILE node of the graph, whose condition the card
+reads when the node starts and after each run of the body.
+
+``EagerLoops`` and ``EagerPrograms`` are the plain versions, which the CPU
+runs: every call builds its loop or program and runs it eagerly, a loop's
+cond (and an ``until``'s) read on the host after each step, so it runs the
+same steps as the graph.
 
 A kernel wrapper counts its launches with ``count``. Under capture nothing
-runs, so a capture records the launches its steps make instead, and a
+runs, so a capture records the launches its steps make instead: a loop's
 replay's ``Ran`` adds launches per step times the steps that ran (a device
-count, copied to the host beside the outputs) when the caller reads it.
+count, copied to the host beside the outputs) when the caller reads it, and
+a program's replay adds the launches its capture recorded.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 from collections import Counter
@@ -57,23 +72,56 @@ class Loop:
     end: Callable[[], None] = lambda: None
 
 
+@dataclass
+class Program:
+    """A one-shot program in the form a graph captures (one jitted function
+    of the JAX package): its static inputs and outputs are allocated when it
+    is built, and body() reads the one and writes the other in place; its
+    temporaries come and go inside body. A loop of unknown trip count in it
+    is ``until``."""
+
+    inputs: Dict[str, torch.Tensor]  # static inputs, filled by copy_ before each run
+    outputs: object  # the tensors (a tuple or a dict) the caller reads
+    body: Callable[[], None]
+
+
+def static_inputs(inputs: dict, device) -> Dict[str, torch.Tensor]:
+    """A program's static inputs: an empty tensor like each of `inputs`
+    (device or host tensors), on `device`."""
+    return {name: torch.empty(t.shape, dtype=t.dtype, device=device) for name, t in inputs.items()}
+
+
 # -- launch counts and per-capture scratch ----------------------------------------
 
 class _Scope(threading.local):
     capturing: Optional[Counter] = None  # launches recorded by the capture under way
     scratch: Optional[dict] = None  # the buffers of the capture being made
+    graph: Optional[object] = None  # the graph a program is being captured (or a stand-in replayed) into
 
 
 _scope = _Scope()
 
 
-def count(owner, attr: str = "launches") -> None:
-    """A kernel wrapper's launch: owner.attr += 1, or, while a loop is being
-    captured in this thread, one launch recorded for each replay's step."""
+def count(owner, attr: str = "launches", key=None) -> None:
+    """A kernel wrapper's launch: owner.attr += 1 (with a key, owner.attr
+    is a dict of counts and owner.attr[key] += 1), or, while a program is
+    being captured in this thread, one launch recorded for each replay (a
+    loop's: for each step a replay runs)."""
+    counter = (owner, attr) if key is None else (owner, attr, key)
     if _scope.capturing is not None:
-        _scope.capturing[owner, attr] += 1
+        _scope.capturing[counter] += 1
     else:
-        setattr(owner, attr, getattr(owner, attr) + 1)
+        _add(counter, 1)
+
+
+def _add(counter: tuple, n: int) -> None:
+    """Add n launches to a counter recorded by count: (owner, attr) or (owner, attr, key)."""
+    owner, attr = counter[:2]
+    if len(counter) == 2:
+        setattr(owner, attr, getattr(owner, attr) + n)
+    else:
+        counts = getattr(owner, attr)
+        counts[counter[2]] = counts.get(counter[2], 0) + n
 
 
 @contextmanager
@@ -123,16 +171,19 @@ class Ran:
         n = self.steps
         if not self.credited:
             self.credited = True
-            for (owner, attr), per in self.per_step.items():
-                setattr(owner, attr, getattr(owner, attr) + per * n)
+            for counter, per in self.per_step.items():
+                _add(counter, per * n)
         return n
 
 
-def _copy_inputs(loop: Loop, inputs: dict) -> None:
+def _copy_inputs(loop, inputs: dict) -> None:
+    """Copy a call's inputs (device tensors, or host tensors, pinned for a
+    copy that the host does not wait for) into a loop's or a program's
+    static inputs, on the current stream."""
     if set(inputs) != set(loop.inputs):
-        raise KeyError(f"loop inputs {sorted(loop.inputs)}, given {sorted(inputs)}")
+        raise KeyError(f"static inputs {sorted(loop.inputs)}, given {sorted(inputs)}")
     for name, t in inputs.items():
-        loop.inputs[name].copy_(t)
+        loop.inputs[name].copy_(t, non_blocking=True)
 
 
 def run_eager(loop: Loop, inputs: dict) -> tuple:
@@ -159,22 +210,72 @@ class EagerLoops:
         pass
 
 
+def until(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """while pred: body(), where body writes pred (a device bool), as a
+    ``jax.lax.while_loop``. In a program being captured in this thread, a
+    WHILE node of its graph: the card reads pred when the node starts and
+    after each run of body. Elsewhere the host reads it, one sync a run. A
+    kernel wrapper's launches inside body cannot be counted (the card alone
+    knows the runs), so a body that counts one raises."""
+    graph = _scope.graph
+    if graph is None:
+        while bool(pred):
+            body()
+        return
+
+    def uncounted():
+        before = sum(_scope.capturing.values()) if _scope.capturing is not None else 0
+        body()
+        if _scope.capturing is not None and sum(_scope.capturing.values()) != before:
+            raise RuntimeError("a counted kernel launched inside a WHILE body: its launches cannot be credited")
+
+    graph.until(pred, uncounted)
+
+
+def run_program(program: Program, inputs: dict):
+    """The plain version of a program's graph: the inputs copied in, the
+    body run eagerly (an ``until`` in it loops on the host). Returns its
+    outputs."""
+    _copy_inputs(program, inputs)
+    program.body()
+    return program.outputs
+
+
+class EagerPrograms:
+    """The plain store of programs: each call builds its program and runs it
+    eagerly."""
+
+    def run(self, key, build: Callable[[], Program], inputs: dict):
+        return run_program(build(), inputs)
+
+    def drop(self, match: Callable[[tuple], bool]) -> None:
+        pass
+
+
 # -- the CUDA graph ----------------------------------------------------------------
 
 class CudaLoopGraph:
-    """One loop captured on a device: begin on a capture stream of its own,
-    each step inside an IF node whose body a second stream captures, its
-    temporaries from a memory pool of the graph's (PyTorch routes only the
-    capture stream's allocations to the graph's own pool). Replayed on the
-    caller's current stream."""
+    """One loop or program captured on a device: on a capture stream, each
+    conditional node's body (an IF node a loop step, a WHILE node an
+    ``until``) captured from a second stream, its temporaries from a memory
+    pool of the graph's (PyTorch routes only the capture stream's
+    allocations to the graph's own pool). Replayed on the caller's current
+    stream. shared: (the capture's pool handle, the bodies' MemPool, the
+    capture stream, the bodies' stream) that other graphs share, or None
+    for its own; the allocator reuses a block that one capture freed in
+    another only from the same pool and the same stream."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, shared: Optional[tuple] = None):
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
-        self.stream = torch.cuda.Stream(device)
-        self.body_stream = torch.cuda.Stream(device)
-        with torch.cuda.device(device):  # a pool belongs to the device current at its making
-            self.body_pool = torch.cuda.MemPool()
+        if shared is not None:
+            self.pool, self.body_pool, self.stream, self.body_stream = shared
+        else:
+            self.pool = None
+            self.stream = torch.cuda.Stream(device)
+            self.body_stream = torch.cuda.Stream(device)
+            with torch.cuda.device(device):  # a pool belongs to the device current at its making
+                self.body_pool = torch.cuda.MemPool()
 
     def warm_up(self, loop: Loop) -> None:
         """begin and step 0 once, eagerly, on the streams the capture uses:
@@ -189,12 +290,21 @@ class CudaLoopGraph:
                     loop.step(0)
             torch.cuda.current_stream().wait_stream(self.body_stream)
 
+    def run_once(self, fn: Callable[[], None]) -> None:
+        """fn once, eagerly, on the capture stream (a program's warm-up:
+        library handles and workspaces are made outside the graph)."""
+        with torch.cuda.device(self.device):
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                fn()
+            torch.cuda.current_stream().wait_stream(self.stream)
+
     def capture(self, program: Callable[["CudaLoopGraph"], None]) -> None:
         self.lib = _build.library().lib
         with torch.cuda.device(self.device):
             self.stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self.stream):
-                self.graph.capture_begin(capture_error_mode="thread_local")
+                self.graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                 try:
                     program(self)
                 finally:
@@ -210,6 +320,23 @@ class CudaLoopGraph:
                 body()
         finally:
             _build.check(self.lib.surya_graph_if_end(self.body_stream.cuda_stream), "surya_graph_if_end")
+
+    def until(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
+        """Capture body as a WHILE node that runs while pred holds, read when
+        the node starts and after each run of body (its last kernel sets the
+        condition from pred, which body writes)."""
+        if torch.cuda.current_stream(self.device) != self.stream:
+            raise RuntimeError("until: a WHILE node is captured from the capture stream (no nesting)")
+        handle = ctypes.c_ulonglong()
+        _build.check(self.lib.surya_graph_while_begin(self.stream.cuda_stream, pred.data_ptr(),
+                                                      self.body_stream.cuda_stream, ctypes.byref(handle)),
+                     "surya_graph_while_begin")
+        try:
+            with torch.cuda.stream(self.body_stream), torch.cuda.use_mem_pool(self.body_pool, self.device):
+                body()
+        finally:
+            _build.check(self.lib.surya_graph_while_end(self.body_stream.cuda_stream, pred.data_ptr(), handle),
+                         "surya_graph_while_end")
 
     def replay(self) -> None:
         with torch.cuda.device(self.device):
@@ -302,3 +429,129 @@ def loops_for(device) -> object:
     """The store a caller on `device` runs its loops through: captured
     graphs on CUDA, the eager loop elsewhere."""
     return LoopGraphs() if torch.device(device).type == "cuda" else EagerLoops()
+
+
+# -- one-shot programs ---------------------------------------------------------------
+
+@dataclass
+class _CapturedProgram:
+    program: Program
+    graph: object
+    launches: dict  # (owner, attr[, key]) -> launches a replay
+
+
+class ProgramGraphs:
+    """A predictor's captured programs, by key (device, static shapes and
+    flags, and whatever the body reads that its inputs do not carry), as
+    ``jit`` keys its programs: captured at the first call of a key, then
+    replayed once a call, its launches credited once a replay.
+
+    Every program of a store takes its temporaries from two memory pools
+    that the store shares among them (the capture's and the WHILE bodies'),
+    captured from two streams that it shares too, so the store holds about
+    the largest program's temporaries and not their sum; the static inputs
+    and outputs are made outside them, when a program is built. A replay
+    overwrites the temporaries of the store's other programs, so the store
+    orders its replays on the card (each waits for the one before, whatever
+    the caller's stream) and serializes capture, input copies and replay
+    across threads. The outputs belong to the graph: the caller reads them
+    before the next call of the same key.
+
+    ``graph_class`` builds a key's graph from its device and what the
+    store's graphs share (a stand-in in the CPU tests). ``captures`` keeps,
+    by key, the seconds its build, warm-up and capture took, the device
+    memory its warm-up reserved (outside the pools: it caches it for eager
+    work) and the growth of the shared pools at its capture (pool_bytes
+    gives their size)."""
+
+    def __init__(self, graph_class=CudaLoopGraph):
+        self.graph_class = graph_class
+        self.programs: Dict[tuple, _CapturedProgram] = {}
+        self.captures: Dict[tuple, dict] = {}
+        # device -> (capture pool handle, bodies' MemPool, capture stream, bodies' stream)
+        self._shared: dict = {}
+        self._last: Optional[object] = None  # an event after the last replay (CUDA)
+        self._lock = threading.Lock()
+
+    def run(self, key, build: Callable[[], Program], inputs: dict):
+        """Replay key's program (captured now at its first call) on inputs;
+        returns its outputs, the graph's."""
+        with self._lock:
+            cap = self.programs.get(key)
+            if cap is None:
+                cap = self.programs[key] = self._capture(key, build, inputs)
+            cuda = cap.graph.device.type == "cuda"
+            if cuda and self._last is not None:
+                torch.cuda.current_stream(cap.graph.device).wait_event(self._last)
+            _copy_inputs(cap.program, inputs)
+            saved, _scope.graph = _scope.graph, cap.graph
+            try:
+                with recording():  # a stand-in graph replays through the wrappers
+                    cap.graph.replay()
+            finally:
+                _scope.graph = saved
+            if cuda:
+                self._last = torch.cuda.Event()
+                self._last.record(torch.cuda.current_stream(cap.graph.device))
+        for counter, n in cap.launches.items():
+            _add(counter, n)
+        return cap.program.outputs
+
+    def drop(self, match: Callable[[tuple], bool]) -> None:
+        """Forget the programs whose key matches (the shared pools go with the
+        last graph that uses them)."""
+        with self._lock:
+            for key in [k for k in self.programs if match(k)]:
+                del self.programs[key]
+
+    def _shared_for(self, device: torch.device) -> Optional[tuple]:
+        """What the store's graphs on `device` share: the pools, new ones
+        when no graph of the store lives there (none captured yet, or all
+        dropped: the allocator releases a graph pool with the last graph
+        that uses it, and a capture into a released pool fails), and the
+        two streams."""
+        if device.type != "cuda":
+            return None
+        with torch.cuda.device(device):  # pools and streams belong to the device current at their making
+            streams = self._shared[device][2:] if device in self._shared else (torch.cuda.Stream(device),
+                                                                                 torch.cuda.Stream(device))
+            if device not in self._shared or not any(cap.graph.device == device for cap in self.programs.values()):
+                self._shared[device] = (torch.cuda.graph_pool_handle(), torch.cuda.MemPool(), *streams)
+        return self._shared[device]
+
+    def pool_bytes(self) -> int:
+        """Device memory the shared pools hold: their segments in the
+        allocator's snapshot."""
+        ids = {tuple(p) for shared in self._shared.values() for p in (shared[0], shared[1].id)}
+        if not ids:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) in ids)
+
+    def _capture(self, key, build: Callable[[], Program], inputs: dict) -> _CapturedProgram:
+        t0 = time.perf_counter()
+        program = build()
+        device = next(iter(program.inputs.values())).device
+        cuda = device.type == "cuda"
+        reserved = torch.cuda.memory_reserved(device) if cuda else 0
+        _copy_inputs(program, inputs)
+        graph = self.graph_class(device, self._shared_for(device))
+        graph.run_once(program.body)
+        warm_up_bytes = torch.cuda.memory_reserved(device) - reserved if cuda else 0
+        pooled = self.pool_bytes() if cuda else 0
+        saved = _scope.graph
+        try:
+            with recording() as launches:
+                _scope.graph = graph
+                graph.capture(lambda g: program.body())
+        finally:
+            _scope.graph = saved
+        self.captures[key] = {"capture_s": time.perf_counter() - t0, "warm_up_bytes": warm_up_bytes,
+                              "pool_bytes": self.pool_bytes() - pooled if cuda else 0}
+        return _CapturedProgram(program, graph, dict(launches))
+
+
+def programs_for(device) -> object:
+    """The store a caller on `device` runs its one-shot programs through:
+    captured graphs on CUDA, the eager program elsewhere."""
+    return ProgramGraphs() if torch.device(device).type == "cuda" else EagerPrograms()

@@ -146,6 +146,13 @@ class BasePredictor:
         """A host tensor the device copies from without blocking: pinned on CUDA."""
         return torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
+    def _pinned(self, host: np.ndarray) -> torch.Tensor:
+        """A numpy array as a host tensor that a copy to the device reads
+        without the host waiting (pinned on CUDA): a program's input, which
+        the program's store copies straight into its static input."""
+        t = torch.from_numpy(np.ascontiguousarray(host))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     def _upload(self, host, device=None) -> torch.Tensor:
         """A numpy array or host tensor -> the device (default the
         predictor's), on the current stream; the host does not wait (the

@@ -19,6 +19,14 @@ Counterpart of surya_tpu/detection/__init__.py, with the same outputs:
      (heatmap.boxes_from_stats), or upsample, stitch and CRAFT
      (heatmap.parallel_get_boxes).
 
+Step 3 is two programs, as the JAX package jits them: the stats program
+(surya_tpu's ``forward_stats`` / ``forward_resize_stats``) and the maps
+program (``forward`` / ``forward_resize``). On CUDA each runs through
+``self.programs`` (common/graphs.ProgramGraphs): captured as a CUDA graph at
+the first batch of its key (rows, canvas, pages and chunks, flags, the heat
+tail) and replayed once a batch, the component flood a WHILE node that exits
+on the card. The CPU and a mesh run them eagerly.
+
 One batch stays in flight: a batch's outputs are fetched only after the
 next batch is enqueued. On CUDA the predictor runs on a stream of its own:
 its uploads leave pinned host memory without blocking, and the host waits
@@ -44,6 +52,7 @@ import torch
 from PIL import Image
 from tqdm import tqdm
 
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.detection.heatmap import get_boxes_from_stats_result, parallel_get_boxes
@@ -80,6 +89,16 @@ def resize_on_device(pixels: torch.Tensor, Vs: torch.Tensor, Hs: torch.Tensor, g
     return torch.clamp(torch.round(x), 0.0, 255.0).reshape(B, w, h, C).permute(0, 3, 2, 1)
 
 
+def _resize_inputs(resize) -> dict:
+    """A program's inputs of the device resize (Vs, Hs, gid), none without it."""
+    return {} if resize is None else dict(zip(("Vs", "Hs", "gid"), resize))
+
+
+def _resize_args(x: dict):
+    """The (Vs, Hs, gid) of a program's static inputs, None without the resize."""
+    return (x["Vs"], x["Hs"], x["gid"]) if "Vs" in x else None
+
+
 class DetectionPredictor(BasePredictor):
     batch_size_setting = "DETECTOR_BATCH_SIZE"
     default_batch_sizes = {"cpu": 8, "cuda": 32}
@@ -110,6 +129,8 @@ class DetectionPredictor(BasePredictor):
         self.stats_batches = 0
         self.maps_batches = 0
         self.setup_mesh()  # a mesh: the chunk rows split over its data axis
+        # the stats and maps programs: CUDA graphs on one card, eager on a mesh and the CPU
+        self.programs = graphs.programs_for(self.device) if self.mesh is None else graphs.EagerPrograms()
 
     def __call__(self, images: List[Image.Image], batch_size=None, include_maps=False) -> List[TextDetectionResult]:
         parallel = len(images) >= settings.DETECTOR_MIN_PARALLEL_THRESH and (os.cpu_count() or 1) > 1
@@ -172,18 +193,40 @@ class DetectionPredictor(BasePredictor):
         return self.data_parallel(heat, pixels, *(resize[2:] if resize is not None else ()))
 
     def _maps_program(self, pixels: torch.Tensor, resize, n_real: int, n_maps: int) -> torch.Tensor:
-        """uint8 maps [n_real, n_maps, H/4, W/4] (heat rounded to 1/255)."""
-        heat = self._heat(pixels, resize)[:n_real, :n_maps]
-        return torch.round(heat * 255.0).to(torch.uint8)
+        """uint8 maps [n_real, n_maps, H/4, W/4] (heat rounded to 1/255),
+        through self.programs: on CUDA the graph's output, which the caller
+        fetches before the next batch."""
+        def body(x, out):
+            heat = self._heat(x["pixels"], _resize_args(x))[:n_real, :n_maps]
+            out.copy_(torch.round(heat * 255.0).to(torch.uint8))
+
+        h4, w4 = self.processor_size[0] // 4, self.processor_size[1] // 4
+        return self._program(("maps", n_real, n_maps), {"pixels": pixels, **_resize_inputs(resize)},
+                             (n_real, n_maps, h4, w4), torch.uint8, body)
 
     def _stats_program(self, pixels: torch.Tensor, resize, page_gather, valid_rows, max_comps: int):
-        """Component stats of whole pages (surya_tpu's _stats_tail). The pages'
-        head-resolution maps are gathered from their chunks (page_gather [P, K]
-        chunk rows, -1 for none; valid_rows [P, K] real head rows of each), so
-        a component merges across a chunk seam as on the host. Returns one
+        """Component stats of whole pages (surya_tpu's forward_stats and
+        forward_resize_stats), through self.programs: on CUDA the graph's
+        output, which the caller fetches before the next batch. Returns one
         float32 array [P, max_comps * 11 + 3]: the stats, then n_comp, n_raw
-        and the page's text threshold."""
-        heat = self._heat(pixels, resize)[:, 0].float()  # [B, h4, w4]
+        and the page's text threshold (_stats_tail)."""
+        thresholds = (settings.DETECTOR_BLANK_THRESHOLD, settings.DETECTOR_TEXT_THRESHOLD)
+
+        def body(x, out):
+            heat = self._heat(x["pixels"], _resize_args(x))[:, 0].float()  # [B, h4, w4]
+            out.copy_(self._stats_tail(heat, x["page_gather"], x["valid_rows"], max_comps, *thresholds))
+
+        inputs = {"pixels": pixels, "page_gather": page_gather, "valid_rows": valid_rows, **_resize_inputs(resize)}
+        return self._program(("stats", max_comps, *thresholds), inputs,
+                             (page_gather.shape[0], max_comps * cc.STATS_DIM + 3), torch.float32, body)
+
+    @staticmethod
+    def _stats_tail(heat, page_gather, valid_rows, max_comps: int, blank_threshold: float, text_threshold: float):
+        """surya_tpu's _stats_tail: the pages' head-resolution maps gathered
+        from their chunks of heat [B, h4, w4] (page_gather [P, K] chunk rows,
+        -1 for none; valid_rows [P, K] real head rows of each), so that a
+        component merges across a chunk seam as on the host; their decile
+        thresholds and component stats, as one float32 array."""
         _, h4, w4 = heat.shape
         P, K = page_gather.shape
         maps = heat[page_gather.clamp(min=0).long()]  # [P, K, h4, w4]
@@ -193,10 +236,25 @@ class DetectionPredictor(BasePredictor):
         # the decile over the real pixels only: padding would dilute it
         top10 = cc.dynamic_threshold_inputs(page_maps, valid_rows.sum(dim=1) * w4)
         scaling = torch.clamp(top10 / 0.7, 0.0, 1.0) ** 0.5
-        low = torch.clamp(settings.DETECTOR_BLANK_THRESHOLD * scaling, 0.1, 0.6)
-        thr = torch.clamp(settings.DETECTOR_TEXT_THRESHOLD * scaling, 0.15, 0.8)
+        low = torch.clamp(blank_threshold * scaling, 0.1, 0.6)
+        thr = torch.clamp(text_threshold * scaling, 0.15, 0.8)
         stats, n_comp, n_raw = cc.component_stats(page_maps, low, max_comps=max_comps)
         return torch.cat([stats.reshape(P, -1), n_comp[:, None].float(), n_raw[:, None].float(), thr[:, None]], 1)
+
+    def _program(self, flags: tuple, inputs: dict, out_shape, out_dtype, body):
+        """body(static inputs, output) as a program of self.programs, keyed
+        as jit keys surya_tpu's programs: by flags (the static arguments and
+        the settings the body reads), the inputs' shapes and types, and the
+        heat tail (install_blob_detector replaces it: a graph captured
+        before would still run the old one). Returns its output."""
+        key = (flags, self._apply_heat, *((name, tuple(t.shape), t.dtype) for name, t in inputs.items()))
+
+        def build():
+            x = graphs.static_inputs(inputs, self.device)
+            out = torch.empty(out_shape, dtype=out_dtype, device=self.device)
+            return graphs.Program(x, out, lambda: body(x, out))
+
+        return self.programs.run(key, build, inputs)
 
     # -- batches ---------------------------------------------------------------
 

@@ -3,6 +3,11 @@
 Counterpart of surya_tpu/models/foundation.py. ``prefill`` encodes the
 images, scatters them into the prompt's <IMAGE> positions, runs the decoder
 prefill, writes the KV into the slot cache and samples token 0.
+``prefill_program`` builds a prefill wave as the JAX recognition
+predictor's jitted ``prefill_fn`` runs it (the kill, the patch
+normalisation, ``prefill``, the new slots' state from token 0) in the form
+of a ``common.graphs.Program``, which a CUDA graph replays on the card
+(``launch_prefill``).
 ``decode_chunk`` runs up to ``num_steps`` greedy steps over a read-only
 cache plus a chunk buffer that is committed once at the end, as the JAX
 package's ``while_loop`` does: ``chunk_loop`` builds it as a
@@ -94,6 +99,24 @@ class FoundationModel(nn.Module):
         )
         return img_tokens + self.img_h_embed(llm_h_idx.long()) + self.img_w_embed(llm_w_idx.long())
 
+    # -- the slot state (surya_tpu recognition's _apply_kill and _seed_slots) --------
+
+    def apply_kill(self, last_token, active, kill):
+        """Stops the host found (budget, repeats) reach the device with the
+        next dispatch: deactivate killed slots before running it."""
+        return torch.where(kill, self.config.pad_token_id, last_token), active & ~kill
+
+    def seed_slots(self, last_token, active, run, tok, slot_idx, row_valid, pin: bool, no_output_token: int):
+        """Device state of the newly filled slots, from prefill token 0."""
+        cfg = self.config
+        done0 = torch.zeros_like(row_valid) if pin else (tok == cfg.eos_token_id) | (tok == no_output_token)
+        lt_new = torch.where((tok == cfg.eos_token_id) | (tok == cfg.pad_token_id), cfg.pad_token_id, tok)
+        idx = (slot_idx.long(),)
+        last_token = last_token.index_put(idx, torch.where(row_valid, lt_new, last_token[idx]))
+        active = active.index_put(idx, torch.where(row_valid, ~done0, active[idx]))
+        run = run.index_put(idx, torch.where(row_valid, 1, run[idx]))  # token 0 starts each run
+        return last_token, active, run
+
     # -- programs ----------------------------------------------------------------
 
     def prefill(self, cache: dict, patches, enc_args, llm_h_idx, llm_w_idx, input_ids, img_gather,
@@ -105,6 +128,52 @@ class FoundationModel(nn.Module):
         new_k, new_v, last_hidden = self.decoder.prefill(embeds, seq_lens)
         qwen_decoder.merge_prefill(cache, new_k, new_v, seq_lens, slot_idx)
         return self.sample_greedy(last_hidden)
+
+    def launch_prefill(self, cache: dict, inputs: dict, kv_range: int, win_range: int, pin: bool, normalize,
+                       no_output_token: int, programs) -> dict:
+        """prefill_program through `programs` (a predictor's store: CUDA
+        graphs on the card), keyed as surya_tpu's prefill_fn is jitted: by
+        the inputs' shapes and types (rows, L, the patch capacity and the
+        layout arrays), kv_range, win_range, pin, the slot cache (its
+        tensors' addresses: cache_id), the decoder's projection type and the
+        config (normalize and no_output_token are the processor's, one for
+        a predictor's store). Returns its outputs, which a graph owns until
+        its next replay."""
+        key = ("prefill", cache_id(cache), kv_range, win_range, bool(pin),
+               type(self.decoder.layers[0].self_attn.q_proj).__name__, self.config,
+               *((name, tuple(t.shape), t.dtype) for name, t in inputs.items()))
+        return programs.run(key, lambda: self.prefill_program(cache, inputs, kv_range, win_range, pin, normalize,
+                                                              no_output_token), inputs)
+
+    def prefill_program(self, cache: dict, inputs: dict, kv_range: int, win_range: int, pin: bool, normalize,
+                        no_output_token: int) -> graphs.Program:
+        """A prefill wave over `cache` as a graphs.Program (surya_tpu
+        recognition's prefill_fn). Static inputs, made like `inputs` on the
+        cache's device: the slot state last_token, active, run and the kill
+        mask [slots]; patches (uint8 rows); enc_0 to enc_6, the encoder
+        layout's device_args; llm_h_idx, llm_w_idx; input_ids, img_gather
+        [rows, L]; seq_lens, slot_idx, row_valid [rows]. The body: the kill,
+        normalize(patches, dtype), prefill (the KV into the cache, in place),
+        the new slots' state from token 0 (seed_slots). Outputs: "packed"
+        [rows, 8] (pack_outputs of token 0) and the slot state."""
+        dev = cache["len"].device
+        x = graphs.static_inputs(inputs, dev)
+        out = {"packed": torch.empty((x["input_ids"].shape[0], 8), dtype=torch.float32, device=dev),
+               **{name: torch.empty_like(x[name]) for name in ("last_token", "active", "run")}}
+        dtype = self.token_embed.weight.dtype
+
+        def body():
+            last_token, active = self.apply_kill(x["last_token"], x["active"], x["kill"])
+            tok, score, bbox = self.prefill(
+                cache, normalize(x["patches"], dtype), tuple(x[f"enc_{i}"] for i in range(7)), x["llm_h_idx"],
+                x["llm_w_idx"], x["input_ids"], x["img_gather"], x["seq_lens"], x["slot_idx"], kv_range, win_range)
+            state = self.seed_slots(last_token, active, x["run"], tok, x["slot_idx"], x["row_valid"], pin,
+                                    no_output_token)
+            out["packed"].copy_(pack_outputs(tok, score, bbox))
+            for name, t in zip(("last_token", "active", "run"), state):
+                out[name].copy_(t)
+
+        return graphs.Program(x, out, body)
 
     def decode_chunk(self, cache: dict, last_token, active, num_steps: int, run=None,
                      repeat_window: int = 0, pin_decode: bool = False):
@@ -211,8 +280,13 @@ class FoundationModel(nn.Module):
         return torch.where(next_active, token, pad), next_active, run
 
 
+def pack_outputs(tokens, scores, bboxes):
+    """tokens/scores/bboxes -> one float32 array [..., 8], fetched in one copy."""
+    return torch.cat([tokens.float()[..., None], scores[..., None], bboxes.float()], dim=-1)
+
+
 def cache_id(cache: dict) -> tuple:
-    """What a decode chunk's graph keys a slot cache by: the device, dtype,
+    """What a decode chunk's or a prefill's graph keys a slot cache by: the device, dtype,
     shape and address of each of its tensors (the graph reads them there)."""
     return tuple((name, t.device, t.dtype, tuple(t.shape), t.data_ptr()) for name, t in sorted(cache.items()))
 

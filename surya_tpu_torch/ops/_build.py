@@ -48,6 +48,8 @@ SIGNATURES = {
                               _F, _P],
     "surya_graph_if_begin": [_P, _P, _P],
     "surya_graph_if_end": [_P],
+    "surya_graph_while_begin": [_P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong)],
+    "surya_graph_while_end": [_P, _P, ctypes.c_ulonglong],
 }
 
 

@@ -11,9 +11,14 @@ The JAX version is built from gather-free log-shift scans for the TPU's
 compiler. On the GPU a scatter and a gather are cheap, so the flood takes
 the minimum label over each whole row run and then each whole column run by
 one ``scatter_reduce`` and one gather per direction. Rounds alternate until
-a block of rounds changes nothing; each check is one host sync, and rounds
-are idempotent once the flood is stable, so a block of ``ROUNDS_PER_CHECK``
-rounds gives the same labels with fewer syncs. The component ordinal of a
+a block of ``ROUNDS_PER_CHECK`` rounds changes nothing (rounds are
+idempotent once the flood is stable, so a block gives the same labels as
+single rounds with fewer checks). The flood is the JAX version's
+``lax.while_loop``: its block writes the labels in place and a device bool,
+"changed", which ``common.graphs.until`` reads. In a captured detection
+program that is a WHILE node of the CUDA graph, and the loop exits on the
+card; run eagerly (the plain version, and the CPU) the host reads the bool
+after each block, one sync a block. The component ordinal of a
 pixel is the ordinal of its label's root pixel, read by a gather (the JAX
 version floods a second time), and the stats are segment reductions over
 ``max_comps + 1`` segments, with integer sums (exact) for the moments.
@@ -24,6 +29,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from surya_tpu_torch.common import graphs
 
 # stats layout along the last axis
 AREA, MIN_X, MAX_X, MIN_Y, MAX_Y, MAX_VAL, SUM_X, SUM_Y, SUM_XX, SUM_YY, SUM_XY = range(11)
@@ -44,18 +51,18 @@ def _run_ids(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask.reshape(-1), ids, mask.numel())
 
 
-def _run_min(val: torch.Tensor, ids: torch.Tensor, n_seg: int) -> torch.Tensor:
+def _run_min(val: torch.Tensor, ids: torch.Tensor, n_seg: int) -> None:
     """The minimum of flat val [n] over each segment of ids, given to every
-    element of that segment."""
+    element of that segment, in place."""
     seg_min = torch.full((n_seg,), _BIG, dtype=val.dtype, device=val.device)
     seg_min.scatter_reduce_(0, ids, val, reduce="amin")
-    return seg_min[ids]
+    torch.index_select(seg_min, 0, ids, out=val)
 
 
-def label_components(mask: torch.Tensor) -> torch.Tensor:
-    """Label the 4-connected components of mask [P, H, W] (bool). Returns
-    int64 [P, H, W]: 0 for background, else the flat (per page) index of the
-    component's first row-major pixel, plus 1."""
+def flood(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """label_components, and the blocks of ROUNDS_PER_CHECK rounds the flood
+    ran (a device int32: as many on the card's WHILE node as on the host's
+    loop)."""
     P, H, W = mask.shape
     n = mask.numel()
     row_ids = _run_ids(mask)
@@ -64,14 +71,28 @@ def label_components(mask: torch.Tensor) -> torch.Tensor:
     pix = torch.arange(1, H * W + 1, device=mask.device).repeat(P)
     flat_mask = mask.reshape(-1)
     val = torch.where(flat_mask, pix, _BIG)
-    while True:
-        before = val
+    before = torch.empty_like(val)
+    # set before the loop: the first block always runs, as the host loop's did
+    changed = torch.ones((), dtype=torch.bool, device=mask.device)
+    blocks = torch.zeros((), dtype=torch.int32, device=mask.device)
+
+    def block():
+        before.copy_(val)
         for _ in range(ROUNDS_PER_CHECK):
-            val = _run_min(val, row_ids, n + 1)
-            val = _run_min(val, col_ids, n + 1)
-        if torch.equal(val, before):
-            break
-    return torch.where(flat_mask, val, 0).reshape(P, H, W)
+            _run_min(val, row_ids, n + 1)
+            _run_min(val, col_ids, n + 1)
+        changed.copy_(torch.ne(val, before).any())
+        blocks.add_(1)
+
+    graphs.until(changed, block)
+    return torch.where(flat_mask, val, 0).reshape(P, H, W), blocks
+
+
+def label_components(mask: torch.Tensor) -> torch.Tensor:
+    """Label the 4-connected components of mask [P, H, W] (bool). Returns
+    int64 [P, H, W]: 0 for background, else the flat (per page) index of the
+    component's first row-major pixel, plus 1."""
+    return flood(mask)[0]
 
 
 def component_stats(heat: torch.Tensor, low_text, max_comps: int = 256

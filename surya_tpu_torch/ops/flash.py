@@ -5,7 +5,9 @@ Each public function runs the hand-written CUDA kernel in
 version (``*_reference``) for tensors on the CPU. There is no fallback: a CUDA
 input the kernel does not take raises. ``<function>.launches`` counts the
 kernel launches; ``segmented_block_attention.launches_by_range`` splits them
-by KV window length (the encoder's full-attention and windowed blocks).
+by KV window length (the encoder's full-attention and windowed blocks). Both
+count through ``common.graphs.count``, so a launch inside a captured program
+(recognition's prefill) is counted once for each replay.
 
 K1 replaces surya_tpu/ops/flash.py::segmented_block_attention, K2 replaces
 surya_tpu/ops/flash.py::causal_flash_attention. Unlike the Pallas wrapper,
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.ops import _build
 from surya_tpu_torch.ops.attention import NEG_INF, sdpa
 from surya_tpu_torch.parallel.mesh import Sharded, kernel_shardable
@@ -123,9 +126,8 @@ def segmented_block_attention(q, k, v, seg_id, kv_starts, kv_range: int):
     if q.device.type == "cpu":
         return segmented_block_attention_reference(q, k, v, seg_id, kv_starts, kv_range)
     out, kv_range = _launch_segmented("segmented_block_attention", q, k, v, seg_id, kv_starts, kv_range)
-    segmented_block_attention.launches += 1
-    by_range = segmented_block_attention.launches_by_range
-    by_range[kv_range] = by_range.get(kv_range, 0) + 1
+    graphs.count(segmented_block_attention)
+    graphs.count(segmented_block_attention, "launches_by_range", kv_range)
     return out
 
 
@@ -186,7 +188,7 @@ def causal_flash_attention(q, k, v, mesh=None):
     if q.device.type == "cpu":
         return causal_flash_attention_reference(q, k, v)
     out = _launch_causal("causal_flash_attention", q, k, v)
-    causal_flash_attention.launches += 1
+    graphs.count(causal_flash_attention)
     return out
 
 

@@ -19,11 +19,14 @@ device runs; a wave that is built waits, held, for its slots; when the
 in-flight outputs already exhaust every budget the loop drains first; and
 when no further wave can follow, the decode chunk is fused into the prefill
 dispatch (``fuse_decode``), both outputs read together. On CUDA the
-predictor runs on a stream of its own, and a decode chunk is one replay of a
-CUDA graph (common/graphs.py) captured at the first chunk of its shapes,
-which skips its remaining steps on the card once no slot is active; one
-slot-cache store is kept between runs and every run's cache is a view of
-it, so that the address a graph reads holds (_take_cache).
+predictor runs on a stream of its own; a prefill wave is one replay of a
+CUDA graph (common/graphs.ProgramGraphs) captured at the first wave of its
+shapes, and a decode chunk one replay of a graph (common/graphs.LoopGraphs)
+captured at the first chunk of its shapes, which skips its remaining steps
+on the card once no slot is active; a fused dispatch is the two replays,
+the prefill's slot state copied into the chunk's static inputs on the card.
+One slot-cache store is kept between runs and every run's cache is a view
+of it, so that the address a graph reads holds (_take_cache).
 
 Whole-page OCR of more than RECOGNITION_DET_PIPELINE_PAGES pages streams:
 detection of page group k + 1 runs in a worker thread and feeds the live
@@ -61,6 +64,7 @@ from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
 from surya_tpu_torch.models import qwen_decoder
 from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, prefill_routes
+from surya_tpu_torch.models.foundation import pack_outputs as _pack
 from surya_tpu_torch.parallel.mesh import Mesh, gather_rows, split_range, split_sizes
 from surya_tpu_torch.recognition.loader import load_recognition_model
 from surya_tpu_torch.recognition.postprocessing import fix_unbalanced_tags
@@ -99,11 +103,6 @@ def _rows_view(t: torch.Tensor, rows: int) -> torch.Tensor:
     ...] seen as one of `rows` rows in place of S."""
     shape = t.shape[:3] + (rows,) + t.shape[4:]
     return t.view(-1)[:shape.numel()].view(shape)
-
-
-def _pack(tokens, scores, bboxes):
-    """tokens/scores/bboxes -> one float32 array [..., 8], fetched in one copy."""
-    return torch.cat([tokens.float()[..., None], scores[..., None], bboxes.float()], dim=-1)
 
 
 def _empty_results(images) -> List[OCRResult]:
@@ -167,6 +166,8 @@ class RecognitionPredictor(BasePredictor):
         # cache store that its graphs read, kept between runs (_take_cache;
         # calls from several threads take and hand it back under the lock)
         self.loops = graphs.loops_for(self.device)
+        # the prefill wave's programs (CUDA graphs on the card; a mesh runs its own, eagerly)
+        self.programs = graphs.programs_for(self.device)
         self._kept_cache: Optional[dict] = None
         self._kept_cache_lock = threading.Lock()
 
@@ -174,54 +175,42 @@ class RecognitionPredictor(BasePredictor):
     # Nothing here waits for the device: no read of a device value, no copy
     # from pageable host memory, no boolean-mask indexing.
 
-    def _apply_kill(self, last_token, active, kill):
-        """Stops the host found (budget, repeats) reach the device with the
-        next dispatch: deactivate killed slots before running it."""
-        return torch.where(kill, self.config.pad_token_id, last_token), active & ~kill
-
-    def _seed_slots(self, last_token, active, run, tok, slot_idx, row_valid, pin: bool):
-        """Device state of the newly filled slots, from prefill token 0."""
-        cfg = self.config
-        done0 = torch.zeros_like(row_valid) if pin else (tok == cfg.eos_token_id) | (tok == self.processor.no_output_token)
-        lt_new = torch.where((tok == cfg.eos_token_id) | (tok == cfg.pad_token_id), cfg.pad_token_id, tok)
-        idx = (slot_idx.long(),)
-        last_token = last_token.index_put(idx, torch.where(row_valid, lt_new, last_token[idx]))
-        active = active.index_put(idx, torch.where(row_valid, ~done0, active[idx]))
-        run = run.index_put(idx, torch.where(row_valid, 1, run[idx]))  # token 0 starts each run
-        return last_token, active, run
-
     def _prefill(self, cache, batch, slot_idx, row_valid, state, kill, pin: bool):
-        """One prefill wave on the device: the wave's inputs are uploaded,
-        killed slots deactivated, the prompts encoded into their cache slots
-        and token 0 sampled. Returns (packed outputs [rows, 8], state)."""
+        """One prefill wave on the device (surya_tpu's prefill_fn): killed
+        slots deactivated, the prompts encoded into their cache slots and
+        token 0 sampled, as one program of self.programs (on CUDA a replay of
+        the graph captured at the first wave of its key), its host inputs
+        copied from pinned memory straight into the program's static
+        inputs. Returns (packed outputs [rows, 8], state), which a graph owns
+        until its next replay: the fetch and the next dispatch read them
+        before."""
         if self.meshed is not None:
             return self._prefill_on_mesh(cache, batch, slot_idx, row_valid, state, kill, pin)
-        last_token, active, run = state
-        last_token, active = self._apply_kill(last_token, active, self._upload(kill))
-        up = self._upload
+        host = self._pinned
         layout = batch.layout
-        slot_idx_t = up(slot_idx)
-        tok, score, bbox = self.model.prefill(
-            cache,
-            self.processor.normalize_patch_rows(up(batch.patches), self.dtype),
-            tuple(up(a) for a in layout.device_args), up(layout.llm_h_idx), up(layout.llm_w_idx),
-            up(batch.input_ids), up(batch.img_gather), up(batch.seq_lens), slot_idx_t,
-            kv_range=layout.kv_range, win_range=layout.win_range,
-        )
-        state = self._seed_slots(last_token, active, run, tok, slot_idx_t, up(row_valid), pin)
-        return _pack(tok, score, bbox), state
+        inputs = {
+            **dict(zip(("last_token", "active", "run"), state)), "kill": host(kill), "patches": host(batch.patches),
+            **{f"enc_{i}": host(a) for i, a in enumerate(layout.device_args)},
+            "llm_h_idx": host(layout.llm_h_idx), "llm_w_idx": host(layout.llm_w_idx),
+            "input_ids": host(batch.input_ids), "img_gather": host(batch.img_gather), "seq_lens": host(batch.seq_lens),
+            "slot_idx": host(slot_idx), "row_valid": host(row_valid),
+        }
+        out = self.model.launch_prefill(cache, inputs, layout.kv_range, layout.win_range, pin,
+                                        self.processor.normalize_patch_rows, self.processor.no_output_token,
+                                        self.programs)
+        return out["packed"], (out["last_token"], out["active"], out["run"])
 
     def _decode(self, cache, state, kill, pin: bool):
         """One decode chunk on the device (kill: None when it was applied by a
         prefill fused before it). Returns (packed outputs [slots, K, 8], state,
         the chunk's graphs.Ran or None on a mesh). The state is the graph's
-        own: the next dispatch makes new tensors of it (_apply_kill) before
-        the next replay."""
+        own: the next dispatch makes new tensors of it (apply_kill) or copies
+        it before the next replay."""
         if self.meshed is not None:
             return self._decode_on_mesh(cache, state, kill, pin)
         last_token, active, run = state
         if kill is not None:
-            last_token, active = self._apply_kill(last_token, active, self._upload(kill))
+            last_token, active = self.model.apply_kill(last_token, active, self._upload(kill))
         (toks, scores, bboxes, last_token, active, run), ran = self.model.launch_chunk(
             cache, last_token, active, self.decode_chunk, run, 0 if pin else REPEAT_WINDOW, pin, self.loops)
         # _pack makes a new tensor: the next replay leaves it alone
@@ -243,13 +232,13 @@ class RecognitionPredictor(BasePredictor):
         )
 
     def _kill_on_mesh(self, state, kill: np.ndarray) -> tuple:
-        """_apply_kill on every shard, with its block of the host's kill mask."""
+        """apply_kill on every shard, with its block of the host's kill mask."""
         mesh = self.mesh
         last_token, active, run = (dict(x) for x in state)
         for d, m in mesh.coords():
             lo, hi = split_range(len(kill), mesh.n_data, d)
-            last_token[d, m], active[d, m] = self._apply_kill(last_token[d, m], active[d, m],
-                                                              self._upload(kill[lo:hi], mesh.device(d, m)))
+            last_token[d, m], active[d, m] = self.model.apply_kill(last_token[d, m], active[d, m],
+                                                                   self._upload(kill[lo:hi], mesh.device(d, m)))
         return last_token, active, run
 
     def _mesh_inputs(self, batch):
@@ -289,9 +278,9 @@ class RecognitionPredictor(BasePredictor):
         for d, t, rows, slots in routes:
             for m in range(mesh.n_model):
                 tok = out[d, m][0].index_select(0, rows[m]).to(mesh.device(t, m))
-                last_token[t, m], active[t, m], run[t, m] = self._seed_slots(
+                last_token[t, m], active[t, m], run[t, m] = self.model.seed_slots(
                     last_token[t, m], active[t, m], run[t, m], tok, slots[m], torch.ones_like(tok, dtype=torch.bool),
-                    pin)
+                    pin, self.processor.no_output_token)
         packed = gather_rows([_pack(*out[d, 0]) for d in range(mesh.n_data)], self.device)
         return packed, (last_token, active, run)
 
@@ -361,10 +350,12 @@ class RecognitionPredictor(BasePredictor):
         self._forget_cache(store)
 
     def _forget_cache(self, store: dict) -> None:
-        """Drop the decode graphs that read `store` (each keys its cache's
-        tensors, "len" among them, by address: foundation.cache_id)."""
+        """Drop the decode and prefill graphs that read `store` (each keys
+        its cache's tensors, "len" among them, by address:
+        foundation.cache_id)."""
         entry = cache_id({"len": store["len"]})[0]
         self.loops.drop(lambda k: k[0] == "decode_chunk" and entry in k[1])
+        self.programs.drop(lambda k: k[0] == "prefill" and entry in k[1])
 
     # -- slicing (host) --------------------------------------------------------
 
