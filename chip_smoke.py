@@ -282,7 +282,7 @@ from surya_tpu_torch.layout import LayoutPredictor  # noqa: E402
 from surya_tpu_torch.layout.loader import layout_config  # noqa: E402
 from surya_tpu_torch.layout.slicer import ImageSlicer  # noqa: E402
 from surya_tpu_torch.models import qwen_decoder, qwen_encoder  # noqa: E402
-from surya_tpu_torch.models.foundation import prefill_routes  # noqa: E402
+from surya_tpu_torch.models.foundation import MeshedFoundation, prefill_routes  # noqa: E402
 from surya_tpu_torch.parallel.mesh import Sharded, make_mesh, split_range  # noqa: E402
 from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
 from surya_tpu_torch.models.qwen_encoder import EncoderConfig, plan_layout  # noqa: E402
@@ -302,6 +302,7 @@ from surya_tpu_torch.nn import QuantLinear  # noqa: E402
 from surya_tpu_torch.ocr_error.tokenizer import WordPieceTokenizer  # noqa: E402
 from surya_tpu_torch.recognition.tokenizer import DEFAULT_SPECIAL_TOKENS  # noqa: E402
 from surya_tpu_torch.ocr_error import OCRErrorPredictor  # noqa: E402
+from surya_tpu_torch.ocr_error import SEQ_BUCKETS as OCR_ERROR_SEQ_BUCKETS  # noqa: E402
 from surya_tpu_torch.ocr_error import random_model as ocr_error_random_model  # noqa: E402
 from surya_tpu_torch.recognition.loader import random_model  # noqa: E402
 from surya_tpu_torch.recognition.util import REPEAT_WINDOW  # noqa: E402
@@ -2156,17 +2157,19 @@ class PlainCalls:
 
 class MeshShapes:
     """For one meshed predictor run, what its first prefill and first decode
-    step give the kernel wrappers (stand-ins, in this script only, for its
-    ShardedDecoder's two methods and for qwen_encoder.encode_on_mesh): the
-    prefill's rows and bucket by shard; the decode step's lengths by shard (a
-    device copy), cache and chunk shapes; the replicated encoder's plan."""
+    chunk give the kernel wrappers (stand-ins, in this script only, for its
+    ShardedDecoder's prefill, its MeshedFoundation's launch_chunk and
+    qwen_encoder.encode_on_mesh): the prefill's rows and bucket by shard;
+    the chunk's base lengths by shard (a device copy), cache and chunk
+    shapes; the replicated encoder's plan. The chunk is recorded where it is
+    launched, since a replay of its graph runs no Python of its steps."""
 
     def __init__(self, mp):
-        self.decoder, self.first = mp.meshed.decoder, {}
+        self.decoder, self.meshed, self.first = mp.meshed.decoder, mp.meshed, {}
 
     def __enter__(self):
         dec, first = self.decoder, self.first
-        prefill, step, encode = dec.prefill, dec.decode_step_chunked, qwen_encoder.encode_on_mesh
+        prefill, chunk, encode = dec.prefill, self.meshed.launch_chunk, qwen_encoder.encode_on_mesh
 
         # each records at its first call only, so that later calls do no
         # more work than the unwrapped methods
@@ -2175,12 +2178,12 @@ class MeshShapes:
                 first["prefill"] = {dm: tuple(e.shape[:2]) for dm, e in embeds.items()}
             return prefill(embeds, seq_lens)
 
-        def rec_step(cache, chunk_k, chunk_v, embeds, i, base_len):
+        def rec_chunk(cache, last_token, active, num_steps, *args):
             if "decode" not in first:
-                first["decode"] = dict(lengths={dm: t.clone() for dm, t in base_len.shards.items()},
+                first["decode"] = dict(lengths={dm: t.clone() for dm, t in cache["len"].shards.items()},
                                        cache={dm: tuple(t.shape) for dm, t in cache["k"].shards.items()},
-                                       K=chunk_k[0, 0].shape[3])
-            return step(cache, chunk_k, chunk_v, embeds, i, base_len)
+                                       K=num_steps)
+            return chunk(cache, last_token, active, num_steps, *args)
 
         def rec_encode(encoders, args, kv_range, win_range, mesh):
             if "encoder" not in first:
@@ -2189,12 +2192,12 @@ class MeshShapes:
                 first["encoder"] = dict(full=(a[3], a[6], kv_range), window=(a[4], a[7], win_range))
             return encode(encoders, args, kv_range, win_range, mesh)
 
-        dec.prefill, dec.decode_step_chunked, qwen_encoder.encode_on_mesh = rec_prefill, rec_step, rec_encode
+        dec.prefill, self.meshed.launch_chunk, qwen_encoder.encode_on_mesh = rec_prefill, rec_chunk, rec_encode
         self.encode = encode
         return self
 
     def __exit__(self, *exc):
-        del self.decoder.prefill, self.decoder.decode_step_chunked
+        del self.decoder.prefill, self.meshed.launch_chunk
         qwen_encoder.encode_on_mesh = self.encode
 
 
@@ -3194,16 +3197,16 @@ GRAPH_CASES = {
 }
 
 
-def random_slot_cache(model, gen, quantize: bool) -> dict:
+def random_slot_cache(model, gen, quantize: bool, slots: int = GRAPH_SLOTS) -> dict:
     dec = model.config.decoder
-    cache = qwen_decoder.init_cache(dec, GRAPH_SLOTS, GRAPH_CACHE_LEN, torch.bfloat16, "cuda", quantize=quantize)
+    cache = qwen_decoder.init_cache(dec, slots, GRAPH_CACHE_LEN, torch.bfloat16, "cuda", quantize=quantize)
     for key in ("k", "v"):
         x = torch.randn(cache[key].shape, generator=gen, device="cuda") * 0.5
         if quantize:
             cache[key], cache[f"{key}_scale"] = qwen_decoder.quantize_kv(x)
         else:
             cache[key].copy_(x)
-    cache["len"].copy_(torch.randint(64, GRAPH_CACHE_LEN - 2 * PIN_TOKENS, (GRAPH_SLOTS,), generator=gen,
+    cache["len"].copy_(torch.randint(64, GRAPH_CACHE_LEN - 2 * PIN_TOKENS, (slots,), generator=gen,
                                      device="cuda", dtype=torch.int32))
     return cache
 
@@ -3431,6 +3434,10 @@ def program_key_label(key) -> str:
     """A program store's key, short: the program, its flags and shapes."""
     if isinstance(key, str):
         return key
+    if key[0] == "table_encode":
+        return f"table rec encode pixels={list(key[2])}"
+    if key[0] == "ocr_error":
+        return f"OCR error forward input_ids={list(key[2][0])}"
     if key[0] == "prefill":
         shapes = {name: shape for name, shape, _ in key[7:]}
         return (f"prefill rows={shapes['input_ids'][0]} L={shapes['input_ids'][1]} patches={shapes['patches'][0]} "
@@ -3683,6 +3690,253 @@ def check_streaming_capture(pred, det, power):
     print(f"      recognition: {store_report(g_rec)}")
     if g != e or not workers:
         raise AssertionError(f"streaming capture: lines equal {g == e}, worker-thread captures {len(workers)}")
+
+
+# -- the last jitted programs as CUDA graphs against their plain version (phase 30) --
+# Layout's whole generate (the encoder inside its box loop's graph), table
+# rec's encode and OCR error's forward, each through a new store (captured at
+# its first call, replayed at the second) and through the plain one
+# (graphs.EagerLoops / EagerPrograms) on the same inputs, twice each; then the
+# meshed decode chunk at production width on a 2x2 logical mesh of cuda:0 from
+# a random sharded cache of MESH_GRAPH_SLOTS slots (the meshed predictor's 128
+# and the trash slot, aligned to the data axis), GRAPH_ACTIVE of them
+# decoding, each case (pinned, repeat window, int8 cache), against the eager
+# meshed loop and the unsharded chunk's graph on the same inputs.
+MESH_GRAPH_SLOTS = 130
+MESH_GRAPH_CASES = {
+    "bf16 cache, pinned": (True, 0, False),
+    "bf16 cache, free-running": (False, REPEAT_WINDOW, False),
+    "int8 cache (K3q), pinned": (True, 0, True),
+    "int8 cache (K3q), free-running": (False, REPEAT_WINDOW, True),
+    "bf16 cache, every slot stops at step 0 (repeat window 1)": (False, 1, False),
+}
+
+
+def loop_key_label(key) -> str:
+    """A loop store's key, short."""
+    if key[0] == "layout":
+        return f"layout pixels={list(key[2])} {key[3]}"
+    if key[0] == "meshed_decode_chunk":
+        return (f"meshed chunk {key[2][0]}x{key[2][1]}, slots a shard {list(key[3])}, K={key[4]}, pin={key[5]}, "
+                f"window={key[6]}")
+    return str(key[0])
+
+
+def loops_report(store) -> str:
+    """Each key of a loop store: its capture's seconds and the memory
+    reserved meanwhile; then the size of the pools its graphs share."""
+    keys = "; ".join(f"{loop_key_label(k)}: capture {c['capture_s']:.3f} s, +{c['pool_bytes'] / 2**20:.1f} MiB"
+                     for k, c in store.captures.items())
+    return f"{keys}; the store's pools {store.pool_bytes() / 2**20:.1f} MiB" if store.captures else "no key"
+
+
+def check_layout_program(lay, pages, power):
+    """Phase 30, layout: the whole generate (uint8 tiles in, the encoder and
+    the box loop one graph) through a new LoopGraphs and through the eager
+    loop, on two batches of 8 tiles of `pages` (the predictor's dispatches),
+    as called and cap-bound: valid flags, classes and steps run must be
+    equal; box and logit differences are printed."""
+    c = lay.config
+    slicer = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE)
+    tiles, _ = slicer.slice([p.convert("RGB") for p in pages[:8]])
+    pixels = lay.gray_ship(np.stack([lay.prepare_image(t) for t in tiles]))
+    batches = [torch.from_numpy(np.ascontiguousarray(pixels[i:i + 8])).cuda() for i in (0, 8)]
+    n = c.label_count
+    saved = lay.loops
+    for label, config in (("as called", c), (f"cap-bound ({c.max_boxes} steps)",
+                                             dataclasses.replace(c, eos_token_id=-1, pad_token_id=-1))):
+        lay.model.config = config
+        store, runs = graphs.LoopGraphs(), {}
+        try:
+            for name, loops in (("graph", store), ("plain", graphs.EagerLoops())):
+                lay.loops, runs[name] = loops, []
+                with torch.inference_mode():
+                    for px in batches:
+                        (packed, ran), wall = synchronised(lay._generate, px)
+                        runs[name].append((packed, ran.credit(), wall))
+        finally:
+            lay.model.config, lay.loops = c, saved
+        rows = []
+        for i, ((g, sg, wg), (e, se, we)) in enumerate(zip(runs["graph"], runs["plain"])):
+            same = torch.equal(g[..., -1], e[..., -1]) and torch.equal(g[..., 6], e[..., 6])
+            rows.append(f"call {i}: {tuple(batches[i].shape)} uint8, steps {sg} (plain {se}), valid and classes equal "
+                        f"{same}, boxes max |diff| {max_diff(g[..., :6], e[..., :6]):.3e}, logits max |diff| "
+                        f"{max_diff(g[..., 7:7 + n], e[..., 7:7 + n]):.3e}, wall {wg:.4f} s (plain {we:.4f} s)")
+            if not same or sg != se:
+                raise AssertionError(f"layout {label}: the graph differs from the eager program: {rows[-1]}")
+        print(f"    layout, {label}: {'; '.join(rows)}; {loops_report(store)} [{power}]")
+        del store
+    print(f"    layout, the predictor's own graphs after phases 13, 22 and 28 ({len(lay.loops.captures)} keys): "
+          f"{loops_report(lay.loops)}")
+
+
+def check_table_encode_program(tab, pages, power):
+    """Phase 30, table rec: the encode program (uint8 crops in, the states
+    out) through a new ProgramGraphs and eagerly on the 4 synthetic crops,
+    twice each: the states must be equal; then whole calls with the
+    encoder graphed and eager: the rows, columns and cells of every table
+    and the rows and steps of both passes must be equal."""
+    crops = [p.crop((100, 100, 868, 868)) for p in pages[:TABLE_CROPS]]
+    px = torch.from_numpy(tab.gray_ship(np.stack([tab.prepare_image(cr.convert("RGB")) for cr in crops]))).cuda()
+    with torch.inference_mode():
+        graph_and_plain(tab, "programs", lambda: (tab._encode(px),),
+                        f"table rec encode, {TABLE_CROPS} crops {tuple(px.shape)} uint8", power)
+    saved, runs = tab.programs, {}
+    try:
+        for name, programs in (("graph", graphs.ProgramGraphs()), ("plain", graphs.EagerPrograms())):
+            tab.programs = programs
+            tab([cr.copy() for cr in crops])
+            res, wall = synchronised(tab, [cr.copy() for cr in crops])
+            run = tab.last_run
+            runs[name] = ([(len(r.rows), len(r.cols), len(r.cells)) for r in res],
+                          [(p["rows"], p["steps"], p["recorded"]) for p in run["passes"]], wall,
+                          run["encode_enqueue_s"], [r.model_dump() for r in res])
+    finally:
+        tab.programs = saved
+    g, e = runs["graph"], runs["plain"]
+    print(f"    table rec, whole calls: tables (rows, columns, cells) {g[0]} (plain {e[0]}); passes (rows, steps, "
+          f"recorded) {g[1]} (plain {e[1]}); results equal bit for bit {g[4] == e[4]}; wall {g[2]:.4f} s (plain "
+          f"{e[2]:.4f} s); the encoder's enqueue {g[3]:.4f} s (plain {e[3]:.4f} s) [{power}]")
+    if g[0] != e[0] or g[1] != e[1]:
+        raise AssertionError("table rec: the graphed encoder's tables differ from the eager encoder's")
+
+
+def check_ocr_error_program(oe, power):
+    """Phase 30, OCR error: the forward program of the first 64 texts made
+    for each sequence bucket (bucketed by the predictor's tokenizer, since
+    phase 19 gave it a checkpoint's vocabulary) through a new ProgramGraphs
+    and eagerly, twice each (labels equal, the logits' max |diff|
+    printed); then the 256 texts through the predictor with the forward
+    graphed and eager, three calls each in turns: labels equal, texts/s and
+    the tokenizer's own time printed."""
+    texts, buckets = ocr_error_texts(np.random.default_rng(SEED + 3))
+    rows = oe.get_batch_size()
+    store, worst = graphs.ProgramGraphs(), {}
+    for b in OCR_ERROR_WORDS:  # the texts made for a bucket; the predictor's tokenizer decides theirs
+        enc = oe.processor([t for t, x in zip(texts, buckets) if x == b][:rows],
+                           max_length=oe.config.max_position_embeddings)
+        n = len(enc["input_ids"][0])
+        L = next(s for s in OCR_ERROR_SEQ_BUCKETS if s >= n)
+        ids = torch.from_numpy(np.pad(np.asarray(enc["input_ids"], np.int32), ((0, 0), (0, L - n)))).cuda()
+        mask = torch.from_numpy(np.pad(np.asarray(enc["attention_mask"], np.int32), ((0, 0), (0, L - n)))).cuda()
+        with torch.inference_mode():
+            for call in range(2):
+                g = oe.model.launch_forward(ids, mask, store).clone()
+                e = oe.model.launch_forward(ids, mask, graphs.EagerPrograms())
+                if not torch.equal(g.argmax(1), e.argmax(1)):
+                    raise AssertionError(f"OCR error, bucket {L}: the graph's labels differ from the eager forward's")
+                worst[L] = max(worst.get(L, 0.0), max_diff(g, e))
+    t0 = time.perf_counter()
+    for lo in range(0, len(texts), rows):
+        oe.processor(texts[lo:lo + rows], max_length=oe.config.max_position_embeddings)
+    tokenize = time.perf_counter() - t0
+    stores, saved = {"graph": graphs.ProgramGraphs(), "plain": graphs.EagerPrograms()}, oe.programs
+    labels, rates = {}, {"graph": [], "plain": []}
+    try:
+        for name, programs in stores.items():  # warm-ups: the graph's captures
+            oe.programs = programs
+            labels[name] = oe(texts).labels
+        for name in ("graph", "plain", "plain", "graph", "graph", "plain"):  # in turns: the host's pace drifts
+            oe.programs = stores[name]
+            res, wall = synchronised(oe, texts)
+            rates[name].append(round(len(texts) / wall, 1))
+            if res.labels != labels["plain"]:
+                raise AssertionError(f"OCR error: the {name} forward's labels differ from the eager forward's")
+    finally:
+        oe.programs = saved
+    print(f"    OCR error: forward of {rows} rows a bucket, logits max |diff| by bucket {worst}, labels equal; "
+          f"{store_report(store)}; {len(texts)} texts in batches {oe.last_run['batches']}: labels equal "
+          f"{labels['graph'] == labels['plain']}, texts/s graphed {rates['graph']}, eager {rates['plain']}, in turns; "
+          f"the tokenizer alone {tokenize:.4f} s [{power}]")
+    if labels["graph"] != labels["plain"]:
+        raise AssertionError("OCR error: the graphed forward's labels differ from the eager forward's")
+
+
+def check_meshed_chunk(pred, gen, power):
+    """Phase 30, the meshed decode chunk: MeshedFoundation.launch_chunk on a
+    2x2 logical mesh of cuda:0 through a new LoopGraphs (each step in an IF
+    node, the cond reduced over every shard on the card) and through the
+    eager meshed loop, from copies of one random sharded cache and slot
+    state, twice each (the second from the first call's state): token ids,
+    scores, boxes, slot state, the cache's bytes and lengths and the steps
+    run must be equal, and the K3 (K3q) launches credited must be the steps
+    run times layers times shards. Against the unsharded chunk's graph on
+    the same inputs: the steps run and cache lengths where the state
+    decides them (pinned, every slot stopping at step 0) must be equal;
+    the share of slots whose token ids agree is printed (random weights'
+    near-ties flip under other GEMM shapes and sums). The walls are
+    printed, meshed against unsharded."""
+    mesh = make_mesh(2, 2, [torch.device("cuda", 0)] * 4)
+    meshed = MeshedFoundation(pred.model, mesh)
+    layers, shards = pred.config.decoder.num_hidden_layers, len(mesh.coords())
+    side = torch.cuda.Stream()
+    for label, (pin, window, quantize) in MESH_GRAPH_CASES.items():
+        base = random_slot_cache(pred.model, gen, quantize, MESH_GRAPH_SLOTS)
+        active = torch.zeros(MESH_GRAPH_SLOTS, dtype=torch.bool, device="cuda")
+        active[torch.randperm(MESH_GRAPH_SLOTS - 1, generator=gen, device="cuda")[:GRAPH_ACTIVE]] = True
+        state0 = (torch.randint(4, pred.config.vocab_size, (MESH_GRAPH_SLOTS,), generator=gen, device="cuda",
+                                dtype=torch.int32), active, torch.zeros(MESH_GRAPH_SLOTS, dtype=torch.int32,
+                                                                          device="cuda"))
+        counter = "gqa_decode_shard_map_int8" if quantize else "gqa_decode_shard_map"
+        store, runs, caches = graphs.LoopGraphs(), {}, {}
+        with torch.cuda.stream(side), torch.inference_mode():
+            for name, loops in (("graph", store), ("eager", graphs.EagerLoops())):
+                cache = {k: Sharded.split(v, mesh, qwen_decoder.CACHE_SPECS[k]) for k, v in base.items()}
+                state = [Sharded.split(t, mesh, qwen_decoder.ROWS_SPEC).shards for t in state0]
+                runs[name] = []
+                for call in range(2):
+                    reset_counts()
+                    (outs, ran), wall = synchronised(meshed.launch_chunk, cache, state[0], state[1], PIN_TOKENS,
+                                                     state[2], window, pin, loops)
+                    steps, counts = ran.credit(), read_counts()
+                    for m in range(mesh.n_model):  # every model shard keeps the same slot state
+                        if not all(torch.equal(o[d, m], o[d, 0]) for o in outs[3:] for d in range(mesh.n_data)):
+                            raise AssertionError(f"{label}: model shard {m} holds another slot state")
+                    gathered = [torch.cat([o[d, 0] for d in range(mesh.n_data)]) for o in outs]
+                    runs[name].append((gathered, steps, counts[counter], wall))
+                    state = [{dm: t.clone() for dm, t in x.items()} for x in outs[3:]]
+                caches[name] = {k: v.gather() for k, v in cache.items()}
+            ucache, ustore, ustate, uruns = {k: v.clone() for k, v in base.items()}, graphs.LoopGraphs(), state0, []
+            for call in range(2):
+                (uout, uran), uwall = synchronised(pred.model.launch_chunk, ucache, *ustate[:2], PIN_TOKENS, ustate[2],
+                                                   window, pin, ustore)
+                uout = tuple(t.clone() for t in uout)
+                uruns.append((uout, uran.credit(), uwall))
+                ustate = uout[3:]
+        rows = []
+        for i, ((g, sg, kg, wg), (e, se, ke, we), (u, su, wu)) in enumerate(zip(runs["graph"], runs["eager"], uruns)):
+            same = all(torch.equal(a, b) for a, b in zip(g, e))
+            agree = float((g[0] == u[0]).all(1).float().mean())
+            rows.append(f"call {i}: steps {sg} (eager meshed {se}, unsharded {su}), K3{'q' if quantize else ''}-mesh "
+                        f"credited {kg} (eager {ke}; steps x {layers} layers x {shards} shards = "
+                        f"{sg * layers * shards}{', and the capture warm-up step' if i == 0 else ''}), outputs and state equal {same} (scores max |diff| "
+                        f"{max_diff(g[1], e[1]):.3e}), token ids equal to the unsharded chunk's on {agree:.4f} of the "
+                        f"slots; wall {wg:.4f} s (eager meshed {we:.4f} s, unsharded graph {wu:.4f} s, "
+                        f"{wg / wu:.2f} x)")
+            # the first call's capture also ran the warm-up's step 0 eagerly, counted as it launched
+            warm_up = layers * shards if i == 0 else 0
+            if not same or sg != se or ke != se * layers * shards or kg != sg * layers * shards + warm_up:
+                raise AssertionError(f"{label}: the meshed graph differs from the eager meshed loop: {rows[-1]}")
+            decided = pin or window == 1
+            if decided and sg != su:
+                raise AssertionError(f"{label}: the meshed chunk ran {sg} steps, the unsharded {su}: {rows[-1]}")
+            if window == 1 and sg != (0 if i else 1):  # the second call starts with no slot active
+                raise AssertionError(f"{label}: every slot stops at step 0, yet call {i} ran {sg} steps")
+            if pin and sg != PIN_TOKENS:
+                raise AssertionError(f"{label}: a pinned chunk ran {sg} of {PIN_TOKENS} steps")
+        cache_same = all(torch.equal(caches["graph"][k], caches["eager"][k]) for k in caches["graph"])
+        len_same = torch.equal(caches["graph"]["len"], ucache["len"])
+        print(f"    meshed chunk 2x2, {label}: {GRAPH_ACTIVE} of {MESH_GRAPH_SLOTS} slots, cache {GRAPH_CACHE_LEN} "
+              f"rows, chunk {PIN_TOKENS}; cache bytes and lengths equal to the eager meshed loop's {cache_same}, "
+              f"lengths equal to the unsharded chunk's {len_same}; {loops_report(store)} [{power}]")
+        for row in rows:
+            print(f"      {row}")
+        if not cache_same or ((pin or window == 1) and not len_same):
+            raise AssertionError(f"{label}: the meshed graph's slot cache differs")
+        del store, ustore, base, ucache, caches
+        torch.cuda.empty_cache()
+    del meshed
+    torch.cuda.empty_cache()
 
 
 # -- the checkpoint-validation command (phase 27) -------------------------------
@@ -4115,6 +4369,17 @@ def main():
     check_prefill_programs(pred, det, power)
     check_streaming_capture(pred, det, power)
     print(f"    phase 29 took {time.perf_counter() - t29:.1f} s; reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB [{power}]")
+    print(f"[30] the last jitted programs as CUDA graph replays against their plain version on the same inputs: "
+          f"layout's whole generate (the encoder inside the box loop's graph) as called and cap-bound, table rec's "
+          f"encode, OCR error's forward, and the meshed decode chunk at production width on a 2x2 logical mesh "
+          f"({MESH_GRAPH_SLOTS} slots, {PIN_TOKENS} steps, each step in an IF node)")
+    t30 = time.perf_counter()
+    check_layout_program(lay, layout_pages, power)
+    check_table_encode_program(tab, layout_pages, power)
+    check_ocr_error_program(oe, power)
+    check_meshed_chunk(pred, gen, power)
+    print(f"    phase 30 took {time.perf_counter() - t30:.1f} s; reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
           f"GiB [{power}]")
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given

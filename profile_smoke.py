@@ -20,10 +20,12 @@ each mode it prints:
   dispatches (waves, chunks), its waits for their outputs, and the rest of
   its host time; for whole-page OCR also the detection calls' wall (in the
   streaming run it overlaps recognition) and their waits for the device;
-  for layout and table rec the host time enqueueing the box loops (on the
-  card each a CUDA graph replay, captured in the warm-up run) and the waits
-  for their outputs; recognition's prefill waves and detection's stats
-  programs are CUDA graph replays too, captured in the same warm-up run;
+  for layout the host time enqueueing its dispatches (on the card each one
+  CUDA graph replay, the encoder and the box loop, captured in the warm-up
+  run), for table rec its encoder's (a graph replay) and its passes' (the
+  prompt's prefill, then a box loop's replay), and the waits for their
+  outputs; recognition's prefill waves and detection's stats programs are
+  CUDA graph replays too, captured in the same warm-up run;
 - traced, one more run under torch.profiler: that run's own wall, the
   device's busy time in it (the union of kernel, copy and memset intervals),
   the number of kernels, device time by kind and the largest kernels.
@@ -166,7 +168,7 @@ def box_loop_modes():
     lay = LayoutPredictor(device="cuda")
     tab = TableRecPredictor(device="cuda")
     install_synthetic_tables(tab, chip_smoke.TABLE_ROWS, chip_smoke.TABLE_COLS, chip_smoke.TABLE_CELLS)
-    STORES.extend([lay.loops, tab.loops])
+    STORES.extend([lay.loops, tab.loops, tab.programs])
     pages = chip_smoke.bench_pages(chip_smoke.LAYOUT_PAGES)
     crops = [p.crop((100, 100, 868, 868)) for p in pages[: chip_smoke.TABLE_CROPS]]
     as_called = lay.config
@@ -191,8 +193,10 @@ def box_loop_modes():
         waits.clear()
         _, wall = chip_smoke.synchronised(tab, crops)
         passes = tab.last_run["passes"]
-        SPLITS.append({"wall_s": wall, "enqueue_s": sum(p["enqueue_s"] for p in passes),
-                       "wait_s": sum(waits["tab._wait"]), "steps": [p["steps"] for p in passes]})
+        encode = tab.last_run["encode_enqueue_s"]
+        SPLITS.append({"wall_s": wall, "enqueue_s": encode + sum(p["enqueue_s"] for p in passes),
+                       "encode_enqueue_s": encode, "wait_s": sum(waits["tab._wait"]),
+                       "steps": [p["steps"] for p in passes]})
         return wall, [], sum(p["steps"] for p in passes)
 
     return [("layout 16 pages, as called", lambda: layout(as_called)),
@@ -285,7 +289,8 @@ def measure(label: str, power: str) -> dict:
         trace = traced(run)
         print(f"[{label}] AR steps {runs[0]['steps']} [{power}]")
         for r in runs:
-            print(f"  untraced: wall {r['wall_s']:.4f} s = enqueue {r['enqueue_s']:.4f} s + output waits "
+            encode = f" (the encoder's {r['encode_enqueue_s']:.4f} s)" if "encode_enqueue_s" in r else ""
+            print(f"  untraced: wall {r['wall_s']:.4f} s = enqueue {r['enqueue_s']:.4f} s{encode} + output waits "
                   f"{r['wait_s']:.4f} s + other host {r['wall_s'] - r['enqueue_s'] - r['wait_s']:.4f} s")
     if captured_keys() != keys:
         raise RuntimeError(f"{label}: the traced run captured a graph (graphs must be captured before the first "

@@ -2,11 +2,14 @@
 ``jax.lax.while_loop`` or over a one-shot program.
 
 The JAX package runs each of its autoregressive loops (recognition's decode
-chunk, layout's and table recognition's box loops) as one compiled program
-whose ``cond`` exits on the device. Here such a loop is a ``Loop``: tensors
-allocated once (its static inputs, buffers and outputs) and three functions
-that write them in place, ``begin``, ``step(i)`` and ``end``; ``begin`` and
-every step set ``pred``, a device bool, to the JAX cond for the step after.
+chunk, on one device or over a mesh, layout's whole generate and table
+recognition's box loops) as one compiled program whose ``cond`` exits on
+the device. Here such a loop is a ``Loop``: tensors allocated once (its
+static inputs, buffers and outputs) and three functions that write them in
+place, ``begin``, ``step(i)`` and ``end``; ``begin`` and every step set
+``pred``, a device bool, to the JAX cond for the step after. A ``begin``
+may run a one-shot prologue from the static inputs first (layout's: the
+uint8 tiles' normalisation and the encoder).
 
 ``LoopGraphs``, the store a predictor keeps on CUDA, captures a loop once per
 key of static shapes and flags, as ``jit`` keys its programs, and replays it
@@ -16,16 +19,21 @@ every row is done the card skips the remaining steps without a visit from
 the host. Before each replay the call's inputs are copied into the loop's
 static inputs; the outputs belong to the graph, so the caller copies or
 packs them before the next replay of the same key. A failed capture or
-replay raises: nothing falls back to eager launches on the card.
+replay raises: nothing falls back to eager launches on the card. The
+graphs of a store share their memory pools and streams on a device
+(``_SharedStore``), so a store holds about its largest graph's temporaries.
+A loop over the shards of a mesh is captured where they all lie on one card
+(``loops_for``); no graph spans several cards.
 
 A jitted program without an AR loop is a ``Program``: static inputs, outputs
 allocated when it is built, and ``body()``, which reads the one and writes
 the other in place. ``ProgramGraphs`` captures one per key and replays it
 once per call, as ``LoopGraphs`` does a loop. Captured so: detection's stats
 and maps programs (surya_tpu detection ``forward_stats``,
-``forward_resize_stats``, ``forward``, ``forward_resize``) and recognition's
+``forward_resize_stats``, ``forward``, ``forward_resize``), recognition's
 prefill wave (surya_tpu recognition ``prefill_fn``; its fused
-``prefill_decode_fn`` is the prefill's replay, then the decode chunk's). A
+``prefill_decode_fn`` is the prefill's replay, then the decode chunk's),
+table recognition's ``encode`` and OCR error's ``forward``. A
 loop of unknown trip count inside a program, the component flood's, is
 ``until(pred, body)``: a WHILE node of the graph, whose condition the card
 reads when the node starts and after each run of the body.
@@ -364,39 +372,111 @@ def _program(graph, loop: Loop, steps: torch.Tensor) -> None:
     loop.end()
 
 
-class LoopGraphs:
+class _SharedStore:
+    """What a store's graphs on one device share: the capture's memory pool,
+    the IF and WHILE bodies' ``MemPool``, the capture stream and the bodies'
+    stream (the allocator reuses a block that one capture freed in another
+    only from the same pool and the same stream), so that a store holds
+    about its largest graph's temporaries and not their sum. A replay
+    overwrites the temporaries of the store's other graphs, so the store
+    orders its replays on the card (each waits for the one before, whatever
+    the caller's stream) and serializes capture, input copies and replay
+    across threads."""
+
+    def __init__(self, graph_class):
+        self.graph_class = graph_class
+        self.captures: Dict[tuple, dict] = {}
+        # device -> (capture pool handle, bodies' MemPool, capture stream, bodies' stream)
+        self._shared: dict = {}
+        self._last: Optional[object] = None  # an event after the last replay (CUDA)
+        self._lock = threading.Lock()
+
+    def _graphs(self) -> list:
+        raise NotImplementedError
+
+    def _shared_for(self, device: torch.device) -> Optional[tuple]:
+        """What the store's graphs on `device` share: the pools, new ones
+        when no graph of the store lives there (none captured yet, or all
+        dropped: the allocator releases a graph pool with the last graph
+        that uses it, and a capture into a released pool fails), and the
+        two streams."""
+        if device.type != "cuda":
+            return None
+        with torch.cuda.device(device):  # pools and streams belong to the device current at their making
+            streams = self._shared[device][2:] if device in self._shared else (torch.cuda.Stream(device),
+                                                                                 torch.cuda.Stream(device))
+            if device not in self._shared or not any(g.device == device for g in self._graphs()):
+                self._shared[device] = (torch.cuda.graph_pool_handle(), torch.cuda.MemPool(), *streams)
+        return self._shared[device]
+
+    def _new_graph(self, device: torch.device):
+        shared = self._shared_for(device)
+        return self.graph_class(device) if shared is None else self.graph_class(device, shared)
+
+    def pool_bytes(self) -> int:
+        """Device memory the shared pools hold: their segments in the
+        allocator's snapshot."""
+        ids = {tuple(p) for shared in self._shared.values() for p in (shared[0], shared[1].id)}
+        if not ids:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) in ids)
+
+    def _replay(self, graph) -> None:
+        """Replay graph on the caller's current stream, after the store's
+        last replay."""
+        cuda = graph.device.type == "cuda"
+        if cuda and self._last is not None:
+            torch.cuda.current_stream(graph.device).wait_event(self._last)
+        saved, _scope.graph = _scope.graph, graph
+        try:
+            with recording():  # a stand-in graph replays through the wrappers
+                graph.replay()
+        finally:
+            _scope.graph = saved
+        if cuda:
+            self._last = torch.cuda.Event()
+            self._last.record(torch.cuda.current_stream(graph.device))
+
+
+class LoopGraphs(_SharedStore):
     """A predictor's captured loops, by key (device, static shapes and
-    flags). ``graph_class`` builds a key's graph from its device (a stand-in
-    in the CPU tests). ``captures`` keeps, by key, the seconds its capture
-    took and the device memory reserved meanwhile (its static buffers and
-    its graph's memory pools)."""
+    flags), their temporaries in the pools the store shares on a device
+    (_SharedStore). ``graph_class`` builds a key's graph from its device (a
+    stand-in in the CPU tests). ``captures`` keeps, by key, the seconds its
+    capture took and the device memory reserved meanwhile (its static
+    buffers and what the shared pools grew by)."""
 
     def __init__(self, graph_class=CudaLoopGraph):
-        self.graph_class = graph_class
+        super().__init__(graph_class)
         self.loops: Dict[tuple, _Captured] = {}
-        self.captures: Dict[tuple, dict] = {}
+
+    def _graphs(self) -> list:
+        return [cap.graph for cap in self.loops.values()]
 
     def run(self, key, build: Callable[[], Loop], inputs: dict) -> tuple:
         """Replay key's loop (captured now at its first call) on inputs.
         Returns (the graph's outputs, Ran)."""
-        cap = self.loops.get(key)
-        if cap is None:
-            cap = self.loops[key] = self._capture(key, build, inputs)
-        _copy_inputs(cap.loop, inputs)
-        with recording():  # a stand-in graph replays through the wrappers
-            cap.graph.replay()
-        if cap.steps.is_cuda:
-            host = torch.empty((), dtype=torch.int32, pin_memory=True)
-            host.copy_(cap.steps, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(cap.steps.device))
-            return cap.loop.outputs, Ran(host, cap.per_step, event)
+        with self._lock:
+            cap = self.loops.get(key)
+            if cap is None:
+                cap = self.loops[key] = self._capture(key, build, inputs)
+            _copy_inputs(cap.loop, inputs)
+            self._replay(cap.graph)
+            if cap.steps.is_cuda:
+                host = torch.empty((), dtype=torch.int32, pin_memory=True)
+                host.copy_(cap.steps, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(cap.steps.device))
+                return cap.loop.outputs, Ran(host, cap.per_step, event)
         return cap.loop.outputs, Ran(cap.steps.clone(), cap.per_step)
 
     def drop(self, match: Callable[[tuple], bool]) -> None:
-        """Forget the graphs whose key matches (their memory goes with them)."""
-        for key in [k for k in list(self.loops) if match(k)]:  # a snapshot: other threads may add keys
-            self.loops.pop(key, None)
+        """Forget the graphs whose key matches (the shared pools go with the
+        last graph that uses them)."""
+        with self._lock:
+            for key in [k for k in self.loops if match(k)]:
+                del self.loops[key]
 
     def _capture(self, key, build: Callable[[], Loop], inputs: dict) -> _Captured:
         t0 = time.perf_counter()
@@ -405,7 +485,7 @@ class LoopGraphs:
         reserved = torch.cuda.memory_reserved(device) if cuda else 0
         loop = build()
         _copy_inputs(loop, inputs)
-        graph = self.graph_class(device)
+        graph = self._new_graph(device)
         steps = torch.zeros((), dtype=torch.int32, device=device)
         saved, _scope.scratch = _scope.scratch, {}
         try:
@@ -425,10 +505,14 @@ class LoopGraphs:
         return _Captured(loop, graph, steps, per_step, scratch)
 
 
-def loops_for(device) -> object:
+def loops_for(device, shard_devices=()) -> object:
     """The store a caller on `device` runs its loops through: captured
-    graphs on CUDA, the eager loop elsewhere."""
-    return LoopGraphs() if torch.device(device).type == "cuda" else EagerLoops()
+    graphs on CUDA, where every shard of its loops (shard_devices: a mesh's
+    devices) lies on that card too; the eager loop elsewhere (no graph
+    spans several cards)."""
+    device = torch.device(device)
+    one_card = all(torch.device(d) == device for d in shard_devices)
+    return LoopGraphs() if device.type == "cuda" and one_card else EagerLoops()
 
 
 # -- one-shot programs ---------------------------------------------------------------
@@ -440,22 +524,18 @@ class _CapturedProgram:
     launches: dict  # (owner, attr[, key]) -> launches a replay
 
 
-class ProgramGraphs:
+class ProgramGraphs(_SharedStore):
     """A predictor's captured programs, by key (device, static shapes and
     flags, and whatever the body reads that its inputs do not carry), as
     ``jit`` keys its programs: captured at the first call of a key, then
     replayed once a call, its launches credited once a replay.
 
-    Every program of a store takes its temporaries from two memory pools
-    that the store shares among them (the capture's and the WHILE bodies'),
-    captured from two streams that it shares too, so the store holds about
-    the largest program's temporaries and not their sum; the static inputs
-    and outputs are made outside them, when a program is built. A replay
-    overwrites the temporaries of the store's other programs, so the store
-    orders its replays on the card (each waits for the one before, whatever
-    the caller's stream) and serializes capture, input copies and replay
-    across threads. The outputs belong to the graph: the caller reads them
-    before the next call of the same key.
+    Every program of a store takes its temporaries from the pools that the
+    store shares on a device (_SharedStore: the capture's and the WHILE
+    bodies'), so the store holds about the largest program's temporaries
+    and not their sum; the static inputs and outputs are made outside them,
+    when a program is built. The outputs belong to the graph: the caller
+    reads them before the next call of the same key.
 
     ``graph_class`` builds a key's graph from its device and what the
     store's graphs share (a stand-in in the CPU tests). ``captures`` keeps,
@@ -465,13 +545,11 @@ class ProgramGraphs:
     gives their size)."""
 
     def __init__(self, graph_class=CudaLoopGraph):
-        self.graph_class = graph_class
+        super().__init__(graph_class)
         self.programs: Dict[tuple, _CapturedProgram] = {}
-        self.captures: Dict[tuple, dict] = {}
-        # device -> (capture pool handle, bodies' MemPool, capture stream, bodies' stream)
-        self._shared: dict = {}
-        self._last: Optional[object] = None  # an event after the last replay (CUDA)
-        self._lock = threading.Lock()
+
+    def _graphs(self) -> list:
+        return [cap.graph for cap in self.programs.values()]
 
     def run(self, key, build: Callable[[], Program], inputs: dict):
         """Replay key's program (captured now at its first call) on inputs;
@@ -480,19 +558,8 @@ class ProgramGraphs:
             cap = self.programs.get(key)
             if cap is None:
                 cap = self.programs[key] = self._capture(key, build, inputs)
-            cuda = cap.graph.device.type == "cuda"
-            if cuda and self._last is not None:
-                torch.cuda.current_stream(cap.graph.device).wait_event(self._last)
             _copy_inputs(cap.program, inputs)
-            saved, _scope.graph = _scope.graph, cap.graph
-            try:
-                with recording():  # a stand-in graph replays through the wrappers
-                    cap.graph.replay()
-            finally:
-                _scope.graph = saved
-            if cuda:
-                self._last = torch.cuda.Event()
-                self._last.record(torch.cuda.current_stream(cap.graph.device))
+            self._replay(cap.graph)
         for counter, n in cap.launches.items():
             _add(counter, n)
         return cap.program.outputs
@@ -503,30 +570,6 @@ class ProgramGraphs:
         with self._lock:
             for key in [k for k in self.programs if match(k)]:
                 del self.programs[key]
-
-    def _shared_for(self, device: torch.device) -> Optional[tuple]:
-        """What the store's graphs on `device` share: the pools, new ones
-        when no graph of the store lives there (none captured yet, or all
-        dropped: the allocator releases a graph pool with the last graph
-        that uses it, and a capture into a released pool fails), and the
-        two streams."""
-        if device.type != "cuda":
-            return None
-        with torch.cuda.device(device):  # pools and streams belong to the device current at their making
-            streams = self._shared[device][2:] if device in self._shared else (torch.cuda.Stream(device),
-                                                                                 torch.cuda.Stream(device))
-            if device not in self._shared or not any(cap.graph.device == device for cap in self.programs.values()):
-                self._shared[device] = (torch.cuda.graph_pool_handle(), torch.cuda.MemPool(), *streams)
-        return self._shared[device]
-
-    def pool_bytes(self) -> int:
-        """Device memory the shared pools hold: their segments in the
-        allocator's snapshot."""
-        ids = {tuple(p) for shared in self._shared.values() for p in (shared[0], shared[1].id)}
-        if not ids:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) in ids)
 
     def _capture(self, key, build: Callable[[], Program], inputs: dict) -> _CapturedProgram:
         t0 = time.perf_counter()

@@ -7,19 +7,22 @@ Counterpart of surya_tpu/layout/__init__.py, with the same outputs:
      batch (LAYOUT_PIPELINE_BATCH; 8 on CUDA);
   2. each tile is squish-resized to the encoder size on the host
      (cv2 LANCZOS4) and shipped as uint8, one channel when every tile is
-     gray; the device broadcasts it back, scales to [0, 1] and normalizes;
-  3. on the device: the Swin encoder and the AR box loop with the
-     header/footer rewrite (models/layout_model.generate), its outputs
-     packed into one array for one copy back;
-  4. on the host: top-k label probabilities, the schema, ``clean_boxes``,
-     and the tiles joined back into pages.
+     gray; a batch's rows are padded to a power of two (``bucket_rows``,
+     copies of its last tile), as the JAX predictor pads them, so that its
+     program is keyed by few row counts;
+  3. on the device, one program (models/layout_model.launch_generate): the
+     channel broadcast, the scaling to [0, 1] and normalisation, the Swin
+     encoder and the AR box loop with the header/footer rewrite, its
+     outputs packed into one array for one copy back;
+  4. on the host: the padded rows cut, top-k label probabilities, the
+     schema, ``clean_boxes``, and the tiles joined back into pages.
 
 One batch stays in flight: batch k's outputs are fetched and assembled only
 after batch k + 1 is enqueued. On CUDA the predictor runs on a stream of its
-own, and the box loop is one replay of a CUDA graph (common/graphs.py),
-captured at the first batch of its row count on each device. Reading order
-is emission order (``position``). Batches are not padded: rows do not
-interact in the box loop.
+own, and that program is one replay of a CUDA graph (common/graphs.py),
+captured at the first batch of its row count and channel count on each
+device. Reading order is emission order (``position``). Rows do not
+interact, so the padding rows change no output.
 """
 
 from __future__ import annotations
@@ -39,11 +42,9 @@ from surya_tpu_torch.common.util import clean_boxes
 from surya_tpu_torch.layout.loader import load_layout_model
 from surya_tpu_torch.layout.schema import LayoutBox, LayoutResult
 from surya_tpu_torch.layout.slicer import ImageSlicer
+from surya_tpu_torch.models.donut_swin import IMAGE_MEAN, IMAGE_STD  # noqa: F401 (the JAX module's names)
 from surya_tpu_torch.models.layout_model import ID_TO_LABEL, LayoutConfig
 from surya_tpu_torch.settings import settings
-
-IMAGE_MEAN = 0.5
-IMAGE_STD = 0.5
 
 
 def prediction_to_polygon(pred, img_size, bbox_scaler, skew_scaler, skew_min=0.001):
@@ -108,8 +109,8 @@ class LayoutPredictor(BasePredictor):
                                                   self._config, self._dtype)
         self._jax_params = None
         self.dtype = self.model.lm_head.weight.dtype
-        # the last call's dispatches: tiles and AR steps of each, and the
-        # host time spent enqueuing them
+        # the last call's dispatches: tiles, padded rows and AR steps of
+        # each, and the host time spent enqueuing them
         self.last_run: dict = {}
         self.setup_mesh()  # a mesh: the tiles split over its data axis
         self.loops = graphs.loops_for(self.device)  # the box loops, a graph per key and device on CUDA
@@ -122,11 +123,9 @@ class LayoutPredictor(BasePredictor):
     def _generate(self, pixels: torch.Tensor, model=None) -> tuple:
         """uint8 tiles [B, H, W, 1 or 3] -> (one float32 array [B, MAX, 7 +
         label_count + 1]: boxes, class logits and the valid flag, a new
-        tensor; the box loop's graphs.Ran), through `model`, default the
+        tensor; the program's graphs.Ran), through `model`, default the
         predictor's."""
-        x = pixels.expand(*pixels.shape[:-1], 3).to(self.dtype) / 255.0
-        x = (x - IMAGE_MEAN) / IMAGE_STD
-        (boxes, logits, valid), ran = (model or self.model).launch_generate(x, self.loops)
+        (boxes, logits, valid), ran = (model or self.model).launch_generate(pixels, self.loops)
         return torch.cat([boxes, logits, valid[..., None].float()], dim=-1), ran
 
     def __call__(self, images: List[Image.Image], batch_size: Optional[int] = None,
@@ -143,14 +142,15 @@ class LayoutPredictor(BasePredictor):
         slicer = ImageSlicer(settings.LAYOUT_SLICE_MIN, settings.LAYOUT_SLICE_SIZE)
         img_counts = [slicer.slice_count(image) for image in images]
         batches = pack_by_tiles(img_counts, self.pipeline_cap(settings.LAYOUT_PIPELINE_BATCH, batch_size))
-        run = self.last_run = {"tiles": [], "steps": [], "enqueue_s": 0.0}
+        run = self.last_run = {"tiles": [], "rows": [], "steps": [], "enqueue_s": 0.0}
 
         results: List[LayoutResult] = []
         inflight = None
         for start_idx, end_idx in tqdm(batches, desc="Recognizing layout", disable=self.disable_tqdm):
             tiles, tile_positions = slicer.slice([im.convert("RGB") for im in images[start_idx:end_idx]])
             pixels = self.gray_ship(np.stack([self.prepare_image(im) for im in tiles]))
-            rows = self.round_batch(len(tiles))  # even blocks on a mesh: copies of the last tile
+            # a power of two (even blocks on a mesh) of rows: copies of the last tile
+            rows = self.bucket_rows(len(tiles), batch_size)
             if rows > len(tiles):
                 pixels = np.pad(pixels, [(0, rows - len(tiles))] + [(0, 0)] * 3, mode="edge")
             t0 = time.perf_counter()
@@ -165,6 +165,7 @@ class LayoutPredictor(BasePredictor):
                 handle = self._fetch(self.data_parallel(generate, self._upload(pixels)))
             run["enqueue_s"] += time.perf_counter() - t0
             run["tiles"].append(len(tiles))
+            run["rows"].append(rows)
             # fetch the previous batch only now that this one is enqueued
             if inflight is not None:
                 results.extend(self._finish(*inflight, slicer, top_k))
@@ -177,6 +178,7 @@ class LayoutPredictor(BasePredictor):
     def _finish(self, handle, rans, orig_sizes, tile_positions, slicer, top_k) -> List[LayoutResult]:
         [packed] = self._wait(handle)
         self.last_run["steps"].append(max(ran.credit() for ran in rans))
+        packed = packed[:len(orig_sizes)]  # the padding rows go
         return self._assemble_batch(packed[..., :7], packed[..., 7:-1], packed[..., -1] > 0.5, orig_sizes,
                                     tile_positions, slicer, top_k)
 

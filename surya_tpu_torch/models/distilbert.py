@@ -7,7 +7,10 @@ FFN with the exact GELU), and the classification head on the CLS token
 (pre_classifier, ReLU, classifier), logits in float32. LayerNorms run in
 fp32 and return the input dtype. Submodule names follow the JAX package's
 ``init_params`` pytree, so ``nn.load_jax_params`` carries its weights over.
-No TPU kernel runs here: the JAX package runs plain ``att.sdpa``.
+No TPU kernel runs here: the JAX package runs plain ``att.sdpa``. The JAX
+predictor jits the forward pass as one program; here it is
+``forward_program``, a ``common.graphs.Program``: one CUDA graph replay on
+the card (``launch_forward``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from surya_tpu_torch import nn as pnn
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.ops import attention as att
 
 ID2LABEL = {0: "good", 1: "bad"}
@@ -79,6 +83,25 @@ class DistilBert(nn.Module):
             x = layer.output_layer_norm(x + layer.lin2(F.gelu(layer.lin1(x), approximate="none")))
         h = F.relu(self.pre_classifier(x[:, 0]))
         return self.classifier(h).float()
+
+    def launch_forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, programs) -> torch.Tensor:
+        """forward through `programs` (a predictor's store: CUDA graphs on
+        the card), keyed as the JAX predictor's jitted forward: by the
+        device, the inputs' shapes (rows, sequence bucket) and types, the
+        model's dtype and the config. The logits are the graph's until the
+        store's next replay of this key."""
+        inputs = {"input_ids": input_ids, "attention_mask": attention_mask}
+        key = ("ocr_error", input_ids.device, *((tuple(t.shape), t.dtype) for t in inputs.values()),
+               self.classifier.weight.dtype, self.config)
+        return programs.run(key, lambda: self.forward_program(inputs), inputs)["logits"]
+
+    def forward_program(self, inputs: dict) -> graphs.Program:
+        """forward as a graphs.Program over static inputs like `inputs`
+        (input_ids, attention_mask [B, S]): the output "logits" [B, num_labels]."""
+        x = graphs.static_inputs(inputs, inputs["input_ids"].device)
+        out = {"logits": torch.empty((x["input_ids"].shape[0], self.config.num_labels), dtype=torch.float32,
+                                     device=x["input_ids"].device)}
+        return graphs.Program(x, out, lambda: out["logits"].copy_(self(x["input_ids"], x["attention_mask"])))
 
 
 # -- checkpoint conversion ----------------------------------------------------

@@ -53,6 +53,25 @@ class DonutSwinConfig:
     def grid(self) -> Tuple[int, int]:
         return (self.image_size[0] // self.patch_size, self.image_size[1] // self.patch_size)
 
+    @property
+    def tokens(self) -> int:
+        """The encoder's output tokens: the patch grid halved at each merge."""
+        n = len(self.depths) - 1
+        return (self.grid[0] >> n) * (self.grid[1] >> n)
+
+
+# the layout and table rec predictors' uint8 pixels -> [-1, 1] (surya_tpu
+# layout's jitted generate and table_rec's encode)
+IMAGE_MEAN = 0.5
+IMAGE_STD = 0.5
+
+
+def normalize_u8(pixels, dtype):
+    """uint8 pages [B, H, W, 1 or 3] -> the encoder's input [B, H, W, 3] in
+    dtype: a gray channel broadcast, scaled to [0, 1] and normalised."""
+    x = pixels.expand(*pixels.shape[:-1], 3).to(dtype) / 255.0
+    return (x - IMAGE_MEAN) / IMAGE_STD
+
 
 # -- static tables (numpy, as the JAX package builds them) --------------------
 

@@ -20,11 +20,16 @@ step.
 The lm head shares the token embedding matrix (plus ``lm_head_bias``).
 
 ``MeshedFoundation`` runs both programs on a mesh (parallel/mesh.py): rows
-and slots over the data axis, the decoder tensor-parallel over the model axis.
+and slots over the data axis, the decoder tensor-parallel over the model
+axis. Its decode chunk is a ``common.graphs.Loop`` over every shard, with
+the JAX loop's cond reduced over all of them: on a mesh whose shards all lie
+on one card, one CUDA graph replay a chunk, each step in an IF node; over
+distinct cards the eager loop, the cond read on the host after each step.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -291,6 +296,11 @@ def cache_id(cache: dict) -> tuple:
     return tuple((name, t.device, t.dtype, tuple(t.shape), t.data_ptr()) for name, t in sorted(cache.items()))
 
 
+def mesh_cache_id(cache: dict, mesh) -> tuple:
+    """cache_id of a sharded cache: every shard's entries, in mesh order."""
+    return tuple(itertools.chain.from_iterable(cache_id(qwen_decoder.shard_view(cache, dm)) for dm in mesh.coords()))
+
+
 class MeshedFoundation:
     """The foundation model on a mesh: surya_tpu foundation's prefill
     (_sharded_encode_embed included) and decode_chunk with a mesh. Shard
@@ -355,29 +365,79 @@ class MeshedFoundation:
                     seq_lens[d, m].index_select(0, rows[m]).to(dev), slots[m],
                 )
 
-    def decode_chunk(self, cache: dict, last_token: dict, active: dict, num_steps: int, run: dict,
-                     repeat_window: int = 0, pin_decode: bool = False):
-        """FoundationModel.decode_chunk on the sharded cache, each shard over
-        its slots with a chunk buffer of its own. Returns (tokens, scores,
-        bboxes, last_token, active, run), each {(d, m): ...}."""
+    def launch_chunk(self, cache: dict, last_token: dict, active: dict, num_steps: int, run: dict,
+                     repeat_window: int, pin_decode: bool, loops) -> tuple:
+        """FoundationModel.decode_chunk on the sharded cache, each shard
+        over its slots with a chunk buffer of its own, through `loops` (a
+        predictor's store: CUDA graphs where every shard lies on one card;
+        the plain version is graphs.EagerLoops), without waiting, keyed by every
+        shard's cache (mesh_cache_id), the mesh's shape, the slots a shard,
+        num_steps, pin, repeat_window, the decoder's projection type and the
+        config. Returns ((tokens, scores, bboxes, last_token, active, run),
+        each {(d, m): ...}, which a graph owns until its next replay, and
+        common.graphs.Ran)."""
+        mesh = self.mesh
+        key = ("meshed_decode_chunk", mesh_cache_id(cache, mesh), (mesh.n_data, mesh.n_model),
+               tuple(last_token[dm].shape[0] for dm in mesh.coords()), num_steps, bool(pin_decode), repeat_window,
+               type(self.model((0, 0)).decoder.layers[0].self_attn.q_proj).__name__, self.config)
+        inputs = {f"{name}/{d},{m}": x[d, m] for name, x in (("last_token", last_token), ("active", active),
+                                                            ("run", run)) for d, m in mesh.coords()}
+        return loops.run(key, lambda: self.chunk_loop(cache, {dm: t.shape[0] for dm, t in last_token.items()},
+                                                      num_steps, repeat_window, pin_decode), inputs)
+
+    def chunk_loop(self, cache: dict, n_slots: dict, num_steps: int, repeat_window: int,
+                   pin_decode: bool) -> graphs.Loop:
+        """The meshed decode chunk as a graphs.Loop, FoundationModel.chunk_loop
+        on every shard: static inputs "last_token/d,m", "active/d,m" and
+        "run/d,m" [n_slots[d, m]] on each shard's device; begin zeroes every
+        shard's chunk buffers and takes its base lengths; step i is every
+        shard's embedding, the sharded decode_step_chunked (its cross-shard
+        sums included) and each shard's decode_step_update; the cond is
+        any(active) over all shards, reduced on the mesh's first device; end
+        commits every shard's chunk. Outputs: launch_chunk's."""
+        mesh, first = self.mesh, self.mesh.first
+        state = {name: {} for name in ("last_token", "active", "run")}
+        inputs = {}
+        for dm, n in n_slots.items():
+            dev = mesh.device(*dm)
+            for name, dtype in (("last_token", torch.int32), ("active", torch.bool), ("run", torch.int32)):
+                state[name][dm] = inputs[f"{name}/{dm[0]},{dm[1]}"] = torch.zeros((n,), dtype=dtype, device=dev)
+        last_token, active, run = state.values()
         bufs = {dm: self.model(dm).chunk_buffers(lt, self.decoder.shards[dm].n_kv_heads, num_steps)
                 for dm, lt in last_token.items()}
-        base_len = {dm: cache["len"][dm].clone() for dm in last_token}
-        chunks = [Sharded(self.mesh, qwen_decoder.CHUNK_SPEC, {dm: b[i] for dm, b in bufs.items()}) for i in (3, 4)]
-        lengths = Sharded(self.mesh, qwen_decoder.ROWS_SPEC, base_len)
-        last_token, active, run = dict(last_token), dict(active), dict(run)
+        base_len = {dm: torch.zeros_like(cache["len"][dm]) for dm in n_slots}
+        chunks = [Sharded(mesh, qwen_decoder.CHUNK_SPEC, {dm: b[i] for dm, b in bufs.items()}) for i in (3, 4)]
+        lengths = Sharded(mesh, qwen_decoder.ROWS_SPEC, base_len)
+        pred = torch.zeros((), dtype=torch.bool, device=first)
+        pad = self.config.pad_token_id
 
-        for step in range(num_steps):
+        def any_active():
+            pred.copy_(torch.stack([a.any().to(first) for a in active.values()]).any())
+
+        def begin():
+            for dm, (tokens_buf, *rest) in bufs.items():
+                tokens_buf.fill_(pad)
+                for buf in rest:
+                    buf.zero_()
+                base_len[dm].copy_(cache["len"][dm])
+            any_active()
+
+        def step(i: int):
             emb = {dm: self.model(dm).token_embed(lt.long()) for dm, lt in last_token.items()}
-            hidden = self.decoder.decode_step_chunked(cache, *chunks, emb, step, lengths)
+            hidden = self.decoder.decode_step_chunked(cache, *chunks, emb, i, lengths)
             for dm, h in hidden.items():
-                last_token[dm], active[dm], run[dm] = self.model(dm).decode_step_update(
-                    h, step, bufs[dm], last_token[dm], active[dm], run[dm], repeat_window, pin_decode)
+                for dst, src in zip((last_token[dm], active[dm], run[dm]), self.model(dm).decode_step_update(
+                        h, i, bufs[dm], last_token[dm], active[dm], run[dm], repeat_window, pin_decode)):
+                    dst.copy_(src)
+            any_active()
 
-        for dm, (_, _, _, chunk_k, chunk_v, advance) in bufs.items():
-            qwen_decoder.commit_chunk(qwen_decoder.shard_view(cache, dm), chunk_k, chunk_v, base_len[dm], advance)
-        tokens, scores, bboxes = ({dm: b[i] for dm, b in bufs.items()} for i in range(3))
-        return tokens, scores, bboxes, last_token, active, run
+        def end():
+            for dm, (_, _, _, chunk_k, chunk_v, advance) in bufs.items():
+                qwen_decoder.commit_chunk(qwen_decoder.shard_view(cache, dm), chunk_k, chunk_v, base_len[dm],
+                                          advance)
+
+        outputs = tuple({dm: b[i] for dm, b in bufs.items()} for i in range(3)) + (last_token, active, run)
+        return graphs.Loop(num_steps, inputs, outputs, pred, begin, step, end)
 
 
 def prefill_routes(slot_idx: np.ndarray, row_valid: np.ndarray, n_slots: int, mesh, upload) -> list:

@@ -1,13 +1,16 @@
 """Layout analysis model: DonutSwin encoder + ADETR box decoder, in PyTorch.
 
 Counterpart of surya_tpu/models/layout_model.py, with the same outputs. The
-JAX package runs the whole box loop as one device ``while_loop`` that stops
-once every row is done; here the encoder runs eagerly and the box loop is a
-``common.graphs.Loop`` of up to ``max_boxes`` steps whose cond is the same
-(some row not done): a CUDA graph on the card that skips the steps after it
-fails, the eager loop with the cond read after each step on the CPU. Each
-step applies the PageHeader/PageFooter rewrite in token space, as there.
-Reading order is emission order.
+JAX layout predictor jits one program: the gray broadcast and normalisation
+of its uint8 tiles, the encoder and the box loop, a device ``while_loop``
+that stops once every row is done. Here that program is one
+``common.graphs.Loop``: its ``begin`` runs the prologue (the channel
+broadcast, the scaling and normalisation of uint8 tiles, DonutSwin and the
+cross-attention K/V) from its static input, then up to ``max_boxes`` steps
+whose cond is the same (some row not done): a CUDA graph on the card that
+skips the steps after it fails, the eager loop with the cond read after
+each step on the CPU. Each step applies the PageHeader/PageFooter rewrite
+in token space, as there. Reading order is emission order.
 """
 
 from __future__ import annotations
@@ -137,9 +140,9 @@ class LayoutModel(nn.Module):
         return is_hf & (y0 < hi) & (y2 > lo) & (x0 < hi) & (x2 > lo)
 
     def generate(self, pixel_values):
-        """Layout of a batch of normalized pages [B, H, W, 3]: the plain
-        version of ``launch_generate`` (the eager box loop, the cond read on
-        the host after each step) on any device.
+        """Layout of a batch of pages: the plain version of
+        ``launch_generate`` (the prologue, then the eager box loop, the cond
+        read on the host after each step) on any device.
 
         Returns (boxes [B, MAX, 7] fp32: the 6 box values in 0..bbox_size and
         the final class id; class_logits [B, MAX, label_count] fp32, after the
@@ -150,26 +153,35 @@ class LayoutModel(nn.Module):
 
     def launch_generate(self, pixel_values, loops) -> tuple:
         """generate through `loops` (a predictor's store: CUDA graphs on the
-        card), without waiting: the encoder and the cross-attention K/V
-        eagerly, then the box loop. Returns (generate's outputs, which a
+        card), without waiting, as one program keyed as jit keys the JAX
+        one: by the pixels' device, shape (the channel count included) and
+        dtype, the model's dtype and the config. pixel_values: uint8 tiles
+        [B, H, W, 1 or 3] (the predictor's: broadcast and normalised inside
+        the program), or pages [B, H, W, 3] normalised already (surya_tpu
+        layout_model.generate's input). Returns (generate's outputs, which a
         graph owns until its next replay, and common.graphs.Ran)."""
-        enc = self.encoder(pixel_values)
-        cross_k, cross_v = self.decoder.precompute_cross_kv(enc)
-        key = ("layout", cross_k.device, tuple(cross_k.shape), cross_k.dtype, self.config)
-        return loops.run(key, lambda: self.box_loop(cross_k.shape, cross_k.dtype, cross_k.device),
-                         {"cross_k": cross_k, "cross_v": cross_v})
+        key = ("layout", pixel_values.device, tuple(pixel_values.shape), pixel_values.dtype, self.dtype, self.config)
+        return loops.run(key, lambda: self.generate_loop(pixel_values), {"pixels": pixel_values})
 
-    def box_loop(self, cross_shape, dtype, dev) -> graphs.Loop:
-        """The box loop as a graphs.Loop over cross-attention K/V of
-        cross_shape [layers, B, L, kvh, hd]: begin zeroes the self-attention
-        cache and the buffers; step i embeds the last box, runs the decoder
-        step and records the box unless its row is done; the cond is that
-        some row is not done."""
-        c = self.config
-        B, MAX = cross_shape[1], c.max_boxes
-        inputs = {"cross_k": torch.zeros(cross_shape, dtype=dtype, device=dev),
-                  "cross_v": torch.zeros(cross_shape, dtype=dtype, device=dev)}
-        cross_k, cross_v = inputs.values()
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.lm_head.weight.dtype
+
+    def generate_loop(self, pixel_values) -> graphs.Loop:
+        """The whole generate as a graphs.Loop over the static input
+        "pixels", like pixel_values: begin runs the prologue (uint8 pixels
+        normalised, the encoder, the cross-attention K/V written into the
+        loop's buffers), then zeroes the self-attention cache and the
+        buffers; step i embeds the last box, runs the decoder step and
+        records the box unless its row is done; the cond is that some row is
+        not done."""
+        c, dec = self.config, self.config.decoder
+        dev, dtype = pixel_values.device, self.dtype
+        B, MAX = pixel_values.shape[0], c.max_boxes
+        pixels = torch.empty(pixel_values.shape, dtype=pixel_values.dtype, device=dev)
+        cross_k = torch.zeros((dec.num_hidden_layers, B, c.encoder.tokens, dec.num_key_value_heads, dec.head_dim),
+                              dtype=dtype, device=dev)
+        cross_v = torch.zeros_like(cross_k)
         cache = self.decoder.init_cache(B, MAX + 1, dtype, dev)
         last_box = torch.zeros((B, 7), dtype=torch.int32, device=dev)
         boxes_buf = torch.zeros((B, MAX, 7), dtype=torch.float32, device=dev)
@@ -179,6 +191,10 @@ class LayoutModel(nn.Module):
         pred = torch.zeros((), dtype=torch.bool, device=dev)
 
         def begin():
+            x = donut_swin.normalize_u8(pixels, dtype) if pixels.dtype == torch.uint8 else pixels
+            k, v = self.decoder.precompute_cross_kv(self.encoder(x))
+            cross_k.copy_(k)
+            cross_v.copy_(v)
             for buf in (cache["k"], cache["v"], boxes_buf, logits_buf, valid_buf, done):
                 buf.zero_()
             last_box.fill_(c.bos_token_id)
@@ -206,7 +222,7 @@ class LayoutModel(nn.Module):
             last_box.copy_(torch.cat([box_f.to(torch.int32), class_final[:, None].to(torch.int32)], dim=-1))
             pred.copy_(~done.all())
 
-        return graphs.Loop(MAX, inputs, (boxes_buf, logits_buf, valid_buf), pred, begin, step)
+        return graphs.Loop(MAX, {"pixels": pixels}, (boxes_buf, logits_buf, valid_buf), pred, begin, step)
 
 
 # -- checkpoint conversion ----------------------------------------------------

@@ -11,7 +11,9 @@ their positions continue from the true one, with the padded rows masked. The
 prefill runs eagerly; the box loop is a ``common.graphs.Loop`` whose cond is
 the JAX package's (some row not done): a CUDA graph on the card that skips
 the steps after it fails, the eager loop with the cond read after each step
-on the CPU.
+on the CPU. The JAX predictor's jitted ``encode`` (the gray broadcast and
+normalisation of its uint8 crops, then the encoder) is ``encode_program``,
+a ``common.graphs.Program``: one CUDA graph replay on the card.
 """
 
 from __future__ import annotations
@@ -130,6 +132,30 @@ class TableRecModel(nn.Module):
 
     def encode(self, pixel_values):
         return self.encoder(pixel_values)
+
+    def launch_encode(self, pixels, programs):
+        """surya_tpu table_rec's jitted encode through `programs` (a
+        predictor's store: CUDA graphs on the card): uint8 crops [B, H, W, 1
+        or 3] -> encoder states [B, tokens, hidden], keyed as jit keys it:
+        by the pixels' device, shape (the channel count included) and
+        dtype, the model's dtype and the config. The states are the graph's
+        until the store's next replay of this key."""
+        dtype = self.pre_output_norm.weight.dtype
+        key = ("table_encode", pixels.device, tuple(pixels.shape), pixels.dtype, dtype, self.config)
+        return programs.run(key, lambda: self.encode_program(pixels), {"pixels": pixels})["states"]
+
+    def encode_program(self, pixels) -> graphs.Program:
+        """encode of uint8 crops like `pixels` as a graphs.Program: the
+        channel broadcast, the scaling to [0, 1], the normalisation and the
+        encoder, into the output "states"."""
+        c, dtype = self.config.encoder, self.pre_output_norm.weight.dtype
+        x = graphs.static_inputs({"pixels": pixels}, pixels.device)
+        out = {"states": torch.empty((pixels.shape[0], c.tokens, c.hidden_size), dtype=dtype, device=pixels.device)}
+
+        def body():
+            out["states"].copy_(self.encode(donut_swin.normalize_u8(x["pixels"], dtype)))
+
+        return graphs.Program(x, out, body)
 
     def generate(self, encoder_hidden, input_vectors, seq_lens, max_steps: int,
                  category_script: Optional[Sequence[int]] = None):

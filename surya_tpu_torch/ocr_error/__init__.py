@@ -7,7 +7,9 @@ next power of two up to the batch size (the last row repeated), so that a
 partial last batch does not pay for a full one; only the real rows' labels
 are kept. One batch stays in flight: batch k's logits are fetched only
 after batch k + 1 is enqueued (pinned uploads, an event wait). On CUDA the
-predictor runs on a stream of its own.
+predictor runs on a stream of its own, and the forward pass is one replay
+of a CUDA graph (common/graphs.py), captured at the first batch of its rows
+and sequence bucket.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from tqdm import tqdm
 
 from surya_tpu_torch import nn as pnn
+from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.checkpoint import checkpoint_dir, load_model
 from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.common.weights import load_config_json
@@ -116,6 +119,7 @@ class OCRErrorPredictor(BasePredictor):
         self._jax_params = None
         self.last_run: dict = {}  # the last call's batches: (rows, sequence bucket) of each
         self.setup_mesh()  # a mesh: the texts split over its data axis
+        self.programs = graphs.programs_for(self.device)  # the forward pass, a graph per key and device on CUDA
 
     def __call__(self, texts: List[str], batch_size: Optional[int] = None) -> OCRErrorDetectionResult:
         return self.batch_ocr_error_detection(texts, batch_size)
@@ -141,8 +145,7 @@ class OCRErrorPredictor(BasePredictor):
             ids, mask = (np.pad(a, ((0, rows - current), (0, 0)), mode="edge") for a in (ids, mask))
             run["batches"].append((rows, L))
             with self._on_stream(), torch.inference_mode():
-                handle = self._fetch(self.data_parallel(lambda model, i, m: model(i, m), self._upload(ids),
-                                                        self._upload(mask)))
+                handle = self._fetch(self.data_parallel(self._forward, self._upload(ids), self._upload(mask)))
             # fetch the previous batch only now that this one is enqueued
             if inflight is not None:
                 predictions.extend(self._finish(*inflight))
@@ -150,6 +153,16 @@ class OCRErrorPredictor(BasePredictor):
         if inflight is not None:
             predictions.extend(self._finish(*inflight))
         return OCRErrorDetectionResult(texts=texts, labels=[ID2LABEL[p] for p in predictions])
+
+    def _forward(self, model, input_ids, attention_mask) -> torch.Tensor:
+        """The logits of one block of rows, one program of self.programs.
+        They are the graph's until the next replay of their key: _fetch
+        copies them to the host on the predictor's stream before the next
+        batch is enqueued, so they may. On a mesh the data shards of one
+        device replay one key in turn, so each shard's logits are copied out
+        first."""
+        logits = model.launch_forward(input_ids, attention_mask, self.programs)
+        return logits.clone() if self.mesh is not None else logits
 
     def _finish(self, handle, current: int) -> List[int]:
         [logits] = self._wait(handle)

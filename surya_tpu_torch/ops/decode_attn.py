@@ -207,7 +207,9 @@ def gqa_decode_shard_map(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: i
     lengths: Sharded [B] (data,). Returns the Sharded outputs, q's spec.
     ``launches``/``launches_q`` count K3/K3q launches, ``launches_by_shard``
     both by shard, ``launches_gathered`` the gathered path's
-    (gqa_decode's dispatch); on the CPU each shard runs the plain version."""
+    (gqa_decode's dispatch), all through ``graphs.count`` (a captured
+    chunk's per step that its replay ran); on the CPU each shard runs the
+    plain version."""
     out = {}
     for dm in mesh.coords():
         args = (q[dm], k_cache[dm], v_cache[dm], lengths[dm], chunk_k[dm], chunk_v[dm], step, layer,
@@ -216,12 +218,8 @@ def gqa_decode_shard_map(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: i
             out[dm] = gqa_decode_reference(*args)
             continue
         out[dm] = _launch_decode("gqa_decode_shard_map", *args)
-        if k_scale is not None:
-            gqa_decode_shard_map.launches_q += 1
-        else:
-            gqa_decode_shard_map.launches += 1
-        by_shard = gqa_decode_shard_map.launches_by_shard
-        by_shard[dm] = by_shard.get(dm, 0) + 1
+        graphs.count(gqa_decode_shard_map, "launches_q" if k_scale is not None else "launches")
+        graphs.count(gqa_decode_shard_map, "launches_by_shard", key=dm)
     return Sharded(mesh, q.spec, out)
 
 
@@ -245,7 +243,7 @@ def _decode_on_mesh(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer,
         out = gqa_decode_reference(*args)
     else:
         out = _launch_decode("gqa_decode_shard_map", *args)
-        gqa_decode_shard_map.launches_gathered += 1
+        graphs.count(gqa_decode_shard_map, "launches_gathered")
     return Sharded.split(out, mesh, q.spec)
 
 

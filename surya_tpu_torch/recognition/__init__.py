@@ -39,7 +39,11 @@ global view, as the JAX predictor does: the slots and the prefill rows are
 aligned to the data axis, each data shard holds a block of the slots (taken
 round-robin over the blocks) and encodes its own rows' images, the decoder
 runs tensor-parallel over the model axis (models/foundation.MeshedFoundation),
-and the outputs gather on the predictor's device.
+and the outputs gather on the predictor's device. The meshed decode chunk
+runs the JAX loop's steps: on a mesh whose shards all lie on the
+predictor's card, one replay of a graph of common/graphs.LoopGraphs (over a
+kept sharded slot-cache store, as above); over distinct cards the eager
+loop. The meshed prefill runs eagerly.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_fr
 from surya_tpu_torch.models import qwen_decoder
 from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, prefill_routes
 from surya_tpu_torch.models.foundation import pack_outputs as _pack
-from surya_tpu_torch.parallel.mesh import Mesh, gather_rows, split_range, split_sizes
+from surya_tpu_torch.parallel.mesh import Mesh, Sharded, gather_rows, split_range, split_sizes
 from surya_tpu_torch.recognition.loader import load_recognition_model
 from surya_tpu_torch.recognition.postprocessing import fix_unbalanced_tags
 from surya_tpu_torch.recognition.processor import MIN_IMAGE_SIZE
@@ -98,11 +102,19 @@ class RecognitionPrompt:
     math_mode: bool
 
 
-def _rows_view(t: torch.Tensor, rows: int) -> torch.Tensor:
+def _rows_view(t, rows: int):
     """The first bytes of a contiguous cache tensor [layers, slots, kvh, S,
-    ...] seen as one of `rows` rows in place of S."""
+    ...] (or of each shard of a Sharded one) seen as one of `rows` rows in
+    place of S."""
+    if isinstance(t, Sharded):
+        return Sharded(t.mesh, t.spec, {dm: _rows_view(x, rows) for dm, x in t.shards.items()})
     shape = t.shape[:3] + (rows,) + t.shape[4:]
     return t.view(-1)[:shape.numel()].view(shape)
+
+
+def _first_shard(t) -> torch.Tensor:
+    """A cache entry's tensor, or its first shard's."""
+    return t[0, 0] if isinstance(t, Sharded) else t
 
 
 def _empty_results(images) -> List[OCRResult]:
@@ -165,7 +177,9 @@ class RecognitionPredictor(BasePredictor):
         # the decode chunk's store (CUDA graphs on the card), and the slot
         # cache store that its graphs read, kept between runs (_take_cache;
         # calls from several threads take and hand it back under the lock)
-        self.loops = graphs.loops_for(self.device)
+        # (the meshed chunk's too where every shard lies on the predictor's
+        # card; over distinct cards it runs eagerly)
+        self.loops = graphs.loops_for(self.device, self.mesh.distinct() if self.mesh is not None else ())
         # the prefill wave's programs (CUDA graphs on the card; a mesh runs its own, eagerly)
         self.programs = graphs.programs_for(self.device)
         self._kept_cache: Optional[dict] = None
@@ -203,7 +217,7 @@ class RecognitionPredictor(BasePredictor):
     def _decode(self, cache, state, kill, pin: bool):
         """One decode chunk on the device (kill: None when it was applied by a
         prefill fused before it). Returns (packed outputs [slots, K, 8], state,
-        the chunk's graphs.Ran or None on a mesh). The state is the graph's
+        the chunk's graphs.Ran). The state is the graph's
         own: the next dispatch makes new tensors of it (apply_kill) or copies
         it before the next replay."""
         if self.meshed is not None:
@@ -285,16 +299,15 @@ class RecognitionPredictor(BasePredictor):
         return packed, (last_token, active, run)
 
     def _decode_on_mesh(self, cache, state, kill, pin: bool):
-        """_decode on the mesh."""
+        """_decode on the mesh, through self.loops."""
         if kill is not None:
             state = self._kill_on_mesh(state, kill)
-        toks, scores, bboxes, *state = self.meshed.decode_chunk(
-            cache, *state[:2], self.decode_chunk, run=state[2], repeat_window=0 if pin else REPEAT_WINDOW,
-            pin_decode=pin,
-        )
+        (toks, scores, bboxes, *state), ran = self.meshed.launch_chunk(
+            cache, *state[:2], self.decode_chunk, state[2], 0 if pin else REPEAT_WINDOW, pin, self.loops)
+        # _pack makes new tensors: the next replay leaves them alone
         packed = gather_rows([_pack(toks[d, 0], scores[d, 0], bboxes[d, 0]) for d in range(self.mesh.n_data)],
                              self.device)
-        return packed, tuple(state), None
+        return packed, tuple(state), ran
 
     def _dispatch_prefill(self, cache, batch, slot_idx, row_valid, state, kill, pin: bool, fuse: bool):
         """Enqueue a prefill wave, fused with the decode chunk after it, and
@@ -315,27 +328,31 @@ class RecognitionPredictor(BasePredictor):
     def _take_cache(self, n_slots: int, cache_len: int, quantize: bool) -> tuple:
         """A run's slot cache of n_slots slots (the trash slot included) and
         cache_len rows, its lengths zeroed, and the store it is a view of
-        (None on a mesh, where every run makes its own: its decode chunk runs
-        eagerly). A decode graph reads the cache at its address, so on one
-        device the predictor keeps one store between runs, as long as the
-        longest cache a run has asked for: a shorter cache is a view of its
-        first bytes (rows past a length are never read), and the graphs of
-        every length stay valid. A store of other slots or quantisation, or
-        a shorter one, is replaced, and the graphs that read it go with it.
+        (None over distinct cards, where every run makes its own: its decode
+        chunk runs eagerly). A decode graph reads the cache at its address,
+        so on one device (a mesh's shards all on it too: a sharded store)
+        the predictor keeps one store between runs, as long as the longest
+        cache a run has asked for: a shorter cache is a view of its first
+        bytes (rows past a length are never read), and the graphs of every
+        length stay valid. A store of other slots or quantisation, or a
+        shorter one, is replaced, and the graphs that read it go with it.
         A run that starts while another holds the store makes its own."""
-        if self.mesh is not None:
+        mesh = self.mesh
+        if mesh is not None and mesh.distinct() != [self.device]:
             return qwen_decoder.init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device,
-                                           quantize=quantize, mesh=self.mesh), None
+                                           quantize=quantize, mesh=mesh), None
         with self._kept_cache_lock:
             store, self._kept_cache = self._kept_cache, None
-        if store is not None and (store["len"].shape[0] != n_slots or ("k_scale" in store) != quantize
-                                  or store["k"].shape[3] < cache_len):
-            self._forget_cache(store)  # before the new one is made
-            store = None
+        if store is not None:
+            slots = store["len"].global_size(0) if mesh is not None else store["len"].shape[0]
+            if slots != n_slots or ("k_scale" in store) != quantize or _first_shard(store["k"]).shape[3] < cache_len:
+                self._forget_cache(store)  # before the new one is made
+                store = None
         if store is None:
             store = qwen_decoder.init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device,
-                                            quantize=quantize)
-        store["len"].zero_()
+                                            quantize=quantize, mesh=mesh)
+        for t in (store["len"].shards.values() if mesh is not None else (store["len"],)):
+            t.zero_()
         return {name: t if name == "len" else _rows_view(t, cache_len) for name, t in store.items()}, store
 
     def _keep_cache(self, store: Optional[dict]) -> None:
@@ -352,9 +369,9 @@ class RecognitionPredictor(BasePredictor):
     def _forget_cache(self, store: dict) -> None:
         """Drop the decode and prefill graphs that read `store` (each keys
         its cache's tensors, "len" among them, by address:
-        foundation.cache_id)."""
-        entry = cache_id({"len": store["len"]})[0]
-        self.loops.drop(lambda k: k[0] == "decode_chunk" and entry in k[1])
+        foundation.cache_id; a meshed chunk every shard's)."""
+        entry = cache_id({"len": _first_shard(store["len"])})[0]
+        self.loops.drop(lambda k: k[0] in ("decode_chunk", "meshed_decode_chunk") and entry in k[1])
         self.programs.drop(lambda k: k[0] == "prefill" and entry in k[1])
 
     # -- slicing (host) --------------------------------------------------------

@@ -14,8 +14,11 @@ query row reads its crop's states through a gather by ``enc_idx`` there,
 never fetched and uploaded again. Prompts are right-padded to
 PROMPT_BUCKETS, with the padded rows masked; batches are not padded, since
 rows do not interact. On CUDA the predictor runs on a stream of its own,
-and each pass's box loop is one replay of a CUDA graph (common/graphs.py),
-captured at the first pass of its rows and prompt length on each device.
+the encoder (the gray broadcast, the normalisation and DonutSwin, as the
+JAX predictor's jitted ``encode``) is one replay of a CUDA graph captured
+at the first batch of its crop count and channel count, and each pass's box
+loop one replay of a graph (common/graphs.py), captured at the first pass
+of its rows and prompt length on each device.
 """
 
 from __future__ import annotations
@@ -35,14 +38,12 @@ from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.models import table_rec_model
+from surya_tpu_torch.models.donut_swin import IMAGE_MEAN, IMAGE_STD  # noqa: F401 (the JAX module's names)
 from surya_tpu_torch.models.table_rec_model import BOX_DIM, CATEGORY_TO_ID, MERGE_KEYS, MERGE_VALUES, TableRecConfig
 from surya_tpu_torch.settings import settings
 from surya_tpu_torch.table_rec.loader import load_table_rec_model
 from surya_tpu_torch.table_rec.schema import TableCell, TableCol, TableResult, TableRow
 from surya_tpu_torch.table_rec.shaper import LabelShaper
-
-IMAGE_MEAN = 0.5
-IMAGE_STD = 0.5
 PROMPT_BUCKETS = (4, 8, 16, 32, 64, 128)
 
 
@@ -108,10 +109,12 @@ class TableRecPredictor(BasePredictor):
         self._script_rowcol = None  # install_synthetic_tables
         self._script_cells = None
         # the last call's passes (rows, AR steps, the host time spent
-        # enqueuing, steps recorded) and cell-pass batches
+        # enqueuing, steps recorded), cell-pass batches and the host time
+        # spent enqueuing the encoder
         self.last_run: dict = {}
         self.setup_mesh()  # a mesh: crops and prompts split over its data axis
         self.loops = graphs.loops_for(self.device)  # the box loops, a graph per key and device on CUDA
+        self.programs = graphs.programs_for(self.device)  # the encoder, a graph per key and device on CUDA
 
     def prepare_image(self, img: Image.Image) -> np.ndarray:
         size = self.config.encoder.image_size
@@ -119,9 +122,14 @@ class TableRecPredictor(BasePredictor):
 
     def _encode(self, pixels: torch.Tensor, model=None) -> torch.Tensor:
         """uint8 crops [B, H, W, 1 or 3] -> encoder states [B, tokens, hidden]
-        (through `model`, default the predictor's)."""
-        x = pixels.expand(*pixels.shape[:-1], 3).to(self.dtype) / 255.0
-        return (model or self.model).encode((x - IMAGE_MEAN) / IMAGE_STD)
+        (through `model`, default the predictor's), one program of
+        self.programs. The states are the graph's until the next replay of
+        their key: the passes read them only through index gathers into new
+        tensors, enqueued on the predictor's stream before the next batch's
+        encode, so they may. On a mesh the data shards of one device replay
+        one key in turn, so each shard's states are copied out first."""
+        states = (model or self.model).launch_encode(pixels, self.programs)
+        return states.clone() if self.mesh is not None else states
 
     # -- decode passes -------------------------------------------------------
 
@@ -206,7 +214,7 @@ class TableRecPredictor(BasePredictor):
         if batch_size is None:
             batch_size = self.get_batch_size()
         batch_size = self.round_batch(batch_size)
-        self.last_run = {"passes": [], "cell_batch": []}
+        self.last_run = {"passes": [], "cell_batch": [], "encode_enqueue_s": 0.0}
         if len(images) == 0:
             return []
 
@@ -233,8 +241,10 @@ class TableRecPredictor(BasePredictor):
             rows = self.round_batch(len(batch_images))  # even blocks on a mesh: copies of the last crop
             if rows > len(batch_images):
                 pixels = np.pad(pixels, [(0, rows - len(batch_images))] + [(0, 0)] * 3, mode="edge")
+            t0 = time.perf_counter()
             with self._on_stream(), torch.inference_mode():
                 enc_dev = self.data_parallel(lambda model, px: self._encode(px, model), self._upload(pixels))
+            self.last_run["encode_enqueue_s"] += time.perf_counter() - t0
 
             vectors = self._build_query_vectors(batch_query_items)
             rowcol_predictions = self._run_pass(enc_dev, np.arange(len(vectors)), vectors, script=self._script_rowcol)
