@@ -232,6 +232,7 @@ import base64
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -282,7 +283,7 @@ from surya_tpu_torch.layout import LayoutPredictor  # noqa: E402
 from surya_tpu_torch.layout.loader import layout_config  # noqa: E402
 from surya_tpu_torch.layout.slicer import ImageSlicer  # noqa: E402
 from surya_tpu_torch.models import qwen_decoder, qwen_encoder  # noqa: E402
-from surya_tpu_torch.models.foundation import MeshedFoundation, prefill_routes  # noqa: E402
+from surya_tpu_torch.models.foundation import MeshedFoundation, slot_sources  # noqa: E402
 from surya_tpu_torch.parallel.mesh import Sharded, make_mesh, split_range  # noqa: E402
 from surya_tpu_torch.models.efficientvit import install_blob_detector  # noqa: E402
 from surya_tpu_torch.models.qwen_encoder import EncoderConfig, plan_layout  # noqa: E402
@@ -291,7 +292,8 @@ from surya_tpu_torch.recognition import RecognitionPredictor  # noqa: E402
 from surya_tpu_torch.recognition.loader import DEFAULT_ENCODER  # noqa: E402
 from surya_tpu_torch.models.layout_model import ID_TO_LABEL  # noqa: E402
 from surya_tpu_torch.settings import Settings, load_dotenv, settings  # noqa: E402
-from surya_tpu_torch.table_rec import TableRecPredictor, install_synthetic_tables  # noqa: E402
+from surya_tpu_torch.table_rec import PROMPT_BUCKETS, TableRecPredictor, install_synthetic_tables  # noqa: E402
+from surya_tpu_torch.models.table_rec_model import BOX_DIM  # noqa: E402
 from surya_tpu_torch.models.distilbert import DistilBert  # noqa: E402
 from surya_tpu_torch.models.foundation import FoundationModel  # noqa: E402
 from surya_tpu_torch import nn as pnn  # noqa: E402
@@ -446,6 +448,20 @@ def read_counts() -> dict:
         counts[f"{fn.__name__} by shard"] = dict(fn.launches_by_shard)
     counts["gathered"] = sum(fn.launches_gathered for fn in MESH_WRAPPERS)
     return counts
+
+
+def release() -> None:
+    """Free what the objects just dropped held on the card: a collection
+    first (a predictor can sit in a reference cycle until one), then the
+    allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def memory() -> str:
+    """The card's memory as the allocator holds it."""
+    return (f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
 def card() -> str:
@@ -2158,25 +2174,30 @@ class PlainCalls:
 class MeshShapes:
     """For one meshed predictor run, what its first prefill and first decode
     chunk give the kernel wrappers (stand-ins, in this script only, for its
-    ShardedDecoder's prefill, its MeshedFoundation's launch_chunk and
-    qwen_encoder.encode_on_mesh): the prefill's rows and bucket by shard;
-    the chunk's base lengths by shard (a device copy), cache and chunk
-    shapes; the replicated encoder's plan. The chunk is recorded where it is
-    launched, since a replay of its graph runs no Python of its steps."""
+    MeshedFoundation's launch_prefill and launch_chunk): the prefill's rows
+    and bucket by shard; the chunk's base lengths by shard (a device copy),
+    cache and chunk shapes; the replicated encoder's plan (a mesh of one
+    data row). Each is recorded where its program is launched, since a
+    replay of its graph runs no Python of its body."""
 
     def __init__(self, mp):
-        self.decoder, self.meshed, self.first = mp.meshed.decoder, mp.meshed, {}
+        self.meshed, self.first = mp.meshed, {}
 
     def __enter__(self):
-        dec, first = self.decoder, self.first
-        prefill, chunk, encode = dec.prefill, self.meshed.launch_chunk, qwen_encoder.encode_on_mesh
+        first = self.first
+        prefill, chunk = self.meshed.launch_prefill, self.meshed.launch_chunk
 
         # each records at its first call only, so that later calls do no
         # more work than the unwrapped methods
-        def rec_prefill(embeds, seq_lens):
+        def rec_prefill(cache, inputs, kv_range, win_range, sharded, *args):
             if "prefill" not in first:
-                first["prefill"] = {dm: tuple(e.shape[:2]) for dm, e in embeds.items()}
-            return prefill(embeds, seq_lens)
+                first["prefill"] = {dm: tuple(v["input_ids"].shape) for dm, v in inputs.items()}
+                if not sharded:
+                    # device_args: patch_gather, pos_hw, seg_id, win_id, unscatter, kv_starts, win_starts
+                    a = {name: t.cuda() for name, t in inputs[0, 0].items()}
+                    first["encoder"] = dict(full=(a["enc_2"], a["enc_5"], kv_range),
+                                            window=(a["enc_3"], a["enc_6"], win_range))
+            return prefill(cache, inputs, kv_range, win_range, sharded, *args)
 
         def rec_chunk(cache, last_token, active, num_steps, *args):
             if "decode" not in first:
@@ -2185,20 +2206,11 @@ class MeshShapes:
                                        K=num_steps)
             return chunk(cache, last_token, active, num_steps, *args)
 
-        def rec_encode(encoders, args, kv_range, win_range, mesh):
-            if "encoder" not in first:
-                # args[(0, 0)]: patches, patch_gather, pos_hw, seg_id, win_id, unscatter, kv_starts, win_starts
-                a = args[0, 0]
-                first["encoder"] = dict(full=(a[3], a[6], kv_range), window=(a[4], a[7], win_range))
-            return encode(encoders, args, kv_range, win_range, mesh)
-
-        dec.prefill, self.meshed.launch_chunk, qwen_encoder.encode_on_mesh = rec_prefill, rec_chunk, rec_encode
-        self.encode = encode
+        self.meshed.launch_prefill, self.meshed.launch_chunk = rec_prefill, rec_chunk
         return self
 
     def __exit__(self, *exc):
-        del self.decoder.prefill, self.meshed.launch_chunk
-        qwen_encoder.encode_on_mesh = self.encode
+        del self.meshed.launch_prefill, self.meshed.launch_chunk
 
 
 def same_weights(a, b) -> bool:
@@ -2215,16 +2227,21 @@ def mesh_path_outputs(mp, batch, n: int, quantize: bool) -> dict:
     mesh, meshed, dec = mp.mesh, mp.meshed, mp.config.decoder
     rows, L = batch.input_ids.shape
     lay = batch.layout
-    inputs, seq_lens, sharded = mp._mesh_inputs(batch)
-    embeds = meshed.encode_embed(inputs, lay.kv_range, lay.win_range, sharded)
+    n_slots = mp.round_batch(n)
+    slot_idx, row_valid = np.zeros(rows, np.int32), np.zeros(rows, bool)
+    slot_idx[batch.valid_rows], row_valid[batch.valid_rows] = np.arange(n), True
+    state = mp._init_state_on_mesh(n_slots)
+    program = mp._mesh_inputs(batch, slot_idx, row_valid, state, np.zeros(n_slots, bool))
+    x = {dm: {name: t.to(mesh.device(*dm)) for name, t in v.items()} for dm, v in program.items()}
+    inputs = {dm: (mp.processor.normalize_patch_rows(v["patches"], mp.dtype), tuple(v[f"enc_{i}"] for i in range(7)),
+                   v["llm_h_idx"], v["llm_w_idx"], v["input_ids"], v["img_gather"]) for dm, v in x.items()}
+    seq_lens = {dm: v["seq_lens"] for dm, v in x.items()}
+    embeds = meshed.encode_embed(inputs, lay.kv_range, lay.win_range, batch.patches.ndim == 3)
     nk, nv, last = meshed.decoder.prefill(embeds, seq_lens)
     valid = torch.from_numpy(batch.valid_rows.astype(np.int64)).to(mesh.first)
     prefill_hidden = torch.cat([last[d, 0].to(mesh.first) for d in range(mesh.n_data)])[valid]
-    n_slots = mp.round_batch(n)
     cache = qwen_decoder.init_cache(dec, n_slots, -(-L // 256) * 256, mp.dtype, None, quantize, mesh=mesh)
-    slot_idx, row_valid = np.zeros(rows, np.int32), np.zeros(rows, bool)
-    slot_idx[batch.valid_rows], row_valid[batch.valid_rows] = np.arange(n), True
-    meshed.merge_prefill(cache, nk, nv, seq_lens, prefill_routes(slot_idx, row_valid, n_slots, mesh, mp._upload))
+    meshed.merge_prefill(cache, nk, nv, seq_lens, {dm: v["source"] for dm, v in x.items()})
     first_ids = np.full(n_slots, mp.config.pad_token_id, np.int64)
     first_ids[:n] = batch.input_ids[batch.valid_rows, 0]
     emb, chunk = {}, {}
@@ -2325,7 +2342,7 @@ def check_mesh_recognition(pred, pages, bboxes, devices, shapes, caches, power, 
         for quantize in caches:
             settings.RECOGNITION_MODEL_QUANTIZE = quantize
             set_pin(True)
-            recognized_tokens(mp, pages[:1], bboxes[:1])  # warm-up
+            recognized_tokens(mp, pages, bboxes)  # warm-up at the measured shapes (each graph's capture)
             reset_counts()
             with PlainCalls() as plain, MeshShapes(mp) as rec:
                 tokens, wall = synchronised(recognized_tokens, mp, pages, bboxes)
@@ -2346,10 +2363,13 @@ def check_mesh_recognition(pred, pages, bboxes, devices, shapes, caches, power, 
                   f"token ids equal to the unsharded run's on {same:.4f} of the lines ({same0:.4f} the same token "
                   f"0, median first difference at {first_diff}) [{power}]")
             assert_mesh_launches(label, counts, plain.calls, mesh, quantize)
+            if isinstance(mp.programs, graphs.ProgramGraphs):
+                print(f"      keys captured over the runs' waves and chunks: {len(mp.programs.captures)} prefill "
+                      f"({store_report(mp.programs)}), {len(mp.loops.captures)} decode chunk")
             check_mesh_model_paths(pred, mp, flat, quantize, paths)
             out[shape, quantize] = (counts, rec.first)
         del mp
-        torch.cuda.empty_cache()
+        release()
     set_pin(False)
     settings.RECOGNITION_MODEL_QUANTIZE = False
     return out
@@ -3442,6 +3462,11 @@ def program_key_label(key) -> str:
         shapes = {name: shape for name, shape, _ in key[7:]}
         return (f"prefill rows={shapes['input_ids'][0]} L={shapes['input_ids'][1]} patches={shapes['patches'][0]} "
                 f"kv_range={key[2]} win_range={key[3]} pin={key[4]}")
+    if key[0] == "meshed_prefill":
+        shapes = {name: shape for name, shape, _ in key[9:]}
+        return (f"meshed prefill {key[2][0]}x{key[2][1]} rows a shard={shapes['input_ids/0,0'][0]} "
+                f"L={shapes['input_ids/0,0'][1]} patches a shard={list(shapes['patches/0,0'])} kv_range={key[3]} "
+                f"win_range={key[4]} sharded={key[5]} pin={key[6]}")
     shapes = {name: shape for name, shape, _ in key[2:]}
     return (f"detection {key[0][0]}{list(key[0][1:])} pixels={list(shapes['pixels'])}"
             + (f" pages={list(shapes['page_gather'])}" if "page_gather" in shapes else ""))
@@ -3716,6 +3741,10 @@ def loop_key_label(key) -> str:
     """A loop store's key, short."""
     if key[0] == "layout":
         return f"layout pixels={list(key[2])} {key[3]}"
+    if key[0] == "table_rec":
+        shapes = {name: shape for name, shape, _ in key[4:]}
+        return (f"table rec pass rows={shapes['vectors'][0]} L={shapes['vectors'][1]} tables={shapes['states'][0]} "
+                f"steps={shapes['script'][0]}")
     if key[0] == "meshed_decode_chunk":
         return (f"meshed chunk {key[2][0]}x{key[2][1]}, slots a shard {list(key[3])}, K={key[4]}, pin={key[5]}, "
                 f"window={key[6]}")
@@ -3937,6 +3966,243 @@ def check_meshed_chunk(pred, gen, power):
         torch.cuda.empty_cache()
     del meshed
     torch.cuda.empty_cache()
+
+
+# -- the meshed programs and table rec's whole generate as CUDA graphs (phase 31) --
+# Table rec's passes (each the gather of its rows' encoder states, the cross
+# K/V, the prompt's prefill and the box loop in one graph) through a new
+# LoopGraphs and through the eager loop, on the synthetic tables' crops and
+# at a 128-row cell pass; the meshed prefill wave (one program over every
+# shard) through a new ProgramGraphs and eagerly, two waves of one shape
+# into other slots, on each logical mesh of phase 20; meshed detection's
+# programs on 2x1; then one meshed decode step against one unsharded step
+# from one cache and slot state (the token ids' agreement settled).
+TABLE_CELL_ROWS = 128
+MESH_HIDDEN_REL = 0.05  # a slot's meshed step hidden state from the unsharded one's, relative L2: ~13 bf16 roundings
+
+
+def check_table_generate(tab, pages, power):
+    """Phase 31, table rec: whole calls on the synthetic tables' crops with
+    the passes graphed and eager (the results bit for bit, each pass's
+    packed buffer, steps and recorded rows equal; the passes' enqueue
+    printed), then one cell pass of TABLE_CELL_ROWS rows over the 4 tables
+    (enc_idx repeating them) both ways, its key's memory printed."""
+    crops = [p.crop((100, 100, 868, 868)) for p in pages[:TABLE_CROPS]]
+    saved_loops, saved_wait, runs = tab.loops, tab._wait, {}
+    for name, loops in (("graph", graphs.LoopGraphs()), ("plain", graphs.EagerLoops())):
+        packed = []
+
+        def keep(handle):
+            out = saved_wait(handle)
+            packed.append(out[0].copy())
+            return out
+
+        tab.loops, tab._wait = loops, keep
+        try:
+            tab([c.copy() for c in crops])  # the graphs' captures
+            packed.clear()
+            res, wall = synchronised(tab, [c.copy() for c in crops])
+        finally:
+            tab.loops, tab._wait = saved_loops, saved_wait
+        passes = tab.last_run["passes"]
+        runs[name] = (res, list(packed), [(p["rows"], p["steps"], p["recorded"]) for p in passes],
+                      sum(p["enqueue_s"] for p in passes), wall, loops)
+    (g_res, g_packed, g_passes, g_enq, g_wall, store), (e_res, e_packed, e_passes, e_enq, e_wall, _) = runs.values()
+    bitwise = [r.model_dump() for r in g_res] == [r.model_dump() for r in e_res]
+    same_packed = len(g_packed) == len(e_packed) and all(np.array_equal(a, b) for a, b in zip(g_packed, e_packed))
+    print(f"    table rec, {len(crops)} synthetic tables: passes (rows, steps, recorded) {g_passes} (eager "
+          f"{e_passes}); packed buffers equal {same_packed}, results equal bit for bit {bitwise}; the passes' enqueue {g_enq:.4f} "
+          f"s in {len(g_passes)} replays (eager {e_enq:.4f} s); wall {g_wall:.4f} s (eager {e_wall:.4f} s); "
+          f"{loops_report(store)} [{power}]")
+    if not (bitwise and same_packed and g_passes == e_passes):
+        raise AssertionError("table rec: the graphed passes differ from the eager passes")
+    del store, runs
+    # a cell pass at the cell batch's cap: rows over the tables, a prompt of the columns' labels
+    rng = np.random.default_rng(SEED + 31)
+    px = tab._upload(tab.gray_ship(np.stack([tab.prepare_image(c.convert("RGB")) for c in crops])))
+    L = 3 + TABLE_COLS
+    vectors = rng.integers(0, BOX_DIM, (TABLE_CELL_ROWS, L, 10)).astype(np.int32)
+    vectors[:, :, 6:] = [2 + 5, 5, 1, 5]
+    vectors[:, 0], vectors[:, 2] = tab.config.bos_token_id, tab.config.query_end_token_id
+    enc_idx = np.arange(TABLE_CELL_ROWS) % len(crops)
+    outs = {}
+    for name, loops in (("graph", graphs.LoopGraphs()), ("plain", graphs.EagerLoops())):
+        tab.loops, tab.last_run = loops, {"passes": []}
+        try:
+            with torch.inference_mode():
+                enc = tab._encode(px)
+                tab._run_pass(enc, enc_idx, vectors, tab._script_cells)  # the capture
+                preds, wall = synchronised(tab._run_pass, enc, enc_idx, vectors, tab._script_cells)
+        finally:
+            tab.loops = saved_loops
+        outs[name] = (preds, tab.last_run["passes"][-1], wall, loops)
+    (g, gp, gw, store), (e, ep, ew, _) = outs.values()
+    [cap] = store.captures.values()
+    dec = tab.config.decoder
+    cross_kv = 2 * dec.num_hidden_layers * TABLE_CELL_ROWS * tab.config.encoder.tokens * dec.num_key_value_heads \
+        * dec.head_dim * tab.dtype.itemsize
+    print(f"    table rec cell pass of {TABLE_CELL_ROWS} rows over {len(crops)} tables (prompt {L}, bucket "
+          f"{next(b for b in PROMPT_BUCKETS if b >= L)}): steps {gp['steps']} (eager {ep['steps']}), recorded "
+          f"{gp['recorded']} (eager {ep['recorded']}), predictions equal {g == e}; enqueue {gp['enqueue_s']:.4f} s "
+          f"(eager {ep['enqueue_s']:.4f} s), wall {gw:.4f} s (eager {ew:.4f} s); its key's capture "
+          f"{cap['capture_s']:.3f} s and {cap['pool_bytes'] / 2**20:.1f} MiB reserved (the loop's cross K/V "
+          f"{cross_kv / 2**20:.1f} MiB of it), the store's pools {store.pool_bytes() / 2**20:.1f} MiB [{power}]")
+    if g != e or gp["steps"] != ep["steps"] or gp["recorded"] != ep["recorded"]:
+        raise AssertionError("table rec: the graphed 128-row cell pass differs from the eager pass")
+    del store, outs
+    release()
+
+
+def program_outputs(out) -> list:
+    """A meshed prefill's outputs as a flat list of tensors: packed, then each state by shard."""
+    packed, state = out
+    return [packed] + [x[dm] for x in state for dm in sorted(x)]
+
+
+def check_meshed_prefill(pred, pages, bboxes, power):
+    """Phase 31, the meshed prefill: on each logical mesh of cuda:0, the
+    first wave of 4 pages' given lines (data-sharded where the data axis is
+    2) twice, into other slots each time (rows into slots of every data
+    shard), through a new ProgramGraphs and eagerly, from one random slot
+    cache: the packed outputs, every shard's slot state and the cache's
+    bytes and lengths must be equal (max |diff| 0), the two waves one key;
+    K1-mesh (1x2) or K1 and K2-mesh credited once a replay."""
+    flat = pred.slice_bboxes(pages, ["ocr_with_boxes"] * len(pages), bboxes=bboxes)
+    for shape in MESH_SHAPES:
+        mesh = make_mesh(*shape, [torch.device("cuda", 0)] * 4)
+        mp = RecognitionPredictor(mesh=mesh)
+        batch, n = first_wave(mp, flat, mp.n_data)
+        rows = batch.input_ids.shape[0]
+        n_slots = mp.n_slots + 1
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+        base = random_slot_cache(pred.model, gen, False, n_slots)
+        waves = []
+        for w in range(2):
+            targets = np.random.default_rng(SEED + w).permutation(n_slots - 1)[:n]
+            slot_idx, row_valid = np.full(rows, n_slots - 1, np.int32), np.zeros(rows, bool)
+            slot_idx[batch.valid_rows], row_valid[batch.valid_rows] = targets, True
+            waves.append((slot_idx, row_valid))
+        results, store = {}, graphs.ProgramGraphs()
+        for name, programs in (("graph", store), ("plain", graphs.EagerPrograms())):
+            mp.programs = programs
+            cache = {k: Sharded.split(v, mesh, qwen_decoder.CACHE_SPECS[k]) for k, v in base.items()}
+            state = mp._init_state_on_mesh(n_slots)
+            results[name] = []
+            for w, (slot_idx, row_valid) in enumerate(waves):
+                reset_counts()
+                with torch.inference_mode():
+                    (packed, state), wall = synchronised(mp._prefill, cache, batch, slot_idx, row_valid, state,
+                                                         np.zeros(n_slots, bool), True)
+                counts = read_counts()
+                results[name].append(([t.clone() for t in program_outputs((packed, state))], wall, counts))
+            results[name].append({k: v.gather() for k, v in cache.items()})
+        g_cache, e_cache = results["graph"].pop(), results["plain"].pop()
+        diff = max(max_diff(g_cache[k], e_cache[k]) for k in g_cache)
+        k1 = "segmented_block_attention" if mesh.n_data > 1 else "segmented_block_attention_shard_map"
+        rows_out = []
+        for w, ((g, gw, gc), (e, ew, ec)) in enumerate(zip(results["graph"], results["plain"])):
+            d = max(max_diff(a, b) for a, b in zip(g, e))
+            rows_out.append(f"wave {w}: outputs max |diff| {d}, wall {gw:.4f} s (eager {ew:.4f} s), {k1} "
+                            f"{gc[k1]} and K2-mesh {gc['causal_flash_attention_shard_map']} credited (eager {ec[k1]} "
+                            f"and {ec['causal_flash_attention_shard_map']})")
+            if d != 0 or (w and (gc[k1] != ec[k1] or gc["causal_flash_attention_shard_map"] !=
+                                 ec["causal_flash_attention_shard_map"])):
+                raise AssertionError(f"meshed prefill {shape}: the graph differs from the eager program: "
+                                     f"{rows_out[-1]}")
+        keys = len(store.programs)
+        print(f"    meshed prefill {shape[0]}x{shape[1]}: {n} lines in {rows} rows (L {batch.input_ids.shape[1]}, "
+              f"{'data-sharded' if batch.patches.ndim == 3 else 'replicated'} encoder), two waves into other "
+              f"slots: {'; '.join(rows_out)}; the cache's bytes and lengths max |diff| {diff}; {keys} key(s): "
+              f"{store_report(store)} [{power}]")
+        if diff != 0 or keys != 1:
+            raise AssertionError(f"meshed prefill {shape}: cache max |diff| {diff}, {keys} keys for one wave shape")
+        del mp, store, results, base, g_cache, e_cache
+        release()
+
+
+def check_meshed_detection(det, pages, power):
+    """Phase 31, meshed detection on a 2x1 logical mesh: the stats program
+    (host and device resize) and the maps program through a new
+    ProgramGraphs and eagerly: every output equal."""
+    mdet = DetectionPredictor(mesh=make_mesh(2, 1, [torch.device("cuda", 0)] * 2))
+    install_blob_detector(mdet)
+    mdet.model.load_state_dict(det.model.state_dict())
+    if not isinstance(mdet.programs, graphs.ProgramGraphs):
+        raise AssertionError(f"a one-card meshed detector runs its programs through {type(mdet.programs).__name__}")
+    for resize in (False, True):
+        pixels, mats, page_gather, valid_rows, n_real = detection_inputs(mdet, pages, resize)
+        with torch.inference_mode():
+            graph_and_plain(mdet, "programs", lambda: (mdet._stats_program(pixels, mats, page_gather, valid_rows,
+                                                                           settings.DETECTOR_MAX_COMPONENTS),),
+                            f"meshed detection 2x1, stats program, {'device' if resize else 'host'} resize, "
+                            f"{len(pages)} pages in {pixels.shape[0]} rows", power)
+            if resize:
+                graph_and_plain(mdet, "programs", lambda: (mdet._maps_program(pixels, mats, n_real, 1),),
+                                f"meshed detection 2x1, maps program, {n_real} chunks", power)
+    del mdet
+    release()
+
+
+def check_meshed_ids(pred, gen, power):
+    """Phase 31, the meshed chunk's token ids: from one random cache and
+    slot state, one decode step on a 2x2 logical mesh and one unsharded
+    (both bf16, the kernels). Each slot's hidden state must lie within
+    MESH_HIDDEN_REL (relative L2) of the unsharded one. The logits then
+    move by the hidden states' difference times the tied embedding: by
+    `moved` at most, measured in float32 (the a-priori bound, delta =
+    MESH_HIDDEN_REL |h| max_v |w_v| by Cauchy-Schwarz, is printed too), and
+    the bf16 logits round by at most one ulp of the top logit; so every
+    slot whose unsharded float32 top-1 beats its runner-up by more than
+    2 (moved + ulp) must sample the same id, or the sampled ids do not
+    follow from the hidden states. The rest are near-ties; their share
+    and the ids' agreement are printed."""
+    mesh = make_mesh(2, 2, [torch.device("cuda", 0)] * 4)
+    meshed = MeshedFoundation(pred.model, mesh)
+    model, dec = pred.model, pred.config.decoder
+    base = random_slot_cache(model, gen, False, MESH_GRAPH_SLOTS)
+    last = torch.randint(4, pred.config.vocab_size, (MESH_GRAPH_SLOTS,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    with torch.inference_mode():
+        bufs = model.chunk_buffers(last, dec.num_key_value_heads, 1)
+        h_u = model.decoder.decode_step_chunked(base, bufs[3], bufs[4], model.token_embed(last.long()), 0,
+                                                base["len"])
+        cache = {k: Sharded.split(v, mesh, qwen_decoder.CACHE_SPECS[k]) for k, v in base.items()}
+        lasts = Sharded.split(last, mesh, qwen_decoder.ROWS_SPEC)
+        emb = {dm: meshed.model(dm).token_embed(t.long()) for dm, t in lasts.shards.items()}
+        chunks = [Sharded(mesh, qwen_decoder.CHUNK_SPEC, {dm: meshed.model(dm).chunk_buffers(
+            t, meshed.decoder.shards[dm].n_kv_heads, 1)[3] for dm, t in lasts.shards.items()}) for _ in range(2)]
+        lengths = Sharded(mesh, qwen_decoder.ROWS_SPEC, {dm: t.clone() for dm, t in cache["len"].shards.items()})
+        hid = meshed.decoder.decode_step_chunked(cache, *chunks, emb, 0, lengths)
+        h_m = torch.cat([hid[d, 0] for d in range(mesh.n_data)])
+        tok_u, tok_m = model.sample_greedy(h_u)[0], model.sample_greedy(h_m)[0]
+        w = model.token_embed.weight.float()
+        logits = h_u.float() @ w.T + model.lm_head_bias.float()
+    rel = (h_m.float() - h_u.float()).norm(dim=-1) / h_u.float().norm(dim=-1)
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    delta = MESH_HIDDEN_REL * h_u.float().norm(dim=-1) * w.norm(dim=-1).max()
+    ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs().clamp(min=1e-30))) - 7)
+    with torch.inference_mode():
+        moved = ((h_m.float() - h_u.float()) @ w.T).abs().amax(-1)  # each slot's largest logit change
+    bound = 2 * (moved + ulp)
+    decided, same = margin > bound, tok_m == tok_u
+    differ = ~same
+    worst_margin = margin[differ].max().item() if differ.any() else 0.0
+    print(f"    meshed ids, one decode step on 2x2 against unsharded, {MESH_GRAPH_SLOTS} slots: hidden relative L2 "
+          f"max {rel.max().item():.4e}, median {rel.median().item():.4e} (bound {MESH_HIDDEN_REL}); ids equal on "
+          f"{same.float().mean().item():.4f} of the slots; float32 top-1 margin median {margin.median().item():.4e}, "
+          f"largest logit change median {moved.median().item():.4e}, 2 (change + ulp) median "
+          f"{bound.median().item():.4e} (a priori 2 (delta + ulp) median {(2 * (delta + ulp)).median().item():.4e}, "
+          f"{int((margin > 2 * (delta + ulp)).sum())} slots beyond it); {int(decided.sum())} slots beyond "
+          f"2 (change + ulp), {int((decided & same).sum())} of them with equal ids; {int(differ.sum())} slots with "
+          f"other ids, their margins at most {worst_margin:.4e} [{power}]")
+    if not rel.max().item() <= MESH_HIDDEN_REL:
+        raise AssertionError(f"a meshed hidden state is {rel.max().item():.4e} from the unsharded one's")
+    if not bool(same[decided].all()):
+        raise AssertionError("a meshed step sampled another id where the unsharded top-1 beats the runner-up by more "
+                             "than the bound: a fault in the sharded sums")
+    del meshed, base, cache
+    release()
 
 
 # -- the checkpoint-validation command (phase 27) -------------------------------
@@ -4297,6 +4563,7 @@ def main():
     print(f"[14] table recognition at full width, random bf16 weights, synthetic {TABLE_ROWS} x {TABLE_COLS} "
           f"tables: {TABLE_CROPS} crops of 768x768")
     tab = check_table_rec(layout_pages, power)
+    print(f"    after phases 13 and 14: {memory()}")
     print("[15] two RecognitionPredictors decoding at once in two threads, against one after the other")
     check_two_predictors(pred, pages, bboxes, power)
     check_decode_on_two_streams(gen, power)
@@ -4307,12 +4574,15 @@ def main():
     print(f"[17] OCR error detection at full width, random bf16 weights: {OCR_ERROR_TEXTS} texts in each of the "
           f"sequence buckets {list(OCR_ERROR_WORDS)}")
     oe = check_ocr_error(power)
+    print(f"    after phase 17: {memory()}")
     print(f"[18] the five CLIs on {CLI_PAGES} pages of 1240x1754, then ocr_latex as a process of its own")
     check_clis(pred, det, lay, tab, power)
     set_pin(False)
     print("[19] checkpoint round trip at full width: the five models written as upstream checkpoints (bf16), "
           "their predictors built from them twice (conversion, then the cache)")
     check_checkpoints(pred, det, lay, tab, oe, power)
+    release()
+    print(f"    after phase 19: {memory()}")
 
     logical = [torch.device("cuda", 0)] * 4
     print(f"[20] the mesh: given-lines recognition at production width ({N_PAGES} pages of {LINES_PER_PAGE} lines, "
@@ -4323,6 +4593,8 @@ def main():
     check_mesh_wrappers(results, gen, records, make_mesh(2, 2, logical))
     print("[22] detection, layout, table recognition and OCR error on a 2x1 logical mesh, against unsharded")
     check_mesh_batch_predictors(det, stream_pages[:4], power)
+    release()
+    print(f"    after phases 20 to 22: {memory()}")
     n_cards = torch.cuda.device_count()
     print(f"[23] the mesh over distinct cards ({n_cards} on this machine)")
     if n_cards > 1:
@@ -4338,19 +4610,24 @@ def main():
           f"{WEB_PAGES} pages of 1240x1754, {WEB_CONCURRENT} requests at once, {WEB_WARM} warm requests, then a "
           f"process of its own; the OCR render's font fetch goes to {FONT_DL_BASE}, refused")
     check_web(preds, power)
+    release()
+    print(f"    after phase 24: {memory()}")
     print("[25] the streamlit apps under a stub streamlit module: streamlit_app.main() and texify_app.run()")
     check_streamlit_apps(preds, power)
     print(f"[26] bench.py's workload: {BENCH_PAGES} pages of its build_page() ({BENCH_LINES} lines at "
           f"font_size=22), {PIN_TOKENS} pinned tokens a line, a {PIN_TOKENS}-step decode chunk, bf16 cache, "
           f"new predictors at full width; the best of {BENCH_TRIALS} trials")
     bench_counts, bench_held = check_bench_workload(gen, power)
+    release()
+    print(f"    after phase 26: {memory()}")
     print(f"[27] the checkpoint-validation command (surya_tpu_torch.scripts.validate_checkpoints): (a) all six "
           f"gates on checkpoints written from the models above, {VALIDATION_ROWS} in-memory rows a stage, random "
           f"weights off; (b) --smoke as a process of its own")
     t27 = time.perf_counter()
     check_validation_gated(pred, det, lay, tab, power)
     check_validation_smoke(power)
-    print(f"    phase 27 took {time.perf_counter() - t27:.1f} s [{power}]")
+    release()
+    print(f"    phase 27 took {time.perf_counter() - t27:.1f} s; {memory()} [{power}]")
     print(f"[28] the AR loops as CUDA graph replays (each step in an IF node) against the eager loop on the same "
           f"inputs: recognition's decode chunk at production width ({GRAPH_SLOTS} slots, {PIN_TOKENS} steps), "
           f"layout of {LAYOUT_PAGES} pages as called and cap-bound, table rec of the synthetic tables")
@@ -4359,7 +4636,7 @@ def main():
     check_graphed_box_loops(lay, tab, layout_pages, power)
     print(f"    recognition's own decode graphs: {pool_mib(pred.loops)}")
     check_alternating_cache_lengths(pred, power)
-    print(f"    phase 28 took {time.perf_counter() - t28:.1f} s [{power}]")
+    print(f"    phase 28 took {time.perf_counter() - t28:.1f} s; {memory()} [{power}]")
     print("[29] the one-shot programs as CUDA graph replays against their plain version on the same inputs: "
           "detection's stats program (the flood a WHILE node) and maps program, recognition's prefill wave alone "
           "and fused with its decode chunk, and a capture on the streaming path's detection worker thread")
@@ -4367,6 +4644,8 @@ def main():
     print(f"    keys the whole-page phases captured: {whole_page_keys}")
     check_detection_programs(det, power)
     check_prefill_programs(pred, det, power)
+    release()
+    print(f"    before the streaming capture: {memory()}")
     check_streaming_capture(pred, det, power)
     print(f"    phase 29 took {time.perf_counter() - t29:.1f} s; reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
           f"GiB [{power}]")
@@ -4380,6 +4659,18 @@ def main():
     check_ocr_error_program(oe, power)
     check_meshed_chunk(pred, gen, power)
     print(f"    phase 30 took {time.perf_counter() - t30:.1f} s; reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB [{power}]")
+    print(f"[31] the meshed programs and table rec's whole generate as CUDA graph replays against their plain "
+          f"versions on the same inputs: table rec's passes ({TABLE_CROPS} synthetic tables, and a "
+          f"{TABLE_CELL_ROWS}-row cell pass), the meshed prefill on logical meshes "
+          f"{['x'.join(map(str, m)) for m in MESH_SHAPES]} of cuda:0, meshed detection's programs on 2x1; then "
+          f"one meshed decode step against one unsharded step (the token ids' agreement)")
+    t31 = time.perf_counter()
+    check_table_generate(tab, layout_pages, power)
+    check_meshed_prefill(pred, pages, bboxes, power)
+    check_meshed_detection(det, stream_pages[:4], power)
+    check_meshed_ids(pred, gen, power)
+    print(f"    phase 31 took {time.perf_counter() - t31:.1f} s; reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
           f"GiB [{power}]")
 
     # launches: the pinned run of each kernel's path (K3, bf16 cache: given

@@ -2,14 +2,15 @@
 ``jax.lax.while_loop`` or over a one-shot program.
 
 The JAX package runs each of its autoregressive loops (recognition's decode
-chunk, on one device or over a mesh, layout's whole generate and table
-recognition's box loops) as one compiled program whose ``cond`` exits on
-the device. Here such a loop is a ``Loop``: tensors allocated once (its
+chunk, on one device or over a mesh, and layout's and table recognition's
+whole generate) as one compiled program whose ``cond`` exits on the
+device. Here such a loop is a ``Loop``: tensors allocated once (its
 static inputs, buffers and outputs) and three functions that write them in
 place, ``begin``, ``step(i)`` and ``end``; ``begin`` and every step set
 ``pred``, a device bool, to the JAX cond for the step after. A ``begin``
 may run a one-shot prologue from the static inputs first (layout's: the
-uint8 tiles' normalisation and the encoder).
+uint8 tiles' normalisation and the encoder; table recognition's: the
+encoder states' gather, the cross-attention K/V and the prompt's prefill).
 
 ``LoopGraphs``, the store a predictor keeps on CUDA, captures a loop once per
 key of static shapes and flags, as ``jit`` keys its programs, and replays it
@@ -22,18 +23,19 @@ packs them before the next replay of the same key. A failed capture or
 replay raises: nothing falls back to eager launches on the card. The
 graphs of a store share their memory pools and streams on a device
 (``_SharedStore``), so a store holds about its largest graph's temporaries.
-A loop over the shards of a mesh is captured where they all lie on one card
-(``loops_for``); no graph spans several cards.
+A loop or a program over the shards of a mesh is captured where they all lie
+on one card (``loops_for``, ``programs_for``); no graph spans several cards.
 
 A jitted program without an AR loop is a ``Program``: static inputs, outputs
 allocated when it is built, and ``body()``, which reads the one and writes
 the other in place. ``ProgramGraphs`` captures one per key and replays it
 once per call, as ``LoopGraphs`` does a loop. Captured so: detection's stats
 and maps programs (surya_tpu detection ``forward_stats``,
-``forward_resize_stats``, ``forward``, ``forward_resize``), recognition's
-prefill wave (surya_tpu recognition ``prefill_fn``; its fused
-``prefill_decode_fn`` is the prefill's replay, then the decode chunk's),
-table recognition's ``encode`` and OCR error's ``forward``. A
+``forward_resize_stats``, ``forward``, ``forward_resize``; on a mesh too),
+recognition's prefill wave (surya_tpu recognition ``prefill_fn``, on one
+device or over a mesh; its fused ``prefill_decode_fn`` is the prefill's
+replay, then the decode chunk's), table recognition's ``encode`` and OCR
+error's ``forward``. A
 loop of unknown trip count inside a program, the component flood's, is
 ``until(pred, body)``: a WHILE node of the graph, whose condition the card
 reads when the node starts and after each run of the body.
@@ -594,7 +596,11 @@ class ProgramGraphs(_SharedStore):
         return _CapturedProgram(program, graph, dict(launches))
 
 
-def programs_for(device) -> object:
+def programs_for(device, shard_devices=()) -> object:
     """The store a caller on `device` runs its one-shot programs through:
-    captured graphs on CUDA, the eager program elsewhere."""
-    return ProgramGraphs() if torch.device(device).type == "cuda" else EagerPrograms()
+    captured graphs on CUDA, where every shard of its programs
+    (shard_devices: a mesh's devices) lies on that card too; the eager
+    program elsewhere (no graph spans several cards), as loops_for."""
+    device = torch.device(device)
+    one_card = all(torch.device(d) == device for d in shard_devices)
+    return ProgramGraphs() if device.type == "cuda" and one_card else EagerPrograms()

@@ -25,7 +25,9 @@ program (``forward`` / ``forward_resize``). On CUDA each runs through
 ``self.programs`` (common/graphs.ProgramGraphs): captured as a CUDA graph at
 the first batch of its key (rows, canvas, pages and chunks, flags, the heat
 tail) and replayed once a batch, the component flood a WHILE node that exits
-on the card. The CPU and a mesh run them eagerly.
+on the card; on a mesh whose shards all lie on the predictor's card, each
+program covers every shard (their row blocks, the joined heat). The CPU and
+a mesh over distinct cards run them eagerly.
 
 One batch stays in flight: a batch's outputs are fetched only after the
 next batch is enqueued. On CUDA the predictor runs on a stream of its own:
@@ -129,8 +131,9 @@ class DetectionPredictor(BasePredictor):
         self.stats_batches = 0
         self.maps_batches = 0
         self.setup_mesh()  # a mesh: the chunk rows split over its data axis
-        # the stats and maps programs: CUDA graphs on one card, eager on a mesh and the CPU
-        self.programs = graphs.programs_for(self.device) if self.mesh is None else graphs.EagerPrograms()
+        # the stats and maps programs: CUDA graphs on one card (a mesh's shards
+        # all on it too), eager over distinct cards and on the CPU
+        self.programs = graphs.programs_for(self.device, self.mesh.distinct() if self.mesh is not None else ())
 
     def __call__(self, images: List[Image.Image], batch_size=None, include_maps=False) -> List[TextDetectionResult]:
         parallel = len(images) >= settings.DETECTOR_MIN_PARALLEL_THRESH and (os.cpu_count() or 1) > 1

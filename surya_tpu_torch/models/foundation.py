@@ -21,10 +21,14 @@ The lm head shares the token embedding matrix (plus ``lm_head_bias``).
 
 ``MeshedFoundation`` runs both programs on a mesh (parallel/mesh.py): rows
 and slots over the data axis, the decoder tensor-parallel over the model
-axis. Its decode chunk is a ``common.graphs.Loop`` over every shard, with
-the JAX loop's cond reduced over all of them: on a mesh whose shards all lie
-on one card, one CUDA graph replay a chunk, each step in an IF node; over
-distinct cards the eager loop, the cond read on the host after each step.
+axis. Its prefill wave is a ``common.graphs.Program`` over every shard,
+with static routes from the rows to the slots (each slot takes its source
+row, -1 for none: ``slot_sources``), so that one wave shape is one program
+whatever slots it fills; its decode chunk is a ``common.graphs.Loop`` over
+every shard, with the JAX loop's cond reduced over all of them. On a mesh
+whose shards all lie on one card each is one CUDA graph replay (a chunk's
+steps in IF nodes); over distinct cards they run eagerly, the chunk's cond
+read on the host after each step.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from torch import nn
 
 from surya_tpu_torch.common import graphs
 from surya_tpu_torch.models import qwen_decoder, qwen_encoder
-from surya_tpu_torch.parallel.mesh import Placement, Sharded, split_range
+from surya_tpu_torch.parallel.mesh import Placement, Sharded, gather_rows
 
 
 @dataclass(frozen=True)
@@ -111,16 +115,28 @@ class FoundationModel(nn.Module):
         next dispatch: deactivate killed slots before running it."""
         return torch.where(kill, self.config.pad_token_id, last_token), active & ~kill
 
+    def token0_state(self, tok, pin: bool, no_output_token: int):
+        """A newly filled slot's last token and active flag from its prefill token 0."""
+        cfg = self.config
+        done0 = torch.zeros_like(tok, dtype=torch.bool) if pin else (tok == cfg.eos_token_id) | (tok == no_output_token)
+        return torch.where((tok == cfg.eos_token_id) | (tok == cfg.pad_token_id), cfg.pad_token_id, tok), ~done0
+
     def seed_slots(self, last_token, active, run, tok, slot_idx, row_valid, pin: bool, no_output_token: int):
         """Device state of the newly filled slots, from prefill token 0."""
-        cfg = self.config
-        done0 = torch.zeros_like(row_valid) if pin else (tok == cfg.eos_token_id) | (tok == no_output_token)
-        lt_new = torch.where((tok == cfg.eos_token_id) | (tok == cfg.pad_token_id), cfg.pad_token_id, tok)
+        lt_new, active_new = self.token0_state(tok, pin, no_output_token)
         idx = (slot_idx.long(),)
         last_token = last_token.index_put(idx, torch.where(row_valid, lt_new, last_token[idx]))
-        active = active.index_put(idx, torch.where(row_valid, ~done0, active[idx]))
+        active = active.index_put(idx, torch.where(row_valid, active_new, active[idx]))
         run = run.index_put(idx, torch.where(row_valid, 1, run[idx]))  # token 0 starts each run
         return last_token, active, run
+
+    def seed_slot_sources(self, last_token, active, run, tok, rows, take, pin: bool, no_output_token: int):
+        """seed_slots with the map turned round: slot s takes token 0 of row
+        rows[s] of tok where take[s], and keeps its state elsewhere (rows,
+        take [slots]). The same state whatever slots a wave fills, in
+        static shapes."""
+        lt_new, active_new = self.token0_state(tok[rows.clamp(0, tok.shape[0] - 1).long()], pin, no_output_token)
+        return torch.where(take, lt_new, last_token), torch.where(take, active_new, active), torch.where(take, 1, run)
 
     # -- programs ----------------------------------------------------------------
 
@@ -339,31 +355,101 @@ class MeshedFoundation:
                    for dm, args in inputs.items()}
         return {dm: self.model(dm).embed_prompt_tokens(args[4], args[5], img[dm]) for dm, args in inputs.items()}
 
-    def prefill(self, cache: dict, inputs: dict, seq_lens: dict, routes, kv_range: int, win_range: int,
+    def prefill(self, cache: dict, inputs: dict, seq_lens: dict, sources: dict, kv_range: int, win_range: int,
                 sharded: bool) -> dict:
         """Encode, embed, decoder prefill, KV into the sharded cache (in
-        place), token 0. seq_lens {(d, m): [rows_d]}; routes: the valid rows'
-        way to their slots, a tuple (d, t, rows, slots) for each pair of
-        data shards, rows {m: the local rows of data shard d that go to
-        data shard t's slots} on (d, m)'s device, slots {m: their local
-        slots} on (t, m)'s (prefill_routes). Returns {(d, m): (token,
+        place), token 0. seq_lens {(d, m): [rows_d]}; sources {(t, m): [slots_t]}
+        on (t, m)'s device: the row of the wave whose KV each slot of data
+        shard t takes, -1 for none (slot_sources). Returns {(d, m): (token,
         score, bbox)} over data shard d's rows."""
         embeds = self.encode_embed(inputs, kv_range, win_range, sharded)
         new_k, new_v, last = self.decoder.prefill(embeds, seq_lens)
-        self.merge_prefill(cache, new_k, new_v, seq_lens, routes)
+        self.merge_prefill(cache, new_k, new_v, seq_lens, sources)
         return {dm: self.model(dm).sample_greedy(h) for dm, h in last.items()}
 
-    def merge_prefill(self, cache: dict, new_k: Sharded, new_v: Sharded, seq_lens: dict, routes) -> None:
-        """qwen_decoder.merge_prefill on the sharded cache: each route's rows
-        into its slots, model shard m's kv heads from model shard m."""
-        for d, t, rows, slots in routes:
-            for m in range(self.mesh.n_model):
-                dev = self.mesh.device(t, m)
-                qwen_decoder.merge_prefill(
-                    qwen_decoder.shard_view(cache, (t, m)),
-                    *(x[d, m].index_select(1, rows[m]).to(dev) for x in (new_k, new_v)),
-                    seq_lens[d, m].index_select(0, rows[m]).to(dev), slots[m],
-                )
+    def row_sources(self, sources: dict, seq_lens: dict):
+        """For each data shard d of the rows and each shard (t, m) of the
+        slots: (the local row of d that each slot of t takes, and where it
+        takes one: the source lies in d's rows), on (t, m)'s device."""
+        lo = 0
+        for d in range(self.mesh.n_data):
+            n = seq_lens[d, 0].shape[0]
+            for tm, src in sources.items():
+                local = src - lo
+                yield d, tm, local, (local >= 0) & (local < n)
+            lo += n
+
+    def merge_prefill(self, cache: dict, new_k: Sharded, new_v: Sharded, seq_lens: dict, sources: dict) -> None:
+        """qwen_decoder.merge_prefill on the sharded cache, by slot: every
+        slot of shard (t, m) whose source row lies in data shard d takes its
+        KV rows (model shard m's kv heads, from model shard m) and length,
+        the others keep theirs (qwen_decoder.merge_prefill_slots). Every
+        pair of shards is visited, so the shapes are static whatever the
+        wave's slots."""
+        for d, (t, m), rows, take in self.row_sources(sources, seq_lens):
+            dev = self.mesh.device(t, m)
+            qwen_decoder.merge_prefill_slots(qwen_decoder.shard_view(cache, (t, m)), new_k[d, m].to(dev),
+                                             new_v[d, m].to(dev), seq_lens[d, m].to(dev), rows, take)
+
+    def launch_prefill(self, cache: dict, inputs: dict, kv_range: int, win_range: int, sharded: bool, pin: bool,
+                       normalize, no_output_token: int, programs) -> dict:
+        """prefill_program through `programs` (a predictor's store: one CUDA
+        graph over every shard where they all lie on one card; the plain
+        version is graphs.EagerPrograms), keyed as FoundationModel.
+        launch_prefill keys it, by every shard's cache (mesh_cache_id), and by
+        the mesh's shape and `sharded`. inputs {(d, m): {name: tensor}}
+        (prefill_program's). Returns its outputs, which a graph owns until its
+        next replay."""
+        mesh = self.mesh
+        flat = {f"{name}/{d},{m}": t for (d, m), group in inputs.items() for name, t in group.items()}
+        key = ("meshed_prefill", mesh_cache_id(cache, mesh), (mesh.n_data, mesh.n_model), kv_range, win_range,
+               bool(sharded), bool(pin), type(self.model((0, 0)).decoder.layers[0].self_attn.q_proj).__name__,
+               self.config, *((name, tuple(t.shape), t.dtype) for name, t in flat.items()))
+        return programs.run(key, lambda: self.prefill_program(cache, inputs, kv_range, win_range, sharded, pin,
+                                                              normalize, no_output_token), flat)
+
+    def prefill_program(self, cache: dict, inputs: dict, kv_range: int, win_range: int, sharded: bool, pin: bool,
+                        normalize, no_output_token: int) -> graphs.Program:
+        """A prefill wave over the sharded cache as a graphs.Program
+        (surya_tpu recognition's prefill_fn with a mesh). Static inputs
+        "name/d,m" on shard (d, m)'s device, made like inputs[d, m][name]:
+        the slot state last_token, active, run, the kill mask and each slot's
+        "source" row (slot_sources) over data shard d's slots; patches
+        (uint8 rows), enc_0 to enc_6 (the encoder layout's device_args),
+        llm_h_idx, llm_w_idx (data shard d's plan when sharded, else the
+        whole wave's); input_ids, img_gather, seq_lens of data shard d's
+        rows. The body: the kill, normalize(patches, dtype), prefill (the KV
+        into the sharded cache, in place), every slot's state from token 0
+        of its source row (seed_slot_sources). Outputs: "packed" [rows, 8]
+        on the mesh's first device (pack_outputs of token 0, joined from
+        each data shard's first model shard), and the slot state
+        "last_token", "active", "run", each {(d, m): tensor}."""
+        mesh = self.mesh
+        x = {dm: {name: torch.empty(t.shape, dtype=t.dtype, device=mesh.device(*dm)) for name, t in group.items()}
+             for dm, group in inputs.items()}
+        rows = sum(x[d, 0]["input_ids"].shape[0] for d in range(mesh.n_data))
+        out = {"packed": torch.empty((rows, 8), dtype=torch.float32, device=mesh.first),
+               **{name: {dm: torch.empty_like(v[name]) for dm, v in x.items()} for name in ("last_token", "active",
+                                                                                           "run")}}
+        dtype = self.model((0, 0)).token_embed.weight.dtype
+
+        def body():
+            state = {dm: (*self.model(dm).apply_kill(v["last_token"], v["active"], v["kill"]), v["run"])
+                     for dm, v in x.items()}
+            enc = {dm: (normalize(v["patches"], dtype), tuple(v[f"enc_{i}"] for i in range(7)), v["llm_h_idx"],
+                        v["llm_w_idx"], v["input_ids"], v["img_gather"]) for dm, v in x.items()}
+            seq_lens = {dm: v["seq_lens"] for dm, v in x.items()}
+            sources = {dm: v["source"] for dm, v in x.items()}
+            sampled = self.prefill(cache, enc, seq_lens, sources, kv_range, win_range, sharded)
+            out["packed"].copy_(gather_rows([pack_outputs(*sampled[d, 0]) for d in range(mesh.n_data)], mesh.first))
+            for d, (t, m), local, take in self.row_sources(sources, seq_lens):
+                state[t, m] = self.model((t, m)).seed_slot_sources(
+                    *state[t, m], sampled[d, m][0].to(mesh.device(t, m)), local, take, pin, no_output_token)
+            for dm, values in state.items():
+                for name, value in zip(("last_token", "active", "run"), values):
+                    out[name][dm].copy_(value)
+
+        return graphs.Program({f"{name}/{d},{m}": t for (d, m), v in x.items() for name, t in v.items()}, out, body)
 
     def launch_chunk(self, cache: dict, last_token: dict, active: dict, num_steps: int, run: dict,
                      repeat_window: int, pin_decode: bool, loops) -> tuple:
@@ -440,26 +526,15 @@ class MeshedFoundation:
         return graphs.Loop(num_steps, inputs, outputs, pred, begin, step, end)
 
 
-def prefill_routes(slot_idx: np.ndarray, row_valid: np.ndarray, n_slots: int, mesh, upload) -> list:
-    """The way of a prefill wave's valid rows to their cache slots across
-    the data shards, for MeshedFoundation.prefill: rows and slots split over
-    the data axis as split_sizes, a tuple (d, t, rows, slots) for each pair
-    (row shard d, slot shard t) that has rows. upload(array, device) puts
-    an index array on a device. The padding rows go nowhere (the JAX package
-    writes them into the trash slot, which nothing reads)."""
-    nd = mesh.n_data
-    row_starts = np.array([split_range(len(slot_idx), nd, d)[0] for d in range(nd)])
-    slot_starts = np.array([split_range(n_slots, nd, t)[0] for t in range(nd)])
+def slot_sources(slot_idx: np.ndarray, row_valid: np.ndarray, n_slots: int) -> np.ndarray:
+    """Each cache slot's source row in a prefill wave (the valid row that
+    fills it), -1 for a slot that no row fills: the inverse of slot_idx,
+    for MeshedFoundation.prefill. The padding rows fill nothing (the JAX
+    package writes them into the trash slot, which nothing reads)."""
+    src = np.full((n_slots,), -1, np.int64)
     rows = np.flatnonzero(row_valid)
-    src = np.searchsorted(row_starts, rows, side="right") - 1
-    dst = np.searchsorted(slot_starts, slot_idx[rows], side="right") - 1
-    routes = []
-    for d, t in sorted(set(zip(src.tolist(), dst.tolist()))):
-        sel = rows[(src == d) & (dst == t)]
-        local_rows, local_slots = sel - row_starts[d], slot_idx[sel].astype(np.int64) - slot_starts[t]
-        routes.append((d, t, {m: upload(local_rows, mesh.device(d, m)) for m in range(mesh.n_model)},
-                       {m: upload(local_slots, mesh.device(t, m)) for m in range(mesh.n_model)}))
-    return routes
+    src[slot_idx[rows]] = rows
+    return src
 
 
 # -- checkpoint conversion ----------------------------------------------------

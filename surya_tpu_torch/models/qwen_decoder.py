@@ -393,6 +393,25 @@ def merge_prefill(cache: dict, new_k, new_v, seq_lens, slot_idx) -> dict:
     return cache
 
 
+def merge_prefill_slots(cache: dict, new_k, new_v, seq_lens, rows, take) -> dict:
+    """merge_prefill by slot (in place): slot s takes row rows[s]'s KV rows
+    [0, L) and length where take[s], and keeps its own elsewhere; rows and
+    take [slots]. Every slot is rewritten, so the shapes do not depend on
+    which slots the rows fill. new_k/new_v: [layers, B, L, kvh, hd]."""
+    L = new_k.shape[2]
+    src = rows.clamp(0, new_k.shape[1] - 1).long()
+    k, v = (x.index_select(1, src).transpose(2, 3) for x in (new_k, new_v))  # [layers, slots, kvh, L, hd]
+    sel = take[None, :, None, None]
+    if "k_scale" in cache:
+        (k, k_scale), (v, v_scale) = quantize_kv(k), quantize_kv(v)
+        for name, value in (("k_scale", k_scale), ("v_scale", v_scale)):
+            cache[name][..., :L] = torch.where(sel, value, cache[name][..., :L])
+    for name, value in (("k", k), ("v", v)):
+        cache[name][:, :, :, :L] = torch.where(sel[..., None], value, cache[name][:, :, :, :L])
+    cache["len"].copy_(torch.where(take, seq_lens.to(torch.int32)[src], cache["len"]))
+    return cache
+
+
 def commit_chunk(cache: dict, chunk_k, chunk_v, base_len, advance) -> dict:
     """Write a finished chunk's KV ([layers, B, kvh, K, hd]) into the cache at
     rows [base_len, base_len + K) per slot (in place) and advance the lengths.

@@ -8,10 +8,12 @@ and read out through five heads. A prompt (the query, or the query with the
 columns' labels for the cell pass) is right-padded to a bucket and prefilled
 causally; the steps then write the cache at rows >= the padded length while
 their positions continue from the true one, with the padded rows masked. The
-prefill runs eagerly; the box loop is a ``common.graphs.Loop`` whose cond is
-the JAX package's (some row not done): a CUDA graph on the card that skips
-the steps after it fails, the eager loop with the cond read after each step
-on the CPU. The JAX predictor's jitted ``encode`` (the gray broadcast and
+JAX predictor's jitted ``generate`` (each row's encoder states gathered by
+index, the cross-attention K/V, the prompt's prefill, the box loop) is
+``generate_loop``, one ``common.graphs.Loop`` whose cond is the JAX
+package's (some row not done): a CUDA graph on the card that skips the steps
+after it fails, the eager loop with the cond read after each step on the
+CPU. The JAX predictor's jitted ``encode`` (the gray broadcast and
 normalisation of its uint8 crops, then the encoder) is ``encode_program``,
 a ``common.graphs.Program``: one CUDA graph replay on the card.
 """
@@ -169,53 +171,63 @@ class TableRecModel(nn.Module):
         host sequence or a device int vector); an entry >= 0 replaces the
         argmax at its step (random weights' category logits sit near zero,
         so benches and tests pin the control flow with it). The plain
-        version of ``launch_generate`` (the eager box loop, the cond read on
-        the host after each step) on any device. Returns bbox [B, M, 6]
-        fp32, category, merges, colspan, is_header [B, M] int32, valid
-        [B, M] bool."""
-        bufs, _ = self.launch_generate(encoder_hidden, input_vectors, seq_lens, max_steps, category_script,
+        version of ``launch_generate`` (the prologue, then the eager box
+        loop, the cond read on the host after each step) on any device, row
+        i reading encoder_hidden[i]. Returns bbox [B, M, 6] fp32, category,
+        merges, colspan, is_header [B, M] int32, valid [B, M] bool."""
+        rows = torch.arange(encoder_hidden.shape[0], device=encoder_hidden.device)
+        bufs, _ = self.launch_generate(encoder_hidden, rows, input_vectors, seq_lens, max_steps, category_script,
                                        graphs.EagerLoops())
         return bufs
 
-    def launch_generate(self, encoder_hidden, input_vectors, seq_lens, max_steps: int, category_script,
+    def launch_generate(self, states, enc_idx, input_vectors, seq_lens, max_steps: int, category_script,
                         loops) -> tuple:
-        """generate through `loops` (a predictor's store: CUDA graphs on the
-        card), without waiting: the cross-attention K/V and the prompt's
-        prefill eagerly, then the box loop. Returns (generate's buffers,
-        which a graph owns until its next replay, and common.graphs.Ran)."""
-        B, L, _ = input_vectors.shape
-        dev = encoder_hidden.device
-        cross_k, cross_v = self.decoder.precompute_cross_kv(encoder_hidden)
-        cache = self.decoder.init_cache(B, L + max_steps + 1, encoder_hidden.dtype, dev)
-        last_hidden = self.decoder.prefill(cache, cross_k, cross_v, self.embed_labels(input_vectors), seq_lens)
-        script = torch.full((max_steps,), -1, dtype=torch.int64, device=dev)
-        if category_script is not None:
-            script.copy_(torch.as_tensor(category_script))
-        inputs = {"cross_k": cross_k, "cross_v": cross_v, "cache_k": cache["k"], "cache_v": cache["v"],
-                  "last_hidden": last_hidden, "seq_lens": seq_lens.to(torch.int32), "script": script}
-        key = ("table_rec", dev, B, L, max_steps, tuple(cross_k.shape), cross_k.dtype, self.config)
-        return loops.run(key, lambda: self.box_loop({k: torch.zeros_like(v) for k, v in inputs.items()}, L,
-                                                    max_steps), inputs)
+        """surya_tpu table_rec's jitted generate through `loops` (a
+        predictor's store: CUDA graphs on the card), without waiting, as one
+        program: row i of the prompts reads encoder states
+        states[enc_idx[i]] (states [n_tables, tokens, hidden]: the batch's,
+        gathered inside the program). Keyed as jit keys it: by the states'
+        device, the inputs' shapes and types (rows, the prompt bucket, the
+        tables, max_steps) and the config. The inputs may be host tensors
+        (pinned on CUDA). Returns (generate's buffers, which a graph owns
+        until its next replay, and common.graphs.Ran)."""
+        if category_script is None:
+            script = torch.full((max_steps,), -1, dtype=torch.int64)
+        else:
+            script = torch.as_tensor(category_script).long()
+        inputs = {"states": states, "enc_idx": enc_idx, "vectors": input_vectors,
+                  "seq_lens": seq_lens.to(torch.int32), "script": script}
+        key = ("table_rec", states.device, self.pre_output_norm.weight.dtype, self.config,
+               *((name, tuple(t.shape), t.dtype) for name, t in inputs.items()))
+        return loops.run(key, lambda: self.generate_loop(inputs, states.device), inputs)
 
-    def box_loop(self, inputs: Dict[str, torch.Tensor], L: int, max_steps: int) -> graphs.Loop:
-        """The box loop as a graphs.Loop over static inputs shaped as
-        launch_generate's: begin records step 0 from the prefill's last
-        hidden state; step i - 1 embeds the last vector, runs the decoder
-        step at cache row L + i - 1 and records step i; the cond is that some
-        row is not done."""
-        c = self.config
-        B = inputs["last_hidden"].shape[0]
-        dev = inputs["last_hidden"].device
-        cache = {"k": inputs["cache_k"], "v": inputs["cache_v"]}
-        cross_k, cross_v, seq_lens, script = (inputs[k] for k in ("cross_k", "cross_v", "seq_lens", "script"))
-        bufs = {"bbox": torch.zeros((B, max_steps, 6), dtype=torch.float32, device=dev)}
+    def generate_loop(self, inputs: Dict[str, torch.Tensor], device) -> graphs.Loop:
+        """The whole generate as a graphs.Loop over static inputs on `device`
+        like launch_generate's: begin runs the prologue (the gather of each
+        row's encoder states, the cross-attention K/V into the loop's
+        buffers, the self-attention cache zeroed, the prompt's embedding and
+        prefill) and records step 0 from the prefill's last hidden state;
+        step i - 1 embeds the last vector, runs the decoder step at cache
+        row L + i - 1 and records step i; the cond is that some row is not
+        done."""
+        c, dec = self.config, self.config.decoder
+        x = graphs.static_inputs(inputs, device)
+        states, enc_idx, vectors, seq_lens, script = x.values()
+        B, L, _ = vectors.shape
+        max_steps = script.shape[0]
+        dtype = self.pre_output_norm.weight.dtype
+        cross_k = torch.zeros((dec.num_hidden_layers, B, states.shape[1], dec.num_key_value_heads, dec.head_dim),
+                              dtype=dtype, device=device)
+        cross_v = torch.zeros_like(cross_k)
+        cache = self.decoder.init_cache(B, L + max_steps + 1, dtype, device)
+        bufs = {"bbox": torch.zeros((B, max_steps, 6), dtype=torch.float32, device=device)}
         for k in ("category", "merges", "colspan", "is_header"):
-            bufs[k] = torch.zeros((B, max_steps), dtype=torch.int32, device=dev)
-        bufs["valid"] = torch.zeros((B, max_steps), dtype=torch.bool, device=dev)
-        done = torch.zeros((B,), dtype=torch.bool, device=dev)
-        vec = torch.zeros((B, 10), dtype=torch.int64, device=dev)
-        write_base = torch.full((B,), L, dtype=torch.int32, device=dev)
-        pred = torch.zeros((), dtype=torch.bool, device=dev)
+            bufs[k] = torch.zeros((B, max_steps), dtype=torch.int32, device=device)
+        bufs["valid"] = torch.zeros((B, max_steps), dtype=torch.bool, device=device)
+        done = torch.zeros((B,), dtype=torch.bool, device=device)
+        vec = torch.zeros((B, 10), dtype=torch.int64, device=device)
+        write_base = torch.full((B,), L, dtype=torch.int32, device=device)
+        pred = torch.zeros((), dtype=torch.bool, device=device)
 
         def process(hidden, i):
             """Record step i; set done, the next input vector and the cond."""
@@ -240,9 +252,12 @@ class TableRecModel(nn.Module):
             pred.copy_(~done.all())
 
         def begin():
-            for buf in (*bufs.values(), done):
+            k, v = self.decoder.precompute_cross_kv(states[enc_idx.long()])
+            cross_k.copy_(k)
+            cross_v.copy_(v)
+            for buf in (cache["k"], cache["v"], *bufs.values(), done):
                 buf.zero_()
-            process(inputs["last_hidden"], 0)
+            process(self.decoder.prefill(cache, cross_k, cross_v, self.embed_labels(vectors), seq_lens), 0)
 
         def step(k: int):
             i = k + 1
@@ -250,7 +265,7 @@ class TableRecModel(nn.Module):
                                        write_idx=write_base + i - 1, seq_lens=seq_lens, prompt_len=L)
             process(hidden, i)
 
-        return graphs.Loop(max_steps - 1, inputs, bufs, pred, begin, step)
+        return graphs.Loop(max_steps - 1, x, bufs, pred, begin, step)
 
 
 # -- checkpoint conversion ----------------------------------------------------

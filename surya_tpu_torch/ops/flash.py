@@ -201,11 +201,12 @@ causal_flash_attention.launches = 0
 # ``launches`` counts the kernel launches, ``launches_by_shard`` them by
 # shard (d, m), ``launches_gathered`` the single-device launches of the
 # gathered path (the dispatcher's, for a mesh that does not divide the batch
-# or the heads: the JAX package sends those to its jnp reference).
+# or the heads: the JAX package sends those to its jnp reference), all
+# through ``graphs.count`` (a captured launch counts once a replay).
 
 def _count_shard(wrapper, dm) -> None:
-    wrapper.launches += 1
-    wrapper.launches_by_shard[dm] = wrapper.launches_by_shard.get(dm, 0) + 1
+    graphs.count(wrapper)
+    graphs.count(wrapper, "launches_by_shard", key=dm)
 
 
 def segmented_block_attention_shard_map(q, k, v, seg_id, kv_starts, kv_range: int, mesh):
@@ -253,7 +254,7 @@ def _causal_on_mesh(q, k, v, mesh):
         out = causal_flash_attention_reference(qg, kg, vg)
     else:
         out = _launch_causal("causal_flash_attention_shard_map", qg, kg, vg)
-        causal_flash_attention_shard_map.launches_gathered += 1
+        graphs.count(causal_flash_attention_shard_map, "launches_gathered")
     return Sharded.split(out, mesh, q.spec)
 
 

@@ -40,10 +40,10 @@ aligned to the data axis, each data shard holds a block of the slots (taken
 round-robin over the blocks) and encodes its own rows' images, the decoder
 runs tensor-parallel over the model axis (models/foundation.MeshedFoundation),
 and the outputs gather on the predictor's device. The meshed decode chunk
-runs the JAX loop's steps: on a mesh whose shards all lie on the
-predictor's card, one replay of a graph of common/graphs.LoopGraphs (over a
-kept sharded slot-cache store, as above); over distinct cards the eager
-loop. The meshed prefill runs eagerly.
+runs the JAX loop's steps and the meshed prefill wave is one program over
+every shard: on a mesh whose shards all lie on the predictor's card, each a
+replay of a graph (common/graphs.LoopGraphs, ProgramGraphs; over a kept
+sharded slot-cache store, as above); over distinct cards they run eagerly.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
 from surya_tpu_torch.models import qwen_decoder
-from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, prefill_routes
+from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, slot_sources
 from surya_tpu_torch.models.foundation import pack_outputs as _pack
 from surya_tpu_torch.parallel.mesh import Mesh, Sharded, gather_rows, split_range, split_sizes
 from surya_tpu_torch.recognition.loader import load_recognition_model
@@ -180,8 +180,9 @@ class RecognitionPredictor(BasePredictor):
         # (the meshed chunk's too where every shard lies on the predictor's
         # card; over distinct cards it runs eagerly)
         self.loops = graphs.loops_for(self.device, self.mesh.distinct() if self.mesh is not None else ())
-        # the prefill wave's programs (CUDA graphs on the card; a mesh runs its own, eagerly)
-        self.programs = graphs.programs_for(self.device)
+        # the prefill wave's programs (CUDA graphs on the card; a meshed one over
+        # every shard where they all lie on the predictor's card, eager over distinct cards)
+        self.programs = graphs.programs_for(self.device, self.mesh.distinct() if self.mesh is not None else ())
         self._kept_cache: Optional[dict] = None
         self._kept_cache_lock = threading.Lock()
 
@@ -255,48 +256,48 @@ class RecognitionPredictor(BasePredictor):
                                                                    self._upload(kill[lo:hi], mesh.device(d, m)))
         return last_token, active, run
 
-    def _mesh_inputs(self, batch):
-        """A wave's inputs for MeshedFoundation.prefill, uploaded to each
-        shard: ({(d, m): (patches, enc_args, llm_h_idx, llm_w_idx, input_ids,
-        img_gather)}, {(d, m): seq_lens}, sharded). A data-sharded batch
-        (n_shards > 1) gives each data shard its own plan and block of rows;
-        otherwise every shard gets the whole batch."""
+    def _mesh_inputs(self, batch, slot_idx, row_valid, state, kill) -> dict:
+        """A wave's inputs for MeshedFoundation.launch_prefill, {(d, m):
+        {name: tensor}}: the slot state of data shard d's slots and, from
+        pinned host memory, their block of the kill mask and their source
+        rows (slot_sources: static shapes whatever slots the wave fills);
+        the images (a data-sharded batch, n_shards > 1: data shard d's own
+        plan; otherwise the whole batch's); data shard d's block of rows.
+        Each host array is pinned once for every model shard of its data
+        shard."""
         mesh, layout = self.mesh, batch.layout
         sharded = batch.patches.ndim == 3
-        n_rows = batch.input_ids.shape[0]
-        inputs, seq_lens = {}, {}
-        for d, m in mesh.coords():
-            dev = mesh.device(d, m)
+        n_rows, n_slots = batch.input_ids.shape[0], len(kill)
+        sources = slot_sources(slot_idx, row_valid, n_slots)
+        host = self._pinned
+        inputs = {}
+        for d in range(mesh.n_data):
             lo, hi = split_range(n_rows, mesh.n_data, d)
-
-            def up(a, dev=dev):
-                return self._upload(a, dev)
+            s_lo, s_hi = split_range(n_slots, mesh.n_data, d)
 
             def plan(a, d=d):
-                return up(a[d] if sharded else a)
+                return host(a[d] if sharded else a)
 
-            seq_lens[d, m] = up(batch.seq_lens[lo:hi])
-            inputs[d, m] = (self.processor.normalize_patch_rows(plan(batch.patches), self.dtype),
-                            tuple(plan(a) for a in layout.device_args), plan(layout.llm_h_idx),
-                            plan(layout.llm_w_idx), up(batch.input_ids[lo:hi]), up(batch.img_gather[lo:hi]))
-        return inputs, seq_lens, sharded
+            shared = {"kill": host(kill[s_lo:s_hi]), "source": host(sources[s_lo:s_hi]), "patches": plan(batch.patches),
+                      **{f"enc_{i}": plan(a) for i, a in enumerate(layout.device_args)},
+                      "llm_h_idx": plan(layout.llm_h_idx), "llm_w_idx": plan(layout.llm_w_idx),
+                      "input_ids": host(batch.input_ids[lo:hi]), "img_gather": host(batch.img_gather[lo:hi]),
+                      "seq_lens": host(batch.seq_lens[lo:hi])}
+            for m in range(mesh.n_model):
+                inputs[d, m] = {**{name: x[d, m] for name, x in zip(("last_token", "active", "run"), state)}, **shared}
+        return inputs
 
     def _prefill_on_mesh(self, cache, batch, slot_idx, row_valid, state, kill, pin: bool):
-        """_prefill on the mesh. The rows' token 0 seeds the state of their
-        slots wherever those lie (prefill_routes)."""
-        mesh, layout = self.mesh, batch.layout
-        inputs, seq_lens, sharded = self._mesh_inputs(batch)
-        last_token, active, run = self._kill_on_mesh(state, kill)
-        routes = prefill_routes(slot_idx, row_valid, cache["len"].global_size(0), mesh, self._upload)
-        out = self.meshed.prefill(cache, inputs, seq_lens, routes, layout.kv_range, layout.win_range, sharded)
-        for d, t, rows, slots in routes:
-            for m in range(mesh.n_model):
-                tok = out[d, m][0].index_select(0, rows[m]).to(mesh.device(t, m))
-                last_token[t, m], active[t, m], run[t, m] = self.model.seed_slots(
-                    last_token[t, m], active[t, m], run[t, m], tok, slots[m], torch.ones_like(tok, dtype=torch.bool),
-                    pin, self.processor.no_output_token)
-        packed = gather_rows([_pack(*out[d, 0]) for d in range(mesh.n_data)], self.device)
-        return packed, (last_token, active, run)
+        """_prefill on the mesh: one program over every shard
+        (MeshedFoundation.launch_prefill) of self.programs, on a mesh whose
+        shards all lie on the predictor's card a replay of the graph
+        captured at the first wave of its key. The rows' token 0 seeds the
+        state of their slots wherever those lie."""
+        out = self.meshed.launch_prefill(cache, self._mesh_inputs(batch, slot_idx, row_valid, state, kill),
+                                         batch.layout.kv_range, batch.layout.win_range, batch.patches.ndim == 3, pin,
+                                         self.processor.normalize_patch_rows, self.processor.no_output_token,
+                                         self.programs)
+        return out["packed"], (out["last_token"], out["active"], out["run"])
 
     def _decode_on_mesh(self, cache, state, kill, pin: bool):
         """_decode on the mesh, through self.loops."""
@@ -369,10 +370,10 @@ class RecognitionPredictor(BasePredictor):
     def _forget_cache(self, store: dict) -> None:
         """Drop the decode and prefill graphs that read `store` (each keys
         its cache's tensors, "len" among them, by address:
-        foundation.cache_id; a meshed chunk every shard's)."""
+        foundation.cache_id; a meshed chunk or prefill every shard's)."""
         entry = cache_id({"len": _first_shard(store["len"])})[0]
         self.loops.drop(lambda k: k[0] in ("decode_chunk", "meshed_decode_chunk") and entry in k[1])
-        self.programs.drop(lambda k: k[0] == "prefill" and entry in k[1])
+        self.programs.drop(lambda k: k[0] in ("prefill", "meshed_prefill") and entry in k[1])
 
     # -- slicing (host) --------------------------------------------------------
 

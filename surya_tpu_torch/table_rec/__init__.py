@@ -10,15 +10,17 @@ AR passes over each batch of table crops:
 
 then the grid is assembled on the host (row x column cells, spanning-cell
 matching, rowspan merging). The encoder states stay on the device: each
-query row reads its crop's states through a gather by ``enc_idx`` there,
-never fetched and uploaded again. Prompts are right-padded to
-PROMPT_BUCKETS, with the padded rows masked; batches are not padded, since
-rows do not interact. On CUDA the predictor runs on a stream of its own,
-the encoder (the gray broadcast, the normalisation and DonutSwin, as the
+query row reads its crop's states through a gather by ``enc_idx`` inside
+the pass's program, never fetched and uploaded again. Prompts are
+right-padded to PROMPT_BUCKETS, with the padded rows masked; batches are
+not padded, since rows do not interact. On CUDA the predictor runs on a
+stream of its own, the encoder (the gray broadcast, the normalisation and DonutSwin, as the
 JAX predictor's jitted ``encode``) is one replay of a CUDA graph captured
-at the first batch of its crop count and channel count, and each pass's box
-loop one replay of a graph (common/graphs.py), captured at the first pass
-of its rows and prompt length on each device.
+at the first batch of its crop count and channel count, and each pass (as
+the JAX predictor's jitted ``generate``: the gather, the cross-attention
+K/V, the prompt's prefill and the box loop) one replay of a graph
+(common/graphs.py), captured at the first pass of its rows, prompt length
+and table count on each device.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.models import table_rec_model
 from surya_tpu_torch.models.donut_swin import IMAGE_MEAN, IMAGE_STD  # noqa: F401 (the JAX module's names)
 from surya_tpu_torch.models.table_rec_model import BOX_DIM, CATEGORY_TO_ID, MERGE_KEYS, MERGE_VALUES, TableRecConfig
+from surya_tpu_torch.parallel.mesh import gather_rows
 from surya_tpu_torch.settings import settings
 from surya_tpu_torch.table_rec.loader import load_table_rec_model
 from surya_tpu_torch.table_rec.schema import TableCell, TableCol, TableResult, TableRow
@@ -113,7 +116,7 @@ class TableRecPredictor(BasePredictor):
         # spent enqueuing the encoder
         self.last_run: dict = {}
         self.setup_mesh()  # a mesh: crops and prompts split over its data axis
-        self.loops = graphs.loops_for(self.device)  # the box loops, a graph per key and device on CUDA
+        self.loops = graphs.loops_for(self.device)  # the passes, a graph per key and device on CUDA
         self.programs = graphs.programs_for(self.device)  # the encoder, a graph per key and device on CUDA
 
     def prepare_image(self, img: Image.Image) -> np.ndarray:
@@ -124,10 +127,11 @@ class TableRecPredictor(BasePredictor):
         """uint8 crops [B, H, W, 1 or 3] -> encoder states [B, tokens, hidden]
         (through `model`, default the predictor's), one program of
         self.programs. The states are the graph's until the next replay of
-        their key: the passes read them only through index gathers into new
-        tensors, enqueued on the predictor's stream before the next batch's
-        encode, so they may. On a mesh the data shards of one device replay
-        one key in turn, so each shard's states are copied out first."""
+        their key: the passes read them only through copies into their
+        programs' static inputs, enqueued on the predictor's stream before
+        the next batch's encode, so they may. On a mesh the data shards of
+        one device replay one key in turn, so each shard's states are
+        copied out first."""
         states = (model or self.model).launch_encode(pixels, self.programs)
         return states.clone() if self.mesh is not None else states
 
@@ -164,22 +168,27 @@ class TableRecPredictor(BasePredictor):
         vec_pad[:n, :L] = vectors
         vec_pad[n:] = vec_pad[n - 1]
         enc_idx = np.concatenate([enc_idx, np.repeat(enc_idx[-1:], rows - n)]).astype(np.int64)
+        if script is None:
+            script = np.full((self.config.max_boxes,), -1, np.int64)
         t0 = time.perf_counter()
-        rans = []  # a box loop's on each data shard
-
-        def generate(model, enc, vec, seq_lens):
-            steps = self._upload(script.astype(np.int64), enc.device) if script is not None else None
-            bufs, ran = model.launch_generate(enc, vec, seq_lens, self.config.max_boxes, steps, self.loops)
-            rans.append(ran)
-            return torch.cat(
-                [bufs["bbox"]] + [bufs[k][..., None].float() for k in ("category", "merges", "colspan", "is_header",
-                                                                        "valid")],
-                dim=-1,
-            )
-
+        # the program's inputs, copied from pinned memory into its static
+        # inputs: the rows in blocks over the data axis, the states and the
+        # script whole on every data shard
+        blocks = [self._pinned(a) for a in (enc_idx, vec_pad, np.full((rows,), L, np.int32))]
+        script_host = self._pinned(script.astype(np.int64))
+        shards = self.mesh.n_data if self.mesh is not None else 1
+        rans, packs = [], []  # the program's on each data shard
         with self._on_stream(), torch.inference_mode():
-            handle = self._fetch(self.data_parallel(generate, enc_dev[self._upload(enc_idx)], self._upload(vec_pad),
-                                                    self._upload(np.full((rows,), L, np.int32))))
+            for d in range(shards):
+                dev = self.mesh.device(d, 0) if self.mesh is not None else self.device
+                idx, vec, seq_lens = (b.tensor_split(shards)[d] for b in blocks)
+                bufs, ran = self.replica(dev).launch_generate(enc_dev.to(dev), idx, vec, seq_lens,
+                                                              self.config.max_boxes, script_host, self.loops)
+                rans.append(ran)
+                # a new tensor, enqueued before the next replay of the key
+                packs.append(torch.cat([bufs["bbox"]] + [bufs[k][..., None].float() for k in (
+                    "category", "merges", "colspan", "is_header", "valid")], dim=-1))
+            handle = self._fetch(gather_rows(packs, self.device))
         enqueue_s = time.perf_counter() - t0
         [packed] = self._wait(handle)
         packed = packed[:n]

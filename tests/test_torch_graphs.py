@@ -282,9 +282,9 @@ def test_table_rec_plain_loop_matches_jax():
         jax.tree.map(jnp.asarray, params), jcfg, jnp.asarray(enc), jnp.asarray(vec), jnp.asarray(seq_lens),
         jcfg.max_boxes, jnp.asarray(script))
     with torch.inference_mode():
-        out, ran = model.launch_generate(torch.from_numpy(enc), torch.from_numpy(vec), torch.from_numpy(seq_lens),
-                                         jcfg.max_boxes, torch.from_numpy(script.astype(np.int64)),
-                                         graphs.EagerLoops())
+        out, ran = model.launch_generate(torch.from_numpy(enc), torch.arange(3), torch.from_numpy(vec),
+                                         torch.from_numpy(seq_lens), jcfg.max_boxes,
+                                         torch.from_numpy(script.astype(np.int64)), graphs.EagerLoops())
     for k, v in ref.items():
         if k == "bbox":
             close(out[k].numpy(), np.asarray(v))

@@ -509,9 +509,10 @@ def test_sharded_encoder_prefill_matches_flat_and_jax(recognition_models):
         inputs[d, m] = (t(spatches[d]), tuple(t(a[d]) for a in slay.device_args), t(slay.llm_h_idx[d]),
                         t(slay.llm_w_idx[d]), t(ids_s[lo:hi]), t(gather_s[lo:hi]))
         seq_lens[d, m] = t(lens_s[lo:hi])
-    routes = foundation.prefill_routes(slot_idx, np.ones(B, bool), B, mesh, lambda a, dev: t(a))
-    assert {(d, s) for d, s, _, _ in routes} != {(d, d) for d in range(n_data)}
-    out = meshed.prefill(scache, inputs, seq_lens, routes, slay.kv_range, slay.win_range, sharded=True)
+    src = foundation.slot_sources(slot_idx, np.ones(B, bool), B)
+    sources = {(d, m): t(src[2 * d:2 * d + 2]) for d, m in mesh.coords()}
+    assert any((src[2 * d:2 * d + 2] // 2 != d).any() for d in range(n_data))  # rows to other data shards' slots
+    out = meshed.prefill(scache, inputs, seq_lens, sources, slay.kv_range, slay.win_range, sharded=True)
     tok_s = torch.cat([out[d, 0][0] for d in range(n_data)])
     score_s = torch.cat([out[d, 0][1] for d in range(n_data)])
     bbox_s = torch.cat([out[d, 0][2] for d in range(n_data)])

@@ -487,11 +487,14 @@ def test_cpu_predictors_build_no_encoder_graph(monkeypatch):
 
 
 def test_one_card_mesh_takes_graphs_distinct_cards_eager():
-    """The chunk store of a predictor on a card: graphs where every shard of
-    its mesh lies on that card, the eager loop over distinct cards (no graph
-    spans several) and on the CPU. Building a store touches no card."""
+    """The chunk and program stores of a predictor on a card: graphs where
+    every shard of its mesh lies on that card, the eager loop and program
+    over distinct cards (no graph spans several) and on the CPU. Building a
+    store touches no card."""
     card, other = torch.device("cuda", 0), torch.device("cuda", 1)
-    assert isinstance(graphs.loops_for(card), graphs.LoopGraphs)
-    assert isinstance(graphs.loops_for(card, make_mesh(2, 2, [card] * 4).distinct()), graphs.LoopGraphs)
-    assert isinstance(graphs.loops_for(card, make_mesh(2, 1, [card, other]).distinct()), graphs.EagerLoops)
-    assert isinstance(graphs.loops_for(CPU, cpu_mesh(2, 2).distinct()), graphs.EagerLoops)
+    for stores, graphed, eager in ((graphs.loops_for, graphs.LoopGraphs, graphs.EagerLoops),
+                                   (graphs.programs_for, graphs.ProgramGraphs, graphs.EagerPrograms)):
+        assert isinstance(stores(card), graphed)
+        assert isinstance(stores(card, make_mesh(2, 2, [card] * 4).distinct()), graphed)
+        assert isinstance(stores(card, make_mesh(2, 1, [card, other]).distinct()), eager)
+        assert isinstance(stores(CPU, cpu_mesh(2, 2).distinct()), eager)
