@@ -56,10 +56,9 @@ where one PyTorch call computes the same function, that call. Then:
   encoder outputs within relative error 1e-3;
 - runs two ``RecognitionPredictor``s, each on its own stream, in two
   threads on the same given-lines pages: the token ids must equal those of
-  the same two calls one after the other, and each predictor's decode
-  graphs must hold merge-count buffers of their own; and K3 on two streams in turn at a
-  4096-row cache, so that calls of both run at once, each within tolerance
-  of its plain version;
+  the same two calls one after the other; and K3 on two streams in turn,
+  4 slots of a 2048-row cache in clusters, so that calls of both run at
+  once, each within tolerance of its plain version;
 - drives ``RecognitionPredictor`` with int8 decoder weights
   (``RECOGNITION_WEIGHT_QUANTIZE``) over the 8 whole pages with the bf16 and
   the int8 cache, in turns with the bf16-weight predictor (the same random
@@ -167,7 +166,8 @@ where one PyTorch call computes the same function, that call. Then:
   the same inputs: recognition's decode chunk at production width from a
   random cache of 129 slots (bf16 cache pinned and free-running, a wave
   whose every slot stops at its first step, the int8 cache, int8 weights),
-  twice each; layout of the 16 pages as called and cap-bound; table rec of
+  and from 9 slots of a 1536-row cache, bf16 and int8, where each (slot,
+  kv head) is a cluster of K3's CTAs, twice each; layout of the 16 pages as called and cap-bound; table rec of
   the synthetic tables. Token ids, classes, valid flags, cache lengths and
   the steps run must be equal; score and box differences, the cache's
   bytes, each graph's capture time and memory pool are printed. Then whole
@@ -224,6 +224,18 @@ shard, and its times a shard.
 Exits non-zero on any failure and when no CUDA device is present. Prints the
 card's name and power limit, one JSON line with the kernels' results, and as
 its last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --kernels [--tree DIR]
+
+holds the kernels against their plain versions and times them at fixed
+main-path shapes only (K1 over a whole-page-like plan, K2 at 128 x 128 and
+its mesh shard, K3 and K3q at main-path-like lengths, the long cache, the
+mesh shard, and the caches recognition sizes for fewer slots), through the
+wrappers' public calls, and prints their times as one ``KERNELS_AB`` JSON
+line. With ``--tree DIR`` it imports the port from DIR (an unpacked other
+commit, for example the parent, or a copy of kernel_variants.py's), so two
+trees can be timed in turns in one process each on one card; that tree's
+decode launches are then not held to this file's cluster rule.
 """
 
 from __future__ import annotations
@@ -231,6 +243,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import gc
 import importlib
@@ -266,6 +279,8 @@ FONT_DL_BASE = "http://127.0.0.1:9"  # nothing listens there
 if __name__ == "__main__":  # the settings are read when the port is first imported
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the GPU")
+    if "--tree" in sys.argv:  # --kernels --tree DIR: the port of another tree (an unpacked commit) is timed
+        sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--tree") + 1]))
     os.environ.setdefault("ALLOW_RANDOM_WEIGHTS", "true")
     os.environ.setdefault("DISABLE_TQDM", "true")
     for _name in CHECKPOINT_SETTINGS:
@@ -476,8 +491,7 @@ def cuda_ms(fn, reps: int, cold: bool = False) -> float:
     """Mean device time of one call. `reps` calls are captured in a CUDA
     graph after a warm-up and the graph is replayed between two CUDA events,
     so the host's cost of launching does not enter the time. The warm-up and
-    the capture run on one side stream: the decode kernel's merge counts are
-    kept per stream and must exist before a capture on it. cold: each call
+    the capture run on one side stream. cold: each call
     follows a write of 64 MiB, more than the 50 MB L2, as a decode step
     finds the cache it reads; the time of the writes alone is subtracted."""
     side = torch.cuda.Stream()
@@ -701,28 +715,90 @@ def check_segmented_edges(gen):
     )
 
 
-def check_causal(results, B, L, gen, report=False):
-    """K2 over B right-padded prompts of bucket L."""
-    qc, kc, vc = randn(gen, B, L, 12, 128, scale=1.0), randn(gen, B, L, 4, 128), randn(gen, B, L, 4, 128)
-    print(f"  K2 B={B} L={L} H=12 kvh=4 D=128")
+def causal_config(B, L, kvh) -> Optional[dict]:
+    """K2's launch configuration as its host code picks it (None for a tree
+    whose kernel library does not report it)."""
+    lib = _build.library().lib
+    if not hasattr(lib, "surya_causal_config"):
+        return None
+    cfg = (ctypes.c_int * 5)()
+    lib.surya_causal_config(B, L, kvh, cfg)
+    return dict(zip(("ctas", "row_blocks_per_item", "kv_stages", "smem_bytes_per_cta", "threads_per_cta"), cfg))
+
+
+def decode_config(B, kvh, S, K) -> Optional[dict]:
+    """K3's and K3q's launch configuration, as causal_config."""
+    lib = _build.library().lib
+    if not hasattr(lib, "surya_decode_config"):
+        return None
+    cfg = (ctypes.c_int * 6)()
+    lib.surya_decode_config(B, kvh, S, K, cfg)
+    return dict(zip(("ctas", "cluster_size", "sub_tile_slots", "smem_bytes_per_cta", "threads_per_cta",
+                     "ctas_per_sm"), cfg))
+
+
+# K3's cluster rule on the H100, written out here to hold the kernel's host
+# code to it: a CTA's shared memory is 6 slots of 8192 bytes, the mbarriers
+# and, in a cluster, each rank's 1560-byte partial; an SM holds the CTAs
+# that fit its 228 KB with 1 KB reserved for each, at most 4.
+DECODE_SUB_ROWS, DECODE_SUBS_PER_CTA, DECODE_MAX_CLUSTER = 16, 12, 8
+
+
+def decode_ctas_per_sm(c: int) -> int:
+    smem = 6 * 8192 + 7 * 8 + (c * 1560 if c > 1 else 0)
+    return min(4, 228 * 1024 // (smem + 1024))
+
+
+def expected_cluster(B, kvh, S, K, sms) -> int:
+    """CTAs of a (slot, kv head): enough that none walks more than
+    DECODE_SUBS_PER_CTA sub-tiles, at most DECODE_MAX_CLUSTER, fewer while
+    the launch's CTAs would not all fit the card at once."""
+    subs = -(-S // DECODE_SUB_ROWS) + -(-K // DECODE_SUB_ROWS)
+    c = min(DECODE_MAX_CLUSTER, -(-subs // DECODE_SUBS_PER_CTA))
+    while c > 1 and c * B * kvh > decode_ctas_per_sm(c) * sms:
+        c -= 1
+    return c
+
+
+def check_decode_launch(B, kvh, S, K) -> Optional[dict]:
+    """K3's launch configuration at this shape, held to expected_cluster
+    and decode_ctas_per_sm (not for another tree's kernels, --tree)."""
+    cfg = decode_config(B, kvh, S, K)
+    if cfg is None or "--tree" in sys.argv:
+        return cfg
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = expected_cluster(B, kvh, S, K, sms)
+    if cfg["cluster_size"] != want or cfg["ctas_per_sm"] != decode_ctas_per_sm(want):
+        raise AssertionError(f"K3 at B={B} kvh={kvh} S={S} K={K}: launch {cfg}, the rule gives {want} CTAs a (slot, "
+                             f"kv head) and {decode_ctas_per_sm(want)} CTAs an SM")
+    return cfg
+
+
+def check_causal(results, B, L, gen, report=False, heads=(12, 4), name="causal_flash_attention"):
+    """K2 over B right-padded prompts of bucket L (heads: query and kv heads;
+    6/2 is a 2x2 mesh's shard)."""
+    H, kvh = heads
+    qc, kc, vc = randn(gen, B, L, H, 128, scale=1.0), randn(gen, B, L, kvh, 128), randn(gen, B, L, kvh, 128)
+    print(f"  K2 B={B} L={L} H={H} kvh={kvh} D=128; launch {causal_config(B, L, kvh)}")
     qt, kt, vt = (x.transpose(1, 2) for x in (qc, kc, vc))
-    compare(
-        f"causal_flash_attention[{B}x{L}]",
+    return compare(
+        f"{name}[{B}x{L}]",
         lambda: flash.causal_flash_attention(qc, kc, vc),
         lambda: flash.causal_flash_attention_reference(qc, kc, vc),
         results,
-        work=(4 * B * 12 * 128 * (L * (L + 1) // 2), 2 * nbytes(qc) + nbytes(kc, vc)),
+        work=(4 * B * H * 128 * (L * (L + 1) // 2), 2 * nbytes(qc) + nbytes(kc, vc)),
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
         report=report,
+        entry=name,
     )
 
 
-def decode_inputs(gen, B, S, K, layers=10):
+def decode_inputs(gen, B, S, K, layers=10, kvh=4):
     """q, bf16 cache and chunk, and the same cache quantized to int8, at the
-    decoder's widths (12/4 heads, D = 128)."""
-    qd = randn(gen, B, 12, 128, scale=1.0)
-    kcache, vcache = randn(gen, layers, B, 4, S, 128), randn(gen, layers, B, 4, S, 128)
-    ck, cv = randn(gen, layers, B, 4, K, 128), randn(gen, layers, B, 4, K, 128)
+    decoder's widths (12/4 heads, D = 128; kvh=2: a 2x2 mesh's shard)."""
+    qd = randn(gen, B, 3 * kvh, 128, scale=1.0)
+    kcache, vcache = randn(gen, layers, B, kvh, S, 128), randn(gen, layers, B, kvh, S, 128)
+    ck, cv = randn(gen, layers, B, kvh, K, 128), randn(gen, layers, B, kvh, K, 128)
     (kq, ks), (vq, vs) = qwen_decoder.quantize_kv(kcache), qwen_decoder.quantize_kv(vcache)
     return qd, (kcache, vcache), (kq, vq, ks, vs), (ck, cv)
 
@@ -750,19 +826,22 @@ def decode_library(qd, kcache, vcache, lens, ck, cv, step, layer):
     raise RuntimeError("no SDPA backend takes K3's inputs")
 
 
-def check_decode_case(results, label, inputs, lens_np, step, layer, library=False):
+def check_decode_case(results, label, inputs, lens_np, step, layer, library=False, names=("gqa_decode",
+                                                                                          "gqa_decode_int8")):
     """K3 and K3q on one (lengths, step, layer) case, each within tolerance
     of its plain version, timed with a cold L2 as a decode step finds the
-    cache. Returns {kernel: its times}."""
+    cache, and their launch held to the cluster rule; names: their entries
+    in results. Returns {kernel: its times}."""
     qd, (kcache, vcache), (kq, vq, ks, vs), (ck, cv) = inputs
-    B, S, K = qd.shape[0], kcache.shape[3], ck.shape[3]
+    B, S, K, kvh = qd.shape[0], kcache.shape[3], ck.shape[3], kcache.shape[2]
     lens = to_cuda(lens_np)
     rows = int(lens_np.sum())  # valid cache rows of each kv head, over all slots
-    ops = 4 * 12 * 128 * (rows + B * (step + 1))
-    chunk_bytes = 2 * B * 4 * (step + 1) * 128 * 2
+    ops = 4 * 3 * kvh * 128 * (rows + B * (step + 1))
+    chunk_bytes = 2 * B * kvh * (step + 1) * 128 * 2
     other = 2 * nbytes(qd) + nbytes(lens)
-    print(f"  K3 B={B} S={S} K={K} step={step} layer={layer}, {label} lengths "
-          f"(longest {int(lens_np.max())}; {rows} valid cache rows per kv head)")
+    print(f"  K3 B={B} kvh={kvh} S={S} K={K} step={step} layer={layer}, {label} lengths "
+          f"(longest {int(lens_np.max())}; {rows} valid cache rows per kv head); launch "
+          f"{check_decode_launch(B, kvh, S, K)}")
     lib_call = None
     if library:
         lib_call, backend = decode_library(qd, kcache, vcache, lens, ck, cv, step, layer)
@@ -770,23 +849,25 @@ def check_decode_case(results, label, inputs, lens_np, step, layer, library=Fals
         print(f"    library call: SDPA, {backend} backend, max_abs_err {(lib_call().float() - ref.float()).abs().max().item():.3e} "
               f"against the plain version")
     timed = {"gqa_decode": compare(
-        f"gqa_decode[{step}, {label}]",
+        f"{names[0]}[{step}, {label}]",
         lambda: decode_attn.gqa_decode(qd, kcache, vcache, lens, ck, cv, step, layer),
         lambda: decode_attn.gqa_decode_reference(qd, kcache, vcache, lens, ck, cv, step, layer),
         results,
-        work=(ops, 2 * rows * 4 * 128 * 2 + chunk_bytes + other),
+        work=(ops, 2 * rows * kvh * 128 * 2 + chunk_bytes + other),
         library=lib_call,
         cold=True,  # a decode step reads each layer's cache once
+        entry=names[0],
     )}
     print("  K3q, the same with an int8 cache and bf16 row scales" +
           ("; no PyTorch call reads an int8 cache with row scales, so it has no library time" if library else ""))
     timed["gqa_decode_int8"] = compare(
-        f"gqa_decode_int8[{step}, {label}]",
+        f"{names[1]}[{step}, {label}]",
         lambda: decode_attn.gqa_decode(qd, kq, vq, lens, ck, cv, step, layer, ks, vs),
         lambda: decode_attn.gqa_decode_reference(qd, kq, vq, lens, ck, cv, step, layer, ks, vs),
         results,
-        work=(ops, 2 * rows * 4 * (128 + 2) + chunk_bytes + other),
+        work=(ops, 2 * rows * kvh * (128 + 2) + chunk_bytes + other),
         cold=True,
+        entry=names[1],
     )
     return timed
 
@@ -799,7 +880,7 @@ def check_decode(results, gen):
     slot at the ragged mean (the same longest slot with twice the rows, and
     the same rows with a shorter longest slot); the edges of the kernels'
     partition in one batch (lengths 0 and 1, each side of a 16-row sub-tile,
-    of a T = SPLIT_ROWS split, and of S) at the first and last step; and the
+    of 64 rows, and of S) at the first and last step; and the
     floor, every length 0 at step 0: the fixed cost of a call and of the
     timing. Then 300 slots of ragged lengths over 2 layers, a slot count no
     recognition batch here reaches, at the last step. Returns the long-cache
@@ -809,7 +890,7 @@ def check_decode(results, gen):
     ragged = np.random.default_rng(SEED).integers(0, S3 + 1, B).astype(np.int32)
     ragged[:4] = [0, 1, 117, S3]
     mean = int(round(ragged.mean()))
-    sub, T = 16, decode_attn.SPLIT_ROWS  # a warp's sub-tile (SUB in csrc/decode_attn.cu), a split's rows
+    sub, T = DECODE_SUB_ROWS, 64  # a sub-tile's rows (a TMA box, a warp's products), and 4 of them
     edges = np.resize(np.array([0, 1, sub - 1, sub, sub + 1, T - 1, T, T + 1, S3 - 1, S3], np.int32), B)
     cases = [("ragged", ragged, 37, 7), ("ragged", ragged, 0, 0), ("ragged", ragged, 63, 9),
              (f"all {S3}", np.full(B, S3, np.int32), 37, 7), (f"all {mean}", np.full(B, mean, np.int32), 37, 7),
@@ -913,8 +994,7 @@ def check_decode_main_path(results, gen, shapes, long_cache):
         by_step = {}
         for step in (0, K // 2 - 1, K - 1):
             by_step[str(step)] = check_decode_case(
-                results, "main path", inputs, lens_np, step, layers - 1, library=kernel == "gqa_decode"
-            )[kernel]
+                results, "main path", inputs, lens_np, step, layers - 1, library=kernel == "gqa_decode")[kernel]
         keys = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if kernel == "gqa_decode" else ())
         res = results[kernel]
         res.update({k: float(np.mean([t[k] for t in by_step.values()])) for k in keys})
@@ -1500,8 +1580,7 @@ def recognized_tokens(pred, pages, bboxes):
 def check_two_predictors(pred, pages, bboxes, power):
     """Two RecognitionPredictors (each on its own stream, the same weights,
     the same pages and slot count) decoding at once in two threads give the
-    token ids of the same two calls one after the other, and the decode
-    kernel's merge counts are buffers of each predictor's own decode graphs."""
+    token ids of the same two calls one after the other."""
     set_pin(True)
     settings.RECOGNITION_MODEL_QUANTIZE = False
     pred2 = RecognitionPredictor(device="cuda")
@@ -1528,29 +1607,30 @@ def check_two_predictors(pred, pages, bboxes, power):
     if errors:
         raise errors[0]
     launches = read_counts()
-    buffers = [{buf.data_ptr() for cap in p.loops.loops.values() for buf in cap.scratch.values()} for p in (pred, pred2)]
     same = [a == b for a, b in zip(out, seq)]
     print(f"    two predictors in two threads: {sum(map(len, out))} lines, wall {wall:.4f} s (one after the other "
           f"{seq_wall:.4f} s); token ids equal to the sequential calls' for each: {same}; K3 launches "
-          f"{launches['gqa_decode']}; merge-count buffers of each one's decode graphs {[len(b) for b in buffers]}, "
-          f"shared {len(buffers[0] & buffers[1])} [{power}]")
+          f"{launches['gqa_decode']} [{power}]")
     if not all(same) or len(out[0]) != len(pages) * LINES_PER_PAGE:
         raise AssertionError("two predictors decoding at once gave other token ids than one after the other")
-    if not all(buffers) or buffers[0] & buffers[1]:
-        raise AssertionError("the two predictors' decode graphs do not have merge-count buffers of their own")
     if launches["gqa_decode"] <= 0:
         raise AssertionError("the threaded run launched no K3")
 
 
 def check_decode_on_two_streams(gen, power, reps=20):
-    """K3 launched in turn on two streams with the same slot count, at a
-    cache long enough (4096 rows, every split merged) that the calls of the
-    two streams run at once on the card: every output must equal its plain
-    version within the kernel tolerance. With one merge-count buffer for
-    both, a split of one call could count the other's and merge partials
-    not yet written; the two predictors of check_two_predictors launch
-    their short calls too far apart to show that."""
-    B, S, K, step = 129, 4096, 64, 63
+    """K3 launched in turn on two streams with the same slot count, 4
+    slots at a cache long enough (2048 rows) that each (slot, kv head) is a
+    cluster of CTAs, and the CTAs of both streams' calls fit the card at
+    once, so that the calls run at once: every output must equal its plain
+    version within the kernel tolerance. The kernel keeps nothing between
+    calls (the merge is inside each cluster); the two predictors of
+    check_two_predictors launch their short calls too far apart to show
+    that calls overlapping on the card stay apart."""
+    B, S, K, step = 4, 2048, 64, 63
+    launch = check_decode_launch(B, 4, S, K)
+    if launch["cluster_size"] < 2 or 2 * launch["ctas"] > launch["ctas_per_sm"] * torch.cuda.get_device_properties(
+            0).multi_processor_count:
+        raise AssertionError(f"K3 on two streams: launch {launch}, not clusters whose two calls fit the card")
     cases = []
     for _ in range(2):
         qd, (kc, vc), _, (ck, cv) = decode_inputs(gen, B, S, K, layers=1)
@@ -1571,7 +1651,7 @@ def check_decode_on_two_streams(gen, power, reps=20):
             err = (o.float() - ref).abs()
             bad += int((err > KERNEL_RTOL * ref.abs() + KERNEL_ATOL).any())
             worst = max(worst, err.max().item())
-    print(f"    K3 on two streams in turn, {reps} calls each (B={B}, S={S}, every split merged): {2 * reps} calls in "
+    print(f"    K3 on two streams in turn, {reps} calls each (B={B}, S={S}, launch {launch}): {2 * reps} calls in "
           f"{wall * 1e3:.2f} ms, {bad} outside the tolerance, max_abs_err {worst:.3e} [{power}]")
     if bad:
         raise AssertionError(f"{bad} K3 calls on two streams at once disagree with the plain version")
@@ -3205,28 +3285,33 @@ def check_bench_workload(gen, power):
 # same inputs. The recognition chunk at full width from a random cache of
 # GRAPH_SLOTS slots (the production 128 and the trash slot) of GRAPH_CACHE_LEN
 # rows, GRAPH_ACTIVE of them decoding, each case: (pinned, repeat window, int8
-# cache, int8 weights). A repeat window of 1 stops every slot at its first
-# step, so the graph's IF nodes skip the chunk's other steps.
-GRAPH_SLOTS, GRAPH_CACHE_LEN, GRAPH_ACTIVE = 129, 512, 100
+# cache, int8 weights, slots, cache rows). A repeat window of 1 stops every
+# slot at its first step, so the graph's IF nodes skip the chunk's other
+# steps. GRAPH_FEW slots of a block's 1536-row cache take K3's cluster
+# launches (more than one CTA a (slot, kv head)) inside the IF nodes.
+GRAPH_SLOTS, GRAPH_CACHE_LEN, GRAPH_ACTIVE, GRAPH_FEW = 129, 512, 100, 9
 GRAPH_CASES = {
-    "bf16 cache, pinned": (True, 0, False, False),
-    "bf16 cache, free-running": (False, REPEAT_WINDOW, False, False),
-    "bf16 cache, free-running, every slot stops at step 0 (repeat window 1)": (False, 1, False, False),
-    "int8 cache (K3q), pinned": (True, 0, True, False),
-    "int8 weights, bf16 cache, pinned": (True, 0, False, True),
+    "bf16 cache, pinned": (True, 0, False, False, GRAPH_SLOTS, GRAPH_CACHE_LEN),
+    "bf16 cache, free-running": (False, REPEAT_WINDOW, False, False, GRAPH_SLOTS, GRAPH_CACHE_LEN),
+    "bf16 cache, free-running, every slot stops at step 0 (repeat window 1)": (False, 1, False, False, GRAPH_SLOTS,
+                                                                                 GRAPH_CACHE_LEN),
+    "int8 cache (K3q), pinned": (True, 0, True, False, GRAPH_SLOTS, GRAPH_CACHE_LEN),
+    "int8 weights, bf16 cache, pinned": (True, 0, False, True, GRAPH_SLOTS, GRAPH_CACHE_LEN),
+    "bf16 cache, pinned, few slots of a long cache (K3 clusters)": (True, 0, False, False, GRAPH_FEW, 1536),
+    "int8 cache (K3q), pinned, few slots of a long cache (K3q clusters)": (True, 0, True, False, GRAPH_FEW, 1536),
 }
 
 
-def random_slot_cache(model, gen, quantize: bool, slots: int = GRAPH_SLOTS) -> dict:
+def random_slot_cache(model, gen, quantize: bool, slots: int = GRAPH_SLOTS, rows: int = GRAPH_CACHE_LEN) -> dict:
     dec = model.config.decoder
-    cache = qwen_decoder.init_cache(dec, slots, GRAPH_CACHE_LEN, torch.bfloat16, "cuda", quantize=quantize)
+    cache = qwen_decoder.init_cache(dec, slots, rows, torch.bfloat16, "cuda", quantize=quantize)
     for key in ("k", "v"):
         x = torch.randn(cache[key].shape, generator=gen, device="cuda") * 0.5
         if quantize:
             cache[key], cache[f"{key}_scale"] = qwen_decoder.quantize_kv(x)
         else:
             cache[key].copy_(x)
-    cache["len"].copy_(torch.randint(64, GRAPH_CACHE_LEN - 2 * PIN_TOKENS, (slots,), generator=gen,
+    cache["len"].copy_(torch.randint(64, rows - 2 * PIN_TOKENS, (slots,), generator=gen,
                                      device="cuda", dtype=torch.int32))
     return cache
 
@@ -3243,19 +3328,24 @@ def check_graphed_chunks(pred, gen, power):
     from the first call's slot state):
     token ids, boxes, the slot state and the cache's bytes and lengths must
     be equal, and the graph must run the eager loop's steps (fewer than K
-    where every slot stops early)."""
+    where every slot stops early). The few-slot cases must take K3's
+    cluster launches."""
     side = torch.cuda.Stream()
-    for label, (pin, window, quantize, int8_weights) in GRAPH_CASES.items():
+    for label, (pin, window, quantize, int8_weights, slots, cache_rows) in GRAPH_CASES.items():
         model = pred.model
         if int8_weights:
             model = copy.deepcopy(pred.model)
             qwen_decoder.quantize_weights(model.decoder)
-        cache_g = random_slot_cache(model, gen, quantize)
+        dec = model.config.decoder
+        launch = check_decode_launch(slots, dec.num_key_value_heads, cache_rows, PIN_TOKENS)
+        if slots == GRAPH_FEW and launch["cluster_size"] < 2:
+            raise AssertionError(f"{label}: K3 launches {launch}, no cluster")
+        cache_g = random_slot_cache(model, gen, quantize, slots, cache_rows)
         cache_e = {k: v.clone() for k, v in cache_g.items()}
-        active = torch.zeros(GRAPH_SLOTS, dtype=torch.bool, device="cuda")
-        active[torch.randperm(GRAPH_SLOTS - 1, generator=gen, device="cuda")[:GRAPH_ACTIVE]] = True
-        state = (torch.randint(4, model.config.vocab_size, (GRAPH_SLOTS,), generator=gen, device="cuda",
-                               dtype=torch.int32), active, torch.zeros(GRAPH_SLOTS, dtype=torch.int32, device="cuda"))
+        active = torch.zeros(slots, dtype=torch.bool, device="cuda")
+        active[torch.randperm(slots - 1, generator=gen, device="cuda")[:min(GRAPH_ACTIVE, slots - 1)]] = True
+        state = (torch.randint(4, model.config.vocab_size, (slots,), generator=gen, device="cuda",
+                               dtype=torch.int32), active, torch.zeros(slots, dtype=torch.int32, device="cuda"))
         store = graphs.LoopGraphs()
         rows = []
         with torch.cuda.stream(side), torch.inference_mode():
@@ -3282,8 +3372,8 @@ def check_graphed_chunks(pred, gen, power):
                 if window == 1 and steps_g != (0 if call else 1):  # the second call starts with no slot active
                     raise AssertionError(f"{label}: every slot stops at step 0, yet call {call} ran {steps_g} steps")
                 state = tuple(t.clone() for t in out_g[3:])
-        print(f"    {label}: {GRAPH_ACTIVE} of {GRAPH_SLOTS} slots, cache {GRAPH_CACHE_LEN} rows, chunk {PIN_TOKENS}; "
-              f"{pool_mib(store)} [{power}]")
+        print(f"    {label}: {int(active.sum())} of {slots} slots, cache {cache_rows} rows, chunk {PIN_TOKENS}, K3 launch "
+              f"{launch}; {pool_mib(store)} [{power}]")
         for row in rows:
             print(f"      {row}")
         del store, cache_g, cache_e, model
@@ -4439,7 +4529,71 @@ def assert_launched(label, run_counts, launched, not_launched=()):
             raise AssertionError(f"{n} was launched {run_counts[n]} times in the {label} run")
 
 
+def kernels_ab():
+    """--kernels: the kernels alone at fixed main-path shapes, through the
+    wrappers' public calls (see the module docstring); prints their device
+    times as one KERNELS_AB JSON line."""
+    power = card()
+    lib = _build.library()
+    print(f"[1] card: {power}; the port of {Path(flash.__file__).resolve().parents[2]}; kernels built in "
+          f"{lib.build_seconds:.1f} s")
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("    " + line.strip())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    results, times = {}, {}
+    # K1 over the given-lines boxes of 16 pages
+    grids = [(h // 14, w // 14) for h, w in LINE_SHAPES] * 16
+    cap = 4096
+    while cap < sum(a * b for a, b in grids):
+        cap *= 2
+    check_segmented(results, plan_layout(grids, EncoderConfig(**DEFAULT_ENCODER), cap), gen, "A/B", report=True)
+    for label in ("full", "window"):
+        times[f"K1 {label}"] = results[f"segmented_block_attention[{label}]"]["ms"]
+    times["K2 128x128"] = check_causal(results, 128, 128, gen)["ms"]
+    times["K2-mesh shard 16x128, 6/2 heads"] = check_causal(results, 16, 128, gen, heads=(6, 2),
+                                                            name="causal_flash_attention_shard")["ms"]
+    # K3 and K3q at main-path-like lengths: 129 slots, S = 256, K = 64 (K3:
+    # 32 slots of 1 to 108 rows; K3q: every slot 0 to 78), steps 0, 31, 63
+    lens3 = np.zeros(129, np.int32)
+    lens3[:32] = rng.integers(1, 109, 32)
+    lens3q = rng.integers(0, 79, 129).astype(np.int32)
+    ragged = rng.integers(0, 513, 129).astype(np.int32)
+    ragged[:4] = [0, 1, 117, 512]
+    for kvh, slots, tag in ((4, 129, ""), (2, 65, "-mesh shard, 65 slots, 6/2 heads")):
+        inputs = decode_inputs(gen, slots, 256, 64, 10, kvh=kvh)
+        for kernel, lens in (("gqa_decode", lens3), ("gqa_decode_int8", lens3q)):
+            steps = [check_decode_case({}, "main-path-like", inputs, lens[:slots], step, 9)[kernel]["ms"]
+                     for step in (0, 31, 63)]
+            times[f"{'K3q' if kernel.endswith('int8') else 'K3'}{tag} main path, mean of steps 0/31/63"] = \
+                float(np.mean(steps))
+    long = check_decode_case({}, "ragged", decode_inputs(gen, 129, 512, 64, 10), ragged, 37, 7)
+    times["K3 long cache S=512 step 37"] = long["gqa_decode"]["ms"]
+    times["K3q long cache S=512 step 37"] = long["gqa_decode_int8"]["ms"]
+    # the caches recognition sizes for fewer slots: 512 rows (a line's prompt
+    # bucket and 224 free-running tokens; its 2x2 mesh shard at 65 slots of 2
+    # kv heads), 1536 (a block's, 768 tokens), 256 (pinned), and 2048, all
+    # full or ragged, at step 37; where the cluster rule may share a (slot,
+    # kv head) among CTAs
+    for B, kvh, S, label in ((65, 2, 512, "ragged"), (65, 2, 512, "full"), (40, 4, 512, "ragged"),
+                             (40, 4, 512, "full"), (16, 4, 512, "full"), (8, 4, 256, "full"), (8, 4, 1536, "full"),
+                             (33, 4, 1536, "ragged"), (8, 4, 2048, "2000 rows")):
+        lens = (rng.integers(0, S + 1, B) if label == "ragged" else np.full(B, min(S, 2000))).astype(np.int32)
+        few = check_decode_case({}, label, decode_inputs(gen, B, S, 64, 2, kvh=kvh), lens, 37, 1)
+        for kernel, tag in (("gqa_decode", "K3"), ("gqa_decode_int8", "K3q")):
+            times[f"{tag} {B} slots, {kvh} kv heads, S={S}, {label}"] = few[kernel]["ms"]
+    print("KERNELS_AB " + json.dumps({"card": power, "tree": str(Path(flash.__file__).resolve().parents[2]),
+                                      "ms": times}))
+    print(power)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main():
+    if "--kernels" in sys.argv:
+        kernels_ab()
+        return
     kind = torch.cuda.get_device_name(0)
     power = card()
     print(f"[1] card: {power}")
@@ -4629,7 +4783,8 @@ def main():
     release()
     print(f"    phase 27 took {time.perf_counter() - t27:.1f} s; {memory()} [{power}]")
     print(f"[28] the AR loops as CUDA graph replays (each step in an IF node) against the eager loop on the same "
-          f"inputs: recognition's decode chunk at production width ({GRAPH_SLOTS} slots, {PIN_TOKENS} steps), "
+          f"inputs: recognition's decode chunk at production width ({GRAPH_SLOTS} slots, and {GRAPH_FEW} of a "
+          f"1536-row cache in K3 clusters; {PIN_TOKENS} steps), "
           f"layout of {LAYOUT_PAGES} pages as called and cap-bound, table rec of the synthetic tables")
     t28 = time.perf_counter()
     check_graphed_chunks(pred, gen, power)

@@ -101,11 +101,10 @@ def static_inputs(inputs: dict, device) -> Dict[str, torch.Tensor]:
     return {name: torch.empty(t.shape, dtype=t.dtype, device=device) for name, t in inputs.items()}
 
 
-# -- launch counts and per-capture scratch ----------------------------------------
+# -- launch counts ---------------------------------------------------------------
 
 class _Scope(threading.local):
     capturing: Optional[Counter] = None  # launches recorded by the capture under way
-    scratch: Optional[dict] = None  # the buffers of the capture being made
     graph: Optional[object] = None  # the graph a program is being captured (or a stand-in replayed) into
 
 
@@ -142,20 +141,6 @@ def recording():
         yield _scope.capturing
     finally:
         _scope.capturing = saved
-
-
-def scratch(key, make: Callable[[], torch.Tensor]) -> Optional[torch.Tensor]:
-    """While a loop is being captured in this thread: the buffer its
-    warm-up made for key (made now, outside capture), which the graph keeps;
-    None otherwise. For state that a kernel expects zeroed and leaves zeroed
-    (the decode kernel's merge counts): one buffer serves every replay."""
-    if _scope.scratch is None:
-        return None
-    if key not in _scope.scratch:
-        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{key}: made under capture; the loop's warm-up step must make it")
-        _scope.scratch[key] = make()
-    return _scope.scratch[key]
 
 
 @dataclass
@@ -359,7 +344,6 @@ class _Captured:
     graph: object
     steps: torch.Tensor  # device int32: the steps the last replay ran
     per_step: dict
-    scratch: dict  # buffers its kernels keep (graphs.scratch)
 
 
 def _program(graph, loop: Loop, steps: torch.Tensor) -> None:
@@ -489,14 +473,9 @@ class LoopGraphs(_SharedStore):
         _copy_inputs(loop, inputs)
         graph = self._new_graph(device)
         steps = torch.zeros((), dtype=torch.int32, device=device)
-        saved, _scope.scratch = _scope.scratch, {}
-        try:
-            graph.warm_up(loop)
-            with recording() as launches:
-                graph.capture(lambda g: _program(g, loop, steps))
-            scratch = _scope.scratch
-        finally:
-            _scope.scratch = saved
+        graph.warm_up(loop)
+        with recording() as launches:
+            graph.capture(lambda g: _program(g, loop, steps))
         per_step = {}
         for k, n in launches.items():
             if n % loop.max_steps:
@@ -504,7 +483,7 @@ class LoopGraphs(_SharedStore):
             per_step[k] = n // loop.max_steps
         self.captures[key] = {"capture_s": time.perf_counter() - t0,
                               "pool_bytes": torch.cuda.memory_reserved(device) - reserved if cuda else 0}
-        return _Captured(loop, graph, steps, per_step, scratch)
+        return _Captured(loop, graph, steps, per_step)
 
 
 def loops_for(device, shard_devices=()) -> object:

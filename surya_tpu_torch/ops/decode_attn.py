@@ -14,13 +14,14 @@ Both come in as the full multi-layer arrays; the layer is picked inside.
 Under a mesh, ``gqa_decode_shard_map`` (K3-mesh) launches the same kernels
 once a shard, on the shard's own cache blocks.
 
-On the card each (slot, kv head) is split into SPLIT_ROWS cache rows or
-chunk columns, one warp a split, one CTA the kv heads of a (slot, split). A
-split that is the only one of its (slot, kv head) writes the output;
-otherwise it writes its partial softmax state to a workspace from
-``torch.empty`` and counts itself in ``_merge_counts`` (one buffer per
-stream), and the split that counts last merges them. The grid follows from
-the shapes alone: a call does not synchronise with the host.
+On the card the valid rows of each (slot, kv head) (the chunk's columns
+<= step, then the cache's rows < lengths[slot]) are read in 16-row
+sub-tiles by one CTA, or shared round robin by the CTAs of a thread block
+cluster where few slots hold a long cache (the kernel's host code picks
+the cluster size from the shapes); the cluster's first CTA merges the
+others' partial softmax states from their writes into its shared memory. Nothing is kept
+between calls and nothing but the output is allocated. The grid follows
+from the shapes alone: a call does not synchronise with the host.
 """
 
 from __future__ import annotations
@@ -33,15 +34,6 @@ from surya_tpu_torch.ops.attention import NEG_INF
 from surya_tpu_torch.parallel.mesh import Sharded, kernel_shardable
 
 HEAD_DIM, GROUP = 128, 3  # the recognition decoder's head dim and query heads per kv head
-MAX_KV_HEADS = 4  # kv heads of one CTA, one warp each: MAX_KVH in csrc/decode_attn.cu
-SPLIT_ROWS = 64  # rows of one split: DEC_TILE in csrc/decode_attn.cu
-
-
-def workspace_floats(B: int, kvh: int, S: int, K: int) -> int:
-    """fp32 values of the splits' partials: (acc[G][D], m, l) for every
-    (slot, kv head, split), split or not."""
-    n_splits = -(-S // SPLIT_ROWS) + -(-K // SPLIT_ROWS)
-    return B * kvh * n_splits * GROUP * (HEAD_DIM + 2)
 
 
 def gqa_decode_reference(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer: int,
@@ -85,9 +77,9 @@ def _check_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, la
         raise ValueError(f"{name}: chunk {tuple(chunk_k.shape)} does not match cache {tuple(k_cache.shape)}")
     if quantized and (k_scale.shape != k_cache.shape[:-1] or v_scale.shape != k_scale.shape):
         raise ValueError(f"{name}: scales {tuple(k_scale.shape)} do not match cache {tuple(k_cache.shape)}")
-    if H != GROUP * kvh or D != HEAD_DIM or kvh > MAX_KV_HEADS:
-        raise ValueError(f"{name}: the kernel is built for {GROUP} query heads per kv head, at most "
-                         f"{MAX_KV_HEADS} kv heads and head dim {HEAD_DIM}, got {H}/{kvh} heads of dim {D}")
+    if H != GROUP * kvh or D != HEAD_DIM:
+        raise ValueError(f"{name}: the kernel is built for {GROUP} query heads per kv head and head dim "
+                         f"{HEAD_DIM}, got {H}/{kvh} heads of dim {D}")
     if lengths.shape != (B,) or lengths.dtype != torch.int32:
         raise ValueError(f"{name}: lengths must be int32 [{B}]")
     cache_dtype = torch.int8 if quantized else torch.bfloat16
@@ -101,36 +93,6 @@ def _check_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, la
     if not (0 <= step < K and 0 <= layer < n_layers):
         raise ValueError(f"{name}: step {step} / layer {layer} out of range (K={K}, layers={n_layers})")
     return step, layer
-
-
-_COUNTS = {}
-
-
-def _merge_counts(dev: torch.device, n: int) -> torch.Tensor:
-    """n int32 zeros on dev, one per (slot, kv head), for the calls on the
-    current stream: the kernel counts the splits that have ended in them and
-    sets each back to 0 when it merges, so one buffer serves every call of
-    that size on that stream and every replay of a CUDA graph captured on
-    it. Calls on one stream never overlap; each predictor decodes on a
-    stream of its own, so two predictors never share a buffer (a graph that
-    holds one must be captured on its predictor's stream). The shards of a
-    mesh that sit on one device run in turn on its stream and may share one;
-    a predictor keeps a stream on each device of its mesh. Kept for the life
-    of the process, since a captured graph holds its address; PyTorch takes
-    streams from a fixed pool, so the buffers are few. A loop that
-    common/graphs.py captures gets a buffer of its own (its steps run on a
-    stream of the graph's), made by its warm-up step and kept by the graph."""
-    own = graphs.scratch(("gqa_decode merge counts", dev.index, n),
-                         lambda: torch.zeros(n, dtype=torch.int32, device=dev))
-    if own is not None:
-        return own
-    key =(dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
-    if key not in _COUNTS:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("gqa_decode: call it once on the capturing stream outside CUDA graph capture "
-                               "first, so that its merge counts are allocated and zeroed")
-        _COUNTS[key] = torch.zeros(n, dtype=torch.int32, device=dev)
-    return _COUNTS[key]
 
 
 def gqa_decode(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer: int,
@@ -163,11 +125,10 @@ def _launch_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, l
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
     step, layer = _check_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, layer, k_scale, v_scale)
     B, H, D = q.shape
-    kvh, S, K = k_cache.shape[2], k_cache.shape[3], chunk_k.shape[3]
+    n_layers, _, kvh, S, _ = k_cache.shape
+    K = chunk_k.shape[3]
 
     out = torch.empty_like(q)
-    ws = torch.empty(workspace_floats(B, kvh, S, K), dtype=torch.float32, device=dev)
-    done = _merge_counts(dev, B * kvh)
     lib = _build.library().lib
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -175,13 +136,13 @@ def _launch_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, l
             rc = lib.surya_gqa_decode_int8(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                 lengths.data_ptr(), chunk_k.data_ptr(), chunk_v.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), ws.numel(), done.data_ptr(), B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
+                n_layers, B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
             )
         else:
             rc = lib.surya_gqa_decode(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
                 chunk_k.data_ptr(), chunk_v.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), ws.numel(), done.data_ptr(), B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
+                n_layers, B, H, kvh, D, S, K, step, layer, D**-0.5, stream,
             )
     _build.check(rc, name)
     return out

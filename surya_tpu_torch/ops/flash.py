@@ -34,6 +34,7 @@ from surya_tpu_torch.parallel.mesh import Sharded, kernel_shardable
 PLAN_CHUNK = 128  # query rows per kv_starts entry (qwen_encoder.FULL_ATTN_Q_CHUNK)
 SEGMENTED_HEAD_DIM = 80  # the head dims the kernels are built for: recognition encoder
 CAUSAL_HEAD_DIM = 128  # and decoder
+CAUSAL_GROUP = 3  # K2's query heads per kv head, one consumer warpgroup each (12 / 4)
 
 
 def _check_cuda(name: str, *tensors) -> None:
@@ -153,6 +154,8 @@ def _check_causal(name, q, k, v) -> None:
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if D != CAUSAL_HEAD_DIM:
         raise ValueError(f"{name}: the kernel is built for head dim {CAUSAL_HEAD_DIM}, got {D}")
+    if H != CAUSAL_GROUP * kvh:
+        raise ValueError(f"{name}: the kernel is built for {CAUSAL_GROUP} query heads per kv head, got {H}/{kvh}")
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")

@@ -9,10 +9,21 @@ to the spans must then equal the plain version (float32, 1e-5 max-abs: the
 same sums over fewer masked keys). The rule holds only for groups that are
 contiguous runs of slots, so a layout with a split group is refused. The
 plain K2 is held against the Pallas kernel in interpret mode at 12/4 heads,
-D = 128 (1e-5 max-abs, float32). The wrappers' argument checks refuse what
-the CUDA kernels do not take; the kernels themselves run only on the card
-(chip_smoke.py).
+D = 128 (1e-5 max-abs, float32).
+
+``causal_tiles`` is the K2 kernel's schedule in plain torch: one CTA for
+each (batch row, kv head, run of 64-row blocks) serving the kv head's 3
+query heads; rows and keys zero-padded to whole 64-row tiles as TMA pads
+them; row block i walks key tiles 0..i only, the diagonal tile masked with
+the NEG_INF sentinel; online softmax in the log2 domain; P V with P as its
+bf16 value plus its rounding error. It is held against the plain version
+and the Pallas kernel (1e-5 max-abs, float32) at L = 128 and 256, at padded
+lengths, and with one row block or all of them a CTA. The wrappers'
+argument checks refuse what the CUDA kernels do not take; the kernels
+themselves run only on the card (chip_smoke.py).
 """
+
+import math
 
 import dataclasses
 
@@ -169,6 +180,113 @@ def test_causal_flash_attention_decoder_heads(L):
     assert np.abs(out.numpy() - expected).max() < TOL
 
 
+K2_BLOCK = 64  # rows of a Q tile and keys of a K/V tile: BLOCK in csrc/flash_attn.cu
+NEG_INF = -1e30
+
+
+def split_bf16(p):
+    """p as the kernel feeds it to P V: its bf16 value and the bf16 of what that leaves out."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def causal_tiles(q, k, v, rows_per_cta=0, two_terms=True):
+    """K2's schedule, float32: q [B, L, H, D], k/v [B, L, kvh, D] -> [B, L,
+    H, D] and the number of (row block, key tile) steps each CTA's heads
+    walked. rows_per_cta: 64-row blocks of a CTA, 0 for all of them;
+    two_terms=False feeds P V the bf16 P alone."""
+    B, L, H, D = q.shape
+    kvh = k.shape[2]
+    g = H // kvh
+    nb = -(-L // K2_BLOCK)
+    rb = rows_per_cta or nb
+    pad = nb * K2_BLOCK - L  # TMA reads past L as zeros
+
+    def tiles(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, nb, K2_BLOCK, x.shape[2], D).permute(0, 3, 1, 2, 4)  # [B, heads, nb, 64, D]
+
+    qt = tiles(q).reshape(B, kvh, g, nb, K2_BLOCK, D)
+    kt, vt = tiles(k), tiles(v)  # [B, kvh, nb, 64, D]
+    scale_log2 = D**-0.5 * math.log2(math.e)
+    diag = torch.arange(K2_BLOCK)[None, :] <= torch.arange(K2_BLOCK)[:, None]  # key c valid for row r
+    out = torch.empty_like(qt)
+    steps = []
+    for i0 in range(0, nb, rb):  # a CTA (of every batch row and kv head): row blocks [i0, i0 + rb)
+        walked = 0
+        for i in range(i0, min(nb, i0 + rb)):
+            rows = qt[:, :, :, i]  # [B, kvh, g, 64, D]: the CTA's 3 heads
+            m = torch.full(rows.shape[:-1], NEG_INF)
+            l = torch.zeros(rows.shape[:-1])
+            acc = torch.zeros(rows.shape)
+            for j in range(i + 1):  # causal tiles only
+                s = torch.einsum("bhgrd,bhcd->bhgrc", rows, kt[:, :, j]) * scale_log2
+                if j == i:
+                    s = s.masked_fill(~diag, NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                hi, lo = split_bf16(p)
+                lo = lo if two_terms else torch.zeros_like(lo)
+                acc = acc * corr[..., None] + torch.einsum("bhgrc,bhcd->bhgrd", hi, vt[:, :, j]) + \
+                    torch.einsum("bhgrc,bhcd->bhgrd", lo, vt[:, :, j])
+                m = m_new
+                walked += 1
+            out[:, :, :, i] = acc / l[..., None]
+        steps.append(walked)
+    out = out.reshape(B, H, nb * K2_BLOCK, D).permute(0, 2, 1, 3)[:, :L]  # rows past L are not stored
+    return out, steps
+
+
+def _causal_inputs(B, L, seed=4):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, L, 12, 128), dtype=np.float32) * 0.3,
+            rng.standard_normal((B, L, 4, 128), dtype=np.float32) * 0.3,
+            rng.standard_normal((B, L, 4, 128), dtype=np.float32) * 0.3)
+
+
+@pytest.mark.parametrize("rows_per_cta", [0, 1], ids=["all_rows", "one_block"])
+@pytest.mark.parametrize("L", [128, 256, 200, 65])
+def test_causal_tiles_match_the_plain_version_and_pallas(L, rows_per_cta):
+    """The per-kv-head schedule at the decoder's heads (12/4, D = 128):
+    L = 128 and 256, and lengths that end inside a tile (its rows padded
+    with zeros), against the plain K2 and the Pallas kernel."""
+    q, k, v = _causal_inputs(2, L)
+    ours, _ = causal_tiles(*(torch.from_numpy(a) for a in (q, k, v)), rows_per_cta)
+    plain = flash.causal_flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    pallas = np.asarray(
+        jax_flash.causal_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    assert ours.shape == plain.shape
+    for other in (plain.numpy(), pallas):
+        assert np.abs(ours.numpy() - other).max() < TOL
+
+
+@pytest.mark.parametrize("L,rows_per_cta,steps", [(128, 0, [3]), (128, 1, [1, 2]), (256, 0, [10]),
+                                                  (256, 1, [1, 2, 3, 4]), (200, 0, [10])])
+def test_causal_tiles_walk_only_tiles_at_or_below_the_diagonal(L, rows_per_cta, steps):
+    """Row block i takes key tiles 0..i: a CTA of all 2 (4) row blocks
+    walks 3 (10) tile steps for each of its heads, one of one block walks
+    i + 1. The CTAs of one (batch row, kv head) cover every row block once."""
+    q, k, v = (torch.zeros(1, L, h, 128) for h in (12, 4, 4))
+    _, walked = causal_tiles(q, k, v, rows_per_cta)
+    assert walked == steps
+
+
+def test_causal_tiles_split_p_into_two_bf16_terms():
+    """P V with P as one bf16 term moves the output past 1e-5 of the plain
+    version; as two it stays inside, which is why the kernel pays a second
+    product."""
+    q, k, v = (torch.from_numpy(a) for a in _causal_inputs(2, 128, seed=9))
+    p = torch.rand(2, 64, 64)
+    hi, lo = split_bf16(p)
+    assert (hi + lo - p).abs().max().item() < 2**-16 * p.abs().max().item()
+    assert (hi - p).abs().max().item() > 2**-10 * p.abs().max().item()
+    plain = flash.causal_flash_attention(q, k, v)
+    assert (causal_tiles(q, k, v)[0] - plain).abs().max().item() < TOL
+    assert (causal_tiles(q, k, v, two_terms=False)[0] - plain).abs().max().item() > TOL
+
+
 def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 
@@ -207,6 +325,8 @@ CAUSAL_BAD = {
     "head dim": ((1, 128, 12, 64), (1, 128, 4, 64), "head dim 128"),
     "heads not a multiple of kv heads": ((1, 128, 12, 128), (1, 128, 5, 128), "bad shapes"),
     "kv length": ((1, 128, 12, 128), (1, 64, 4, 128), "bad shapes"),
+    "2 query heads per kv head": ((1, 128, 8, 128), (1, 128, 4, 128), "3 query heads per kv head"),
+    "6 query heads per kv head": ((1, 128, 12, 128), (1, 128, 2, 128), "3 query heads per kv head"),
 }
 
 
