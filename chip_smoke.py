@@ -210,12 +210,14 @@ beforehand; no PyTorch call reads an int8 cache with row scales, so K3q has
 none.
 
 K1's full-attention and windowed blocks are reported as two entries, each
-with its own launches; for each plan the script prints the query-key pairs
-K1 computes after skipping the key tiles outside its spans (modelled from
-the kernel's span rule) against the pairs the plan needs. K1 is also held
-against its plain version where no layout plan takes it: query rows outside
-their window, clamped window starts, and a window that is no multiple of its
-64-key tile.
+with its own launches; for each plan, and for the K1-mesh shard, the
+script prints K1's launch (CTAs, threads, K/V stages, shared memory, CTAs
+an SM, and the registers and spills ptxas gave it) and the query-key pairs
+K1 computes after skipping the key tiles outside its warpgroups' spans
+(modelled from the kernel's span rule) against the pairs the plan needs.
+K1 is also held against its plain version where no layout plan takes it:
+query rows outside their window, clamped window starts, and a window that
+is no multiple of its 64-key tile.
 
 The kernels line also lists the three mesh wrappers (K3-mesh twice, bf16
 and int8 cache), each with its launches in the meshed run of its path and by
@@ -611,25 +613,25 @@ def to_cuda(a: np.ndarray) -> torch.Tensor:
 
 def computed_pairs(gid: np.ndarray, starts: np.ndarray, kv_range: int) -> int:
     """The query-key pairs K1 computes for one head, modelled from its span
-    rule (warp_span in csrc/flash_attn.cu), not counted on the card. Each 16
-    query rows span the keys from the start of their first row's group run
-    to the end of their last row's, clipped to their window (the whole
-    window for rows not inside it); each 64-row CTA walks the union of its 4
-    warps' spans in 64-key tiles, and a warp computes the tiles that meet
-    its own span."""
+    rule (csrc/flash_attn.cu), not counted on the card. Each 64 query rows
+    (a warpgroup's) span the keys from the start of their first row's group
+    run to the end of their last row's, clipped to their window (the whole
+    window for rows not inside it); each item (128 rows of one head) walks
+    the union of its 2 warpgroups' spans in 64-key tiles, and a warpgroup
+    computes the tiles that meet its own span, 64 x 64 pairs each."""
     S = gid.size
     bounds = np.concatenate([[0], np.flatnonzero(gid[1:] != gid[:-1]) + 1, [S]])
     run_start, run_end = np.repeat(bounds[:-1], np.diff(bounds)), np.repeat(bounds[1:], np.diff(bounds))
-    r0 = np.arange(0, S, 16)
+    r0 = np.arange(0, S, 64)
     kv0 = np.clip(starts[r0 // flash.PLAN_CHUNK].astype(np.int64), 0, S - kv_range)
     kv1 = kv0 + kv_range
-    inside = (r0 >= kv0) & (r0 + 16 <= kv1)
-    lo = np.where(inside, np.maximum(run_start[r0], kv0), kv0).reshape(-1, 4)
-    hi = np.where(inside, np.minimum(run_end[r0 + 15], kv1), kv1).reshape(-1, 4)
+    inside = (r0 >= kv0) & (r0 + 64 <= kv1)
+    lo = np.where(inside, np.maximum(run_start[r0], kv0), kv0).reshape(-1, 2)
+    hi = np.where(inside, np.minimum(run_end[r0 + 63], kv1), kv1).reshape(-1, 2)
     pairs = 0
     for w_lo, w_hi in zip(lo, hi):
         kt = w_lo.min() + 64 * np.arange(-(-(w_hi.max() - w_lo.min()) // 64))
-        pairs += 16 * 64 * int(((kt[None] < w_hi[:, None]) & (kt[None] + 64 > w_lo[:, None])).sum())
+        pairs += 64 * 64 * int(((kt[None] < w_hi[:, None]) & (kt[None] + 64 > w_lo[:, None])).sum())
     return pairs
 
 
@@ -654,13 +656,10 @@ def check_segmented(results, plan, gen, tag, report=False):
     ]:
         gid_t, starts_t = to_cuda(gid), to_cuda(starts)
         # the work this plan needs: each real patch attends the patches of its own group
-        _, sizes = np.unique(gid[gid >= 0], return_counts=True)
-        pairs = int((sizes.astype(np.int64) ** 2).sum())
+        n_groups = len(np.unique(gid[gid >= 0]))
         print(f"  K1 [{tag}, {label}] S={S} H={H} D={D} kv_range={rng_len} "
-              f"(kv_starts max {int(starts.max())}, {pairs} query-key pairs in {len(sizes)} groups)")
-        done = computed_pairs(gid, starts, rng_len)
-        print(f"    pairs per head, modelled from the span rule: the kernel computes {done} "
-              f"({done / pairs:.2f} x the plan's), the whole windows hold {S * rng_len} ({S * rng_len / pairs:.2f} x)")
+              f"(kv_starts max {int(starts.max())}, {n_groups} groups)")
+        pairs = print_segmented_launch(S, H, gid, starts, rng_len)
         mask = (gid_t[:, None] == gid_t[None, :])[None, None]
 
         def library():
@@ -704,6 +703,7 @@ def check_segmented_edges(gen):
     print(f"  K1 [edges] S={S} H={H} D={D} kv_range={kv_range}: {int(anywhere.sum())} of {n} chunks start "
           f"their window anywhere; {int((~rows).sum())} rows lie outside it, {int((valid == 0).sum())} have no "
           f"valid key")
+    print_segmented_launch(S, H, gid, starts, kv_range)
     q, k, v = segmented_inputs(gen, S, H, D)
     gid_t, starts_t = to_cuda(gid), to_cuda(starts)
     compare(
@@ -724,6 +724,40 @@ def causal_config(B, L, kvh) -> Optional[dict]:
     cfg = (ctypes.c_int * 5)()
     lib.surya_causal_config(B, L, kvh, cfg)
     return dict(zip(("ctas", "row_blocks_per_item", "kv_stages", "smem_bytes_per_cta", "threads_per_cta"), cfg))
+
+
+def segmented_config(S, H) -> Optional[dict]:
+    """K1's launch configuration as its host code picks it, with the
+    registers and spills ptxas gave the kernel (None for a tree whose kernel
+    library does not report it)."""
+    lib = _build.library()
+    if not hasattr(lib.lib, "surya_segmented_config"):
+        return None
+    cfg = (ctypes.c_int * 5)()
+    lib.lib.surya_segmented_config(S, H, cfg)
+    out = dict(zip(("ctas", "threads_per_cta", "kv_stages", "smem_bytes_per_cta", "ctas_per_sm"), cfg))
+    entry = False
+    for line in lib.build_log.splitlines():
+        if "Compiling entry" in line:
+            entry = "segmented_attention_kernel" in line
+        elif entry and "registers" in line:
+            out["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif entry and "spill" in line:
+            out["spill_store_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    return out
+
+
+def print_segmented_launch(S, H, gid, starts, kv_range):
+    """K1's launch at these shapes, and the query-key pairs it computes for
+    each head (modelled from its span rule) against the pairs the plan
+    needs and the whole windows hold."""
+    _, sizes = np.unique(gid[gid >= 0], return_counts=True)
+    pairs = int((sizes.astype(np.int64) ** 2).sum())
+    done = computed_pairs(gid, starts, kv_range)
+    print(f"    K1 launch: {segmented_config(S, H)}; pairs per head, modelled from the span rule at 64-row "
+          f"warpgroups and 64-key tiles: the kernel computes {done} ({done / pairs:.2f} x the plan's), the whole "
+          f"windows hold {S * kv_range} ({S * kv_range / pairs:.2f} x)")
+    return pairs
 
 
 def decode_config(B, kvh, S, K) -> Optional[dict]:
@@ -2550,11 +2584,10 @@ def check_mesh_wrappers(results, gen, records, mesh):
         qg, kg, vg = segmented_inputs(gen, S, cfg.num_heads, cfg.head_dim)
         rep = [Sharded.split(x.contiguous(), mesh, (None,) * x.ndim) for x in (qg, kg, vg, gid_t, starts_t)]
         gid = gid_t.cpu().numpy()
-        _, sizes = np.unique(gid[gid >= 0], return_counts=True)
-        pairs = int((sizes.astype(np.int64) ** 2).sum())
         name = f"segmented_block_attention_shard_map[{label}]"
-        print(f"  K1-mesh {mesh.n_data}x{mesh.n_model} [{label}]: S={S}, kv_range {rng_len}, {len(sizes)} groups, "
-              f"on every shard")
+        print(f"  K1-mesh {mesh.n_data}x{mesh.n_model} [{label}]: S={S}, kv_range {rng_len}, "
+              f"{len(np.unique(gid[gid >= 0]))} groups, on every shard")
+        pairs = print_segmented_launch(S, cfg.num_heads, gid, starts_t.cpu().numpy(), rng_len)
         out = flash.segmented_block_attention_shard_map(*rep, rng_len, mesh)
         ref = flash.segmented_block_attention_reference(qg, kg, vg, gid_t, starts_t, rng_len)
         err = hold(name, torch.stack([out[dm] for dm in coords]), ref.expand(n, *ref.shape))

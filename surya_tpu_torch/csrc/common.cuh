@@ -10,35 +10,16 @@ namespace surya {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int PAD = 8;  // bf16 elements of padding after each shared row
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Finite mask sentinel, as in the Pallas kernels: exp(m_prev - m_new) never
 // becomes exp(-inf + inf) while a row has seen no valid key yet.
 constexpr float NEG_INF = -1e30f;
 
-// -- the tensor cores' warp-level path: cp.async, ldmatrix, mma.sync ------------
+// -- the tensor cores' warp-level path: ldmatrix, mma.sync ----------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Global -> shared copies that do not block the thread; !pred zero-fills the
-// destination and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,

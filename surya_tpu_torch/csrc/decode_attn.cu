@@ -553,10 +553,11 @@ int launch_decode(const void* q, const void* k_cache, const void* v_cache, const
   const cuuint32_t cache_box[3] = {(cuuint32_t)(128 / esize), SUB, 1}, chunk_box[3] = {64, SUB, 1};
   const CUtensorMapDataType cache_type = QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap kc, vc, ck, cv;
-  if (!make_map(&kc, cache_type, 3, k_cache, cache_dims, cache_strides, cache_box) ||
-      !make_map(&vc, cache_type, 3, v_cache, cache_dims, cache_strides, cache_box) ||
-      !make_map(&ck, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, chunk_k, chunk_dims, chunk_strides, chunk_box) ||
-      !make_map(&cv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, chunk_v, chunk_dims, chunk_strides, chunk_box))
+  constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!make_map(&kc, cache_type, 3, k_cache, cache_dims, cache_strides, cache_box, sw) ||
+      !make_map(&vc, cache_type, 3, v_cache, cache_dims, cache_strides, cache_box, sw) ||
+      !make_map(&ck, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, chunk_k, chunk_dims, chunk_strides, chunk_box, sw) ||
+      !make_map(&cv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, chunk_v, chunk_dims, chunk_strides, chunk_box, sw))
     return (int)cudaErrorInvalidValue;
   const auto kernel = gqa_decode_kernel<HD, G, QUANT>;
   const int smem = decode_smem_bytes(C);

@@ -26,15 +26,33 @@
 // next, that state lives in registers inside the CTA's own loop over KV
 // tiles.
 //
-// K1 runs on the warp-level path: mma.sync.m16n8k16 with operands from
-// shared memory by ldmatrix, each warp its own 16 query rows. That takes
-// D = 80, a 160-byte row that no wgmma swizzle fits, and keeps each warp on
-// its own span of keys. K/V tiles stream through a ring of STAGES tiles by
-// cp.async (16 bytes a lane), the Q tile the same way; shared rows are
-// padded by 16 bytes (176 bytes for D = 80, an odd number of 16-byte
-// units), so the 8 row addresses of an ldmatrix hit 8 different bank groups.
-// The output is staged through the warp's own Q rows and leaves as
-// coalesced 16-byte stores.
+// K1 runs on Hopper's own instructions too:
+// - Persistent: one CTA an SM walks items, an item a 128-row plan chunk
+//   (one kv_starts entry, so one window) of one head. Two consumer
+//   warpgroups of 64 rows and a producer warpgroup, which gives its
+//   registers to them by setmaxnreg.
+// - Spans: the producer's planner warp finds each row's valid keys, its
+//   group's run clipped to the window (two integers a row, from the group
+//   ids around the chunk; no group id is read again), and each warpgroup's
+//   span, an item or two ahead; the producer walks the union of the two
+//   spans, and a warpgroup computes only the tiles that meet its own.
+// - TMA: a row of D = 80 bf16 is 160 bytes, which no swizzle spans, so
+//   every 64-row tile is two boxes of 3-D tensor maps over the strided
+//   [S, H, D] views (made on the host at each call, kernel parameters):
+//   dims 0..63 with the 128-byte swizzle and dims 64..79 with the 32-byte
+//   swizzle. The producer's first lane issues every copy, into two Q
+//   buffers and a ring of 8 K/V stages that signal mbarriers.
+// - wgmma on m64 tiles. S = Q K^T, both K-major from shared memory: four
+//   k16 steps over the 128-byte box and one over the 32-byte box, m64n64.
+//   P V with P from registers and V MN-major (the descriptors transpose):
+//   m64n64 over the 128-byte box and m64n16 over the 32-byte box. Tile t's
+//   Q K^T is issued with tile t - 1's P V.
+// - The output is written over the item's Q tiles in the two swizzled
+//   layouts and leaves by TMA store.
+// K1 moves more than its 336 MB: a K/V tile is read from L2 once for each
+// item whose union holds it, and at 64-key tiles a warpgroup computes
+// about 1.3 (full-attention blocks) to 3.5 (windowed) times the plan's
+// query-key pairs, with P V twice over (PERF.md has what each costs).
 //
 // K2 runs on Hopper's own instructions:
 // - Work items of (batch row, kv head, run of row blocks): a CTA serves the
@@ -67,299 +85,488 @@ using namespace surya;
 
 namespace {
 
-constexpr int STAGES = 2;         // depth of the K/V ring
-constexpr int WARP_ROWS = 16;     // query rows of one warp: the m16 of mma.sync
-constexpr int SEG_QT = 64;        // K1: query rows per CTA (4 warps)
-constexpr int PLAN_CHUNK = 128;   // K1: query rows per kv_starts entry (FULL_ATTN_Q_CHUNK)
-constexpr int SEG_BK = 64;        // K1: keys per shared-memory tile
-constexpr int SEG_MIN_CTAS = 4;   // K1: CTAs an SM must hold (caps registers at 128)
+constexpr int PLAN_CHUNK = 128;  // K1: query rows per kv_starts entry (FULL_ATTN_Q_CHUNK): an item's rows
+constexpr int SEG_D = 80;        // K1: head dim of the recognition encoder (1280 / 16)
+constexpr int SEG_BK = 64;       // K1: keys of a K/V tile (wgmma's n64)
+constexpr int SEG_STAGES = 8;    // K1: K/V tiles in the ring
+constexpr int SEG_QBUF = 2;      // K1: Q tile pairs (an item's), so the next item's load under this one's products
+constexpr int SEG_WG = PLAN_CHUNK / 64;  // K1: consumer warpgroups, 64 query rows each (wgmma's m64)
+// the consumers and a producer warpgroup, which gives its registers to the
+// consumers by setmaxnreg (ptxas gives a CTA of 384 threads 168 each)
+constexpr int SEG_THREADS = SEG_WG * 128 + 128;
+constexpr int SEG_PRODUCER_REGS = 40;  // 128 x 40 + 256 x 232 = 384 x 168
+constexpr int SEG_CONSUMER_REGS = 232;
+// a 64-row tile of D = 80 bf16 is two boxes: dims 0..63 with the 128-byte
+// swizzle (8192 bytes), dims 64..79 with the 32-byte swizzle (2048 bytes)
+constexpr int SEG_A_ELEMS = 64 * 64;
+constexpr int SEG_B_ELEMS = 64 * 16;
+constexpr int SEG_TILE_BYTES = (SEG_A_ELEMS + SEG_B_ELEMS) * 2;
+
+struct SegSmem {  // at a 1024-byte boundary: every 128-byte-swizzled box on one, every 32-byte one on 256
+  bf16 q_a[SEG_QBUF][SEG_WG][SEG_A_ELEMS], k_a[SEG_STAGES][SEG_A_ELEMS], v_a[SEG_STAGES][SEG_A_ELEMS];
+  bf16 q_b[SEG_QBUF][SEG_WG][SEG_B_ELEMS], k_b[SEG_STAGES][SEG_B_ELEMS], v_b[SEG_STAGES][SEG_B_ELEMS];
+  uint64_t k_full[SEG_STAGES], v_full[SEG_STAGES], kv_empty[SEG_STAGES];
+  uint64_t q_full[SEG_QBUF], q_empty[SEG_QBUF], item_full[2], item_empty[2];
+  int key_lo[2][PLAN_CHUNK], key_hi[2][PLAN_CHUNK];  // each row's valid keys, an item slot each
+  int2 span[2][SEG_WG];                              // each warpgroup's span of keys
+};
 
 __device__ __forceinline__ float inf_f() { return __uint_as_float(0x7f800000u); }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-// One warp's 16 query rows: where their Q tile sits in shared memory (row
-// stride D + PAD; read by ldmatrix as mma A fragments at every KV tile, which
-// leaves the registers to the accumulators), the fp32 output accumulator (one
-// m16n8 fragment per 8 dims) and, for the lane's two rows (lane/4 and
-// lane/4 + 8), the running max in the log2 domain and the lane's part of the
-// running sum (its quad holds the rest).
-template <int D>
-struct WarpRows {
-  const bf16* q_s;
-  float o[D / 8][4];
-  float m[2], l[2];
-
-  __device__ __forceinline__ explicit WarpRows(const bf16* rows) : q_s(rows) {
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-    m[0] = m[1] = NEG_INF;
-    l[0] = l[1] = 0.f;
-  }
-};
-
-// Online-softmax update of a warp's rows with one BK-key tile (k_s, v_s: row
-// stride D + PAD). When MASKED, key(i, c) says what key c of the tile is to
-// row lane/4 + 8i of the warp: 1 valid, 0 masked (logit NEG_INF, as in the
-// Pallas kernels), -1 outside the keys the call attends (weight 0 always).
-template <int D, int BK, bool MASKED, class KeyFn>
-__device__ __forceinline__ void attend_tile(WarpRows<D>& w, const bf16* k_s, const bf16* v_s,
-                                            float scale_log2, int lane, KeyFn key) {
-  constexpr int SROW = D + PAD;
-  float s[BK / 8][4];
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  // S = Q K^T: K's rows are the columns of the mma B operand, so ldmatrix
-  // reads them as stored; one x4 load serves two key octets
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, w.q_s + (lane & 15) * SROW + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int jn = 0; jn < BK / 16; ++jn) {
-      uint32_t b[4];
-      ldmatrix_x4(b, k_s + (jn * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * SROW + kk * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_16816(s[2 * jn], a, b[0], b[1]);
-      mma_16816(s[2 * jn + 1], a, b[2], b[3]);
-    }
-  }
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (MASKED) {
-        const int kind = key(e >> 1, j * 8 + 2 * t + (e & 1));
-        s[j][e] = kind > 0 ? s[j][e] * scale_log2 : (kind == 0 ? NEG_INF : -inf_f());
-      } else {
-        s[j][e] *= scale_log2;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = w.m[i];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float corr = exp2f(w.m[i] - mx);
-    w.m[i] = mx;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][2 * i] = exp2f(s[j][2 * i] - mx);
-      s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - mx);
-      sum += s[j][2 * i] + s[j][2 * i + 1];
-    }
-    w.l[i] = w.l[i] * corr + sum;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      w.o[dn][2 * i] *= corr;
-      w.o[dn][2 * i + 1] *= corr;
-    }
-  }
-  // O += P V: the fragments of key octets 2kk and 2kk+1 form the A operand of
-  // k-step kk; V's rows are the k of the B operand, so ldmatrix transposes.
-  // P goes in as two bf16 terms (see split_bf16x2): P rounded to bf16 alone
-  // moves the output by up to 2^-9 of its size, which with the rounding of
-  // the output itself can leave one bf16 spacing. The price is a second mma
-  // for each step of P V.
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t hi[4], lo[4];
-    split_bf16x2(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-    split_bf16x2(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-    split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SROW + dn * 16 +
-                               ((lane >> 4) & 1) * 8);
-      mma_16816(w.o[2 * dn], hi, b[0], b[1]);
-      mma_16816(w.o[2 * dn], lo, b[0], b[1]);
-      mma_16816(w.o[2 * dn + 1], hi, b[2], b[3]);
-      mma_16816(w.o[2 * dn + 1], lo, b[2], b[3]);
-    }
-  }
-}
-
-// Normalise the warp's rows and write the first n_rows of them to dst (row r
-// at dst + r * row_stride), staged through the warp's 16 shared rows `stage`.
-template <int D>
-__device__ __forceinline__ void store_rows(const WarpRows<D>& w, bf16* stage, bf16* dst,
-                                           int64_t row_stride, int n_rows, int lane) {
-  constexpr int SROW = D + PAD, CH = D / 8;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = w.l[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(stage + (g + 8 * i) * SROW + dn * 8 + 2 * t) =
-          pack_bf16x2(w.o[dn][2 * i] * inv, w.o[dn][2 * i + 1] * inv);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int c = lane; c < WARP_ROWS * CH; c += 32) {
-    const int r = c / CH, ch = c % CH;
-    if (r < n_rows)
-      reinterpret_cast<uint4*>(dst + r * row_stride)[ch] =
-          *reinterpret_cast<const uint4*>(stage + r * SROW + ch * 8);
-  }
-}
-
-// The keys [lo, hi) that query rows [r0, r0 + 16) can attend: from the
-// start of the group run holding r0 to the end of the run holding r0 + 15,
-// clipped to the window [kv0, kv1); the whole window where the rows do not
-// lie inside it. This holds every key of the rows' groups only because each
-// group is one contiguous run of slots (plan_layout refuses a plan where it
-// is not). tests/test_torch_flash_tiles.py holds the same rule in plain
-// torch. The warp scans seg outwards from its rows, 128 keys a step (4 loads
-// a lane, then a ballot each), so a step costs one round trip to L2.
-__device__ __forceinline__ int2 warp_span(const int* __restrict__ seg, int r0, int kv0, int kv1,
-                                          int lane) {
-  if (r0 < kv0 || r0 + WARP_ROWS > kv1) return make_int2(kv0, kv1);
-  const int first = seg[r0], last = seg[r0 + WARP_ROWS - 1];
-  int lo = kv0, hi = kv1;
-  for (int base = r0; base > kv0; base -= 128) {  // keys base - 1, base - 2, ...
-    int id[4];
+// The first key of the group run holding row r, or kv0 if that is later:
+// the warp scans seg down from r - 1, 128 keys a step (4 loads a lane, then
+// a ballot each), so a step costs one round trip to L2.
+__device__ __forceinline__ int run_start(const int* __restrict__ seg, int r, int kv0, int lane) {
+  if (r <= kv0) return kv0;
+  const int id = seg[r];
+  for (int base = r; base > kv0; base -= 128) {  // keys base - 1, base - 2, ...
+    int got[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = base - 1 - 32 * u - lane;
-      id[u] = j >= kv0 ? seg[j] : first;
+      got[u] = j >= kv0 ? seg[j] : id;
     }
-    int at = -1;
 #pragma unroll
-    for (int u = 3; u >= 0; --u) {  // the lowest lane of the lowest u is the nearest key
-      const unsigned m = __ballot_sync(0xffffffffu, id[u] != first);
-      if (m) at = base - 32 * u - (__ffs(m) - 1);
-    }
-    if (at >= 0) {
-      lo = at;
-      break;
+    for (int u = 0; u < 4; ++u) {  // the lowest lane of the lowest u is the nearest key
+      const unsigned m = __ballot_sync(0xffffffffu, got[u] != id);
+      if (m) return base - 32 * u - (__ffs(m) - 1);
     }
   }
-  for (int base = r0 + WARP_ROWS; base < kv1; base += 128) {  // keys base, base + 1, ...
-    int id[4];
+  return kv0;
+}
+
+// The end of the group run holding row r, or kv1 if that is earlier; the
+// same scan upwards from r + 1.
+__device__ __forceinline__ int run_end(const int* __restrict__ seg, int r, int kv1, int lane) {
+  if (r + 1 >= kv1) return kv1;
+  const int id = seg[r];
+  for (int base = r + 1; base < kv1; base += 128) {  // keys base, base + 1, ...
+    int got[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = base + 32 * u + lane;
-      id[u] = j < kv1 ? seg[j] : last;
+      got[u] = j < kv1 ? seg[j] : id;
     }
-    int at = -1;
 #pragma unroll
-    for (int u = 3; u >= 0; --u) {
-      const unsigned m = __ballot_sync(0xffffffffu, id[u] != last);
-      if (m) at = base + 32 * u + (__ffs(m) - 1);
-    }
-    if (at >= 0) {
-      hi = at;
-      break;
+    for (int u = 0; u < 4; ++u) {
+      const unsigned m = __ballot_sync(0xffffffffu, got[u] != id);
+      if (m) return base + 32 * u + (__ffs(m) - 1);
     }
   }
-  return make_int2(lo, hi);
+  return kv1;
 }
 
-// K1. q/k/v: [S, H, D] with row strides q_rs/k_rs/v_rs (elements), unit dim
-// stride, heads D apart; out: [S, H, D] contiguous. Query rows of plan chunk
-// c (128 rows) attend keys [kv0, kv0 + kv_range) with kv0 = kv_starts[c]
-// clamped like a dynamic slice, masked by seg[query] == seg[key]. One CTA
-// owns 64 query rows of one head. Each warp first finds the span of keys its
-// 16 rows can attend (warp_span); the CTA walks the union of its 4 warps'
-// spans, and a warp computes only the tiles that meet its own span. Keys
-// past the union's end get weight 0.
+// 2^x, as the special function unit gives it (results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of one tile, issued and committed: both K-major, four k16 steps
+// at byte 32 kk of the 128-byte rows (qa, ka), the fifth the 32-byte rows
+__device__ __forceinline__ void seg_qk(float (&s)[32], uint32_t qa, uint32_t qb, uint32_t ka, uint32_t kb) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_64x64_ss(s, sw128_desc(qa + 32 * kk, 16, 1024), sw128_desc(ka + 32 * kk, 16, 1024), kk);
+  wgmma_64x64_ss(s, sw32_desc(qb, 16, 256), sw32_desc(kb, 16, 256), 1);
+  wgmma_commit();
+}
+
+// The online softmax of one tile's logits s, in place: into the log2
+// domain, key kt + c valid for row h in [lo_h, hi_h), else NEG_INF, or -inf
+// (weight 0) at or past `hi`, the union's end; the rows' running max m and
+// sum l updated, corr the factor the accumulator takes for the new max.
+// Rows r + 8h of the warpgroup: elements 4n + 2h, 4n + 2h + 1.
+__device__ __forceinline__ void seg_softmax(float (&s)[32], float (&m)[2], float (&l)[2], float (&corr)[2], int kt,
+                                            int lo0, int hi0, int lo1, int hi1, int hi, int quad, float scale_log2) {
+  if (kt >= max(lo0, lo1) && kt + SEG_BK <= min(hi0, hi1)) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= scale_log2;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int key = kt + 8 * (e >> 2) + 2 * quad + (e & 1);
+      const bool valid = (e & 2) ? key >= lo1 && key < hi1 : key >= lo0 && key < hi0;
+      s[e] = valid ? s[e] * scale_log2 : (key < hi ? NEG_INF : -inf_f());
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn) mx = fmaxf(mx, fmaxf(s[4 * nn + 2 * h], s[4 * nn + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    corr[h] = ex2(m[h] - mx);
+    m[h] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn) {
+      s[4 * nn + 2 * h] = ex2(s[4 * nn + 2 * h] - mx);
+      s[4 * nn + 2 * h + 1] = ex2(s[4 * nn + 2 * h + 1] - mx);
+      sum += s[4 * nn + 2 * h] + s[4 * nn + 2 * h + 1];
+    }
+    l[h] = l[h] * corr[h] + sum;
+  }
+}
+
+// P as the A operand of P V: the accumulator layout of key blocks 2kk and
+// 2kk + 1 is the A layout of k16 step kk; each value as its bf16 value and
+// its rounding error
+__device__ __forceinline__ void seg_split(const float (&p)[32], uint32_t (&phi)[4][4], uint32_t (&plo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) split_bf16x2(p[8 * kk + 2 * a], p[8 * kk + 2 * a + 1], phi[kk][a], plo[kk][a]);
+  }
+}
+
+// O += P V of one tile, issued and committed: V MN-major, 16 keys a step, an
+// m64n64 product over the 128-byte box (2048 bytes a step, 8-key groups 1024
+// apart) and an m64n16 one over the 32-byte box (512 bytes a step, groups
+// 256 apart), each for both terms of P
+__device__ __forceinline__ void seg_pv(float (&oa)[32], float (&ob)[8], const uint32_t (&phi)[4][4],
+                                       const uint32_t (&plo)[4][4], uint32_t va, uint32_t vb) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = sw128_desc(va + kk * 2048, 8192, 1024), db = sw32_desc(vb + kk * 512, 2048, 256);
+    wgmma_64x64_rs_tb(oa, phi[kk], da);
+    wgmma_64x64_rs_tb(oa, plo[kk], da);
+    wgmma_64x16_rs_tb(ob, phi[kk], db);
+    wgmma_64x16_rs_tb(ob, plo[kk], db);
+  }
+  wgmma_commit();
+}
+
+// K1. q/k/v: [S, H, D] (any row stride; heads D apart) and out ([S, H, D]
+// contiguous) through tensor maps: for each, one with 64-dim boxes and the
+// 128-byte swizzle (`*_a`) and one with 16-dim boxes and the 32-byte
+// swizzle (`*_b`), both one head and 64 rows. Query rows of plan chunk c
+// (128 rows) attend keys [kv0, kv0 + kv_range), kv0 = kv_starts[c] clamped
+// like a dynamic slice, masked by seg[query] == seg[key].
+//
+// The work is items, (plan chunk, head), numbered chunk-first so that the
+// items in flight at once share their windows' tiles in L2; CTA x takes
+// items x, x + gridDim.x, ... (persistent, one CTA an SM). Warpgroups 0 and
+// 1 compute an item's rows 0..63 and 64..127; warpgroup 2, the producer,
+// gives its registers to them by setmaxnreg. Its warp 9, the planner, finds
+// each row's valid keys: the run of its group (each group one contiguous
+// run of slots; plan_layout refuses a plan where it is not) clipped to the
+// window, [key_lo, key_hi) (empty for a row whose group the window misses),
+// from the changes of group id among the item's rows and a scan outwards
+// from each end. A warpgroup's span is the union of its rows' intervals
+// (their runs follow each other, so the first row's start to the last
+// row's end), or the whole window where its rows do not lie inside it (a
+// row with no valid key averages the window, as in the plain version);
+// tests/test_torch_flash_tiles.py holds the same rule in plain torch. The
+// planner writes both into one of two item slots, up to two items ahead;
+// the first lane of warp 8 takes each item from its slot, loads its Q tiles
+// into one of two Q buffers and walks the union of the two spans in 64-key
+// tiles through the ring. A warpgroup computes the tiles that meet its own
+// span, and frees the others once they have landed. A key of a computed
+// tile is valid for a row inside the row's interval; else it takes the
+// NEG_INF sentinel, and past the union's end weight 0 (those rows belong to
+// other groups, or are TMA's zeros past S). A warpgroup issues tile t's
+// Q K^T together with tile t - 1's P V, and masks and scales tile t's
+// logits while that product runs. An item's output is written over its Q
+// tiles and leaves by TMA store, whose read of the buffer the warpgroup's
+// first thread awaits after the next item's first tile before it frees
+// the buffer (q_empty), so the item after that can load its Q tiles there.
 //
 // Bound and design: see the file header. The spans are what makes K1 cheap:
-// a whole-page line crop is about 212 patches and a window group 16 to 64,
-// so most 64-key tiles of a 1024-key window hold no key of a warp's groups.
-// The spans are found in the kernel, while the Q tile loads: as a chain of
-// torch operations the same computation took 0.7 to 1.9 times as long as
-// the kernel itself (PERF.md).
-template <int D>
-__global__ void __launch_bounds__(SEG_QT / WARP_ROWS * 32, SEG_MIN_CTAS)
-    segmented_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, int64_t q_rs, int64_t k_rs, int64_t v_rs,
-                               const int* __restrict__ seg, const int* __restrict__ kv_starts,
-                               bf16* __restrict__ out, int S, int H, int kv_range,
-                               float scale_log2) {
-  constexpr int BK = SEG_BK, SROW = D + PAD, CH = D / 8, NW = SEG_QT / WARP_ROWS, NT = NW * 32;
+// a whole-page line crop is about 80 to 280 patches and a window group 16,
+// so most 64-key tiles of a 1024-key window hold no key of a warpgroup's
+// groups. The spans are found in the kernel, under the products of the
+// items before: as a chain of torch operations the same computation took
+// 0.7 to 1.9 times as long as the kernel itself (PERF.md).
+__global__ void __launch_bounds__(SEG_THREADS, 1)
+    segmented_attention_kernel(const __grid_constant__ CUtensorMap q_a_map, const __grid_constant__ CUtensorMap q_b_map,
+                               const __grid_constant__ CUtensorMap k_a_map, const __grid_constant__ CUtensorMap k_b_map,
+                               const __grid_constant__ CUtensorMap v_a_map, const __grid_constant__ CUtensorMap v_b_map,
+                               const __grid_constant__ CUtensorMap o_a_map, const __grid_constant__ CUtensorMap o_b_map,
+                               const int* __restrict__ seg, const int* __restrict__ kv_starts, int S, int H,
+                               int kv_range, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                       // [SEG_QT][SROW]
-  bf16* kv_s = q_s + SEG_QT * SROW;                                    // [STAGES][K, V][BK][SROW]
-  int* seg_s = reinterpret_cast<int*>(kv_s + STAGES * 2 * BK * SROW);  // [STAGES][BK]
-  __shared__ int2 span_s[NW];
-
+  auto& sm = *reinterpret_cast<SegSmem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                         ~static_cast<uintptr_t>(1023));
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * SEG_QT;
-  const int64_t hoff = (int64_t)blockIdx.y * D;
-  for (int c = tid; c < SEG_QT * CH; c += NT) {
-    const int r = c / CH, ch = c % CH;
-    cp_async16(q_s + r * SROW + ch * 8, q + (q0 + r) * q_rs + hoff + ch * 8, true);
-  }
-  cp_async_commit();
+  const int n_chunks = S / PLAN_CHUNK, n_items = n_chunks * H;
 
-  const int kv0 = max(0, min(kv_starts[q0 / PLAN_CHUNK], S - kv_range));
-  const int2 span = warp_span(seg, q0 + warp * WARP_ROWS, kv0, kv0 + kv_range, lane);
-  if (lane == 0) span_s[warp] = span;
+  if (tid == 0) {
+    for (int s = 0; s < SEG_STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.kv_empty[s], SEG_WG * 4);
+    }
+    for (int u = 0; u < SEG_QBUF; ++u) {
+      mbar_init(&sm.q_full[u], 1);
+      mbar_init(&sm.q_empty[u], SEG_WG);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.item_full[b], 32);
+      mbar_init(&sm.item_empty[b], SEG_WG * 4 + 1);  // the consumers' warps and the copying lane
+    }
+    fence_mbar_init();
+  }
   __syncthreads();
-  int lo = span_s[0].x, hi = span_s[0].y;
+
+  if (warp >= SEG_WG * 4) {  // the producer warpgroup: a planner warp and a copying lane
+    setmaxnreg_dec<SEG_PRODUCER_REGS>();
+    if (warp == SEG_WG * 4 + 1) {  // the planner: each item's rows' intervals and spans into an item slot
+      int j = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+        const int b = j & 1, c = item % n_chunks, q0 = c * PLAN_CHUNK;
+        // every load at once: the window's start, the rows' group ids (rows
+        // 32u + lane, u < 4) and those of the 128 keys on either side
+        const int start = kv_starts[c];
+        int id[4], below[4], above[4];
 #pragma unroll
-  for (int i = 1; i < NW; ++i) {
-    lo = min(lo, span_s[i].x);
-    hi = max(hi, span_s[i].y);
-  }
-  const int n_tiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
-
-  auto load_kv = [&](int tile) {
-    const int stage = tile % STAGES, base = lo + tile * BK;
-    bf16* ks = kv_s + stage * 2 * BK * SROW;
-    for (int c = tid; c < BK * CH; c += NT) {
-      const int r = c / CH, ch = c % CH, row = base + r;
-      const int64_t src = min(row, hi - 1);
-      cp_async16(ks + r * SROW + ch * 8, k + src * k_rs + hoff + ch * 8, row < hi);
-      cp_async16(ks + (BK + r) * SROW + ch * 8, v + src * v_rs + hoff + ch * 8, row < hi);
+        for (int u = 0; u < 4; ++u) {
+          const int jb = q0 - 1 - 32 * u - lane, ja = q0 + PLAN_CHUNK + 32 * u + lane;
+          id[u] = seg[q0 + 32 * u + lane];
+          below[u] = jb >= 0 ? seg[jb] : 0;
+          above[u] = ja < S ? seg[ja] : 0;
+        }
+        const int kv0 = max(0, min(start, S - kv_range)), kv1 = kv0 + kv_range;
+        const int first = __shfl_sync(0xffffffffu, id[0], 0), last = __shfl_sync(0xffffffffu, id[3], 31);
+        // the start of row 0's run and the end of row 127's, clipped to the
+        // window; the scans go on past those 128 keys only where a run does
+        int a = kv0, e = kv1, at = -1;
+        if (q0 > kv0) {
+#pragma unroll
+          for (int u = 3; u >= 0; --u) {  // the lowest lane of the lowest u is the nearest key
+            const unsigned m = __ballot_sync(0xffffffffu, q0 - 1 - 32 * u - lane >= kv0 && below[u] != first);
+            if (m) at = q0 - 32 * u - (__ffs(m) - 1);
+          }
+          a = at >= 0 ? at : (q0 - 128 > kv0 ? run_start(seg, q0 - 128, kv0, lane) : kv0);
+        }
+        at = -1;
+        if (q0 + PLAN_CHUNK < kv1) {
+#pragma unroll
+          for (int u = 3; u >= 0; --u) {
+            const unsigned m = __ballot_sync(0xffffffffu, q0 + PLAN_CHUNK + 32 * u + lane < kv1 && above[u] != last);
+            if (m) at = q0 + PLAN_CHUNK + 32 * u + (__ffs(m) - 1);
+          }
+          e = at >= 0 ? at : (q0 + 2 * PLAN_CHUNK < kv1 ? run_end(seg, q0 + 2 * PLAN_CHUNK - 1, kv1, lane) : kv1);
+        }
+        unsigned starts[4];  // where a group run starts among the rows, 32 rows a mask
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int up = __shfl_up_sync(0xffffffffu, id[u], 1);
+          const int prev = __shfl_sync(0xffffffffu, id[u > 0 ? u - 1 : 0], 31);
+          starts[u] = __ballot_sync(0xffffffffu, (lane > 0 ? up : prev) != id[u] && (u > 0 || lane > 0));
+        }
+        int key_lo[4], key_hi[4];
+        const unsigned upto = (2u << lane) - 1;  // lanes 0..lane
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          int rs = a, re = e;
+#pragma unroll
+          for (int x = 0; x <= u; ++x) {  // the last run start at or before the row
+            const unsigned m = starts[x] & (x == u ? upto : ~0u);
+            if (m) rs = q0 + 32 * x + 31 - __clz(m);
+          }
+#pragma unroll
+          for (int x = 3; x >= u; --x) {  // the first after it
+            const unsigned m = starts[x] & (x == u ? ~upto : ~0u);
+            if (m) re = q0 + 32 * x + __ffs(m) - 1;
+          }
+          key_lo[u] = max(rs, kv0);
+          key_hi[u] = min(re, kv1);
+        }
+        if (j >= 2) mbar_wait(&sm.item_empty[b], ((j >> 1) - 1) & 1);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          sm.key_lo[b][32 * u + lane] = key_lo[u];
+          sm.key_hi[b][32 * u + lane] = key_hi[u];
+        }
+#pragma unroll
+        for (int g = 0; g < SEG_WG; ++g) {  // rows 64g and 64g + 63: lane 0 of u = 2g and lane 31 of u = 2g + 1
+          const int r0 = q0 + 64 * g, end = __shfl_sync(0xffffffffu, key_hi[2 * g + 1], 31);
+          if (lane == 0)
+            sm.span[b][g] = r0 >= kv0 && r0 + 64 <= kv1 ? make_int2(key_lo[2 * g], end) : make_int2(kv0, kv1);
+        }
+        mbar_arrive(&sm.item_full[b]);  // every lane, after its own writes
+      }
+      return;
     }
-    for (int r = tid; r < BK; r += NT)
-      cp_async4(seg_s + stage * BK + r, seg + min(base + r, hi - 1), base + r < hi);
+    if (warp != SEG_WG * 4 || lane != 0) return;
+    // the copying lane: each item's Q tiles into one of two buffers, then the
+    // union of its spans in 64-key tiles through the ring
+    prefetch_map(&q_a_map);
+    prefetch_map(&q_b_map);
+    prefetch_map(&k_a_map);
+    prefetch_map(&k_b_map);
+    prefetch_map(&v_a_map);
+    prefetch_map(&v_b_map);
+    int step = 0, j = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+      const int b = j & 1, c = item % n_chunks, head = item / n_chunks, q0 = c * PLAN_CHUNK;
+      mbar_wait(&sm.item_full[b], (j >> 1) & 1);
+      const int2 s0 = sm.span[b][0], s1 = sm.span[b][1];
+      mbar_arrive(&sm.item_empty[b]);
+      const int lo = min(s0.x, s1.x), hi = max(s0.y, s1.y);
+      const int n_tiles = (hi - lo + SEG_BK - 1) / SEG_BK;  // the spans meet, so every tile is some warpgroup's
+      // the Q tiles, once the store of item j - SEG_QBUF has read the buffer
+      const int u = j % SEG_QBUF;
+      if (j >= SEG_QBUF) mbar_wait(&sm.q_empty[u], (j / SEG_QBUF - 1) & 1);
+      mbar_expect_tx(&sm.q_full[u], SEG_WG * SEG_TILE_BYTES);
+      for (int g = 0; g < SEG_WG; ++g) {
+        tma_load_3d(sm.q_a[u][g], &q_a_map, &sm.q_full[u], 0, head, q0 + 64 * g);
+        tma_load_3d(sm.q_b[u][g], &q_b_map, &sm.q_full[u], 64, head, q0 + 64 * g);
+      }
+      for (int t = 0; t < n_tiles; ++t, ++step) {
+        const int s = step % SEG_STAGES, row = lo + t * SEG_BK;
+        if (step >= SEG_STAGES) mbar_wait(&sm.kv_empty[s], (step / SEG_STAGES - 1) & 1);
+        mbar_expect_tx(&sm.k_full[s], SEG_TILE_BYTES);
+        tma_load_3d(sm.k_a[s], &k_a_map, &sm.k_full[s], 0, head, row);
+        tma_load_3d(sm.k_b[s], &k_b_map, &sm.k_full[s], 64, head, row);
+        mbar_expect_tx(&sm.v_full[s], SEG_TILE_BYTES);
+        tma_load_3d(sm.v_a[s], &v_a_map, &sm.v_full[s], 0, head, row);
+        tma_load_3d(sm.v_b[s], &v_b_map, &sm.v_full[s], 64, head, row);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 16w + lane / 4 (+ 8) of its 64 in the accumulators
+  setmaxnreg_inc<SEG_CONSUMER_REGS>();
+  const int g = warp / 4, w = warp % 4, quad = lane & 3, r = 16 * w + (lane >> 2);
+  const bool leader = w == 0 && lane == 0;  // issues the warpgroup's stores
+  auto release = [&](int step) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.kv_empty[step % SEG_STAGES]);
   };
-  if (n_tiles > 0) load_kv(0);
-  cp_async_commit();
+  // a tile of the union that misses this warpgroup's span: freed once it has
+  // landed (so that an arrival never counts towards the stage's previous round)
+  auto pass = [&](int step) {
+    const int s = step % SEG_STAGES;
+    const uint32_t parity = (step / SEG_STAGES) & 1;
+    mbar_wait(&sm.k_full[s], parity);
+    mbar_wait(&sm.v_full[s], parity);
+    release(step);
+  };
+  auto k_ready = [&](int step) {
+    mbar_wait(&sm.k_full[step % SEG_STAGES], (step / SEG_STAGES) & 1);
+    return step % SEG_STAGES;
+  };
+  auto v_ready = [&](int step) {
+    mbar_wait(&sm.v_full[step % SEG_STAGES], (step / SEG_STAGES) & 1);
+    return step % SEG_STAGES;
+  };
+  int step = 0, j = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+    const int b = j & 1, c = item % n_chunks, head = item / n_chunks, q0 = c * PLAN_CHUNK;
+    mbar_wait(&sm.item_full[b], (j >> 1) & 1);
+    const int lo0 = sm.key_lo[b][64 * g + r], hi0 = sm.key_hi[b][64 * g + r];
+    const int lo1 = sm.key_lo[b][64 * g + r + 8], hi1 = sm.key_hi[b][64 * g + r + 8];
+    const int2 s0 = sm.span[b][0], s1 = sm.span[b][1];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.item_empty[b]);
+    const int2 own = g == 0 ? s0 : s1;
+    const int lo = min(s0.x, s1.x), hi = max(s0.y, s1.y), n_tiles = (hi - lo + SEG_BK - 1) / SEG_BK;
+    const int t_first = (own.x - lo) / SEG_BK, t_last = (own.y - 1 - lo) / SEG_BK;
+    for (int t = 0; t < t_first; ++t) pass(step + t);
 
-  const int row_g = q0 + warp * WARP_ROWS + (lane >> 2);
-  const int seg0 = seg[row_g], seg1 = seg[row_g + 8];
-  WarpRows<D> w(q_s + warp * WARP_ROWS * SROW);
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) load_kv(tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // K/V tile `tile` (and the Q tile)
-    __syncthreads();
-    const int kt = lo + tile * BK;
-    if (kt < span.y && kt + BK > span.x) {
-      const int stage = tile % STAGES;
-      const bf16* ks = kv_s + stage * 2 * BK * SROW;
-      const int* ss = seg_s + stage * BK;
-      const int n_keys = hi - kt;  // tile rows at or past hi were zero-filled
-      attend_tile<D, BK, true>(w, ks, ks + BK * SROW, scale_log2, lane, [&](int i, int c) {
-        return c >= n_keys ? -1 : (ss[c] == (i ? seg1 : seg0) ? 1 : 0);
-      });
+    // Tile t's Q K^T and softmax run while tile t - 1's P V does: its
+    // accumulator takes the new max's factor once that product is done.
+    float oa[32], ob[8], s[32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+    uint32_t phi[4][4], plo[4][4];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oa[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ob[e] = 0.f;
+    const int u = j % SEG_QBUF;
+    const uint32_t qa = smem_addr(sm.q_a[u][g]), qb = smem_addr(sm.q_b[u][g]);
+    mbar_wait(&sm.q_full[u], (j / SEG_QBUF) & 1);
+    int st = k_ready(step + t_first);
+    seg_qk(s, qa, qb, smem_addr(sm.k_a[st]), smem_addr(sm.k_b[st]));
+    wgmma_wait<0>();
+    fence_regs(s);
+    seg_softmax(s, m, l, corr, lo + t_first * SEG_BK, lo0, hi0, lo1, hi1, hi, quad, scale_log2);
+    seg_split(s, phi, plo);
+    // the store of the item before has long read its Q buffer when this
+    // warpgroup has done its first tile: free that buffer
+    auto free_q = [&]() {
+      if (leader && j > 0) {
+        bulk_wait_read<0>();
+        mbar_arrive(&sm.q_empty[(j - 1) % SEG_QBUF]);
+      }
+    };
+    for (int t = t_first + 1; t <= t_last; ++t) {
+      st = k_ready(step + t);
+      seg_qk(s, qa, qb, smem_addr(sm.k_a[st]), smem_addr(sm.k_b[st]));
+      st = v_ready(step + t - 1);
+      fence_regs(oa);
+      fence_regs(ob);
+      seg_pv(oa, ob, phi, plo, smem_addr(sm.v_a[st]), smem_addr(sm.v_b[st]));
+      wgmma_wait<1>();
+      fence_regs(s);
+      seg_softmax(s, m, l, corr, lo + t * SEG_BK, lo0, hi0, lo1, hi1, hi, quad, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(oa);
+      fence_regs(ob);
+      release(step + t - 1);
+      if (t == t_first + 1) free_q();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          oa[4 * nn + 2 * h] *= corr[h];
+          oa[4 * nn + 2 * h + 1] *= corr[h];
+        }
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn) {
+          ob[4 * nn + 2 * h] *= corr[h];
+          ob[4 * nn + 2 * h + 1] *= corr[h];
+        }
+      }
+      seg_split(s, phi, plo);
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    st = v_ready(step + t_last);
+    fence_regs(oa);
+    fence_regs(ob);
+    seg_pv(oa, ob, phi, plo, smem_addr(sm.v_a[st]), smem_addr(sm.v_b[st]));
+    wgmma_wait<0>();
+    fence_regs(oa);
+    fence_regs(ob);
+    release(step + t_last);
+    if (t_last == t_first) free_q();
+
+    // normalise, write over the Q tile in its two swizzled layouts, store by TMA
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      l[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    }
+    unsigned char* tile_a = reinterpret_cast<unsigned char*>(sm.q_a[u][g]);
+    unsigned char* tile_b = reinterpret_cast<unsigned char*>(sm.q_b[u][g]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+        *reinterpret_cast<uint32_t*>(tile_a + sw128(r + 8 * h, 16 * nn + 4 * quad)) =
+            pack_bf16x2(oa[4 * nn + 2 * h] * l[h], oa[4 * nn + 2 * h + 1] * l[h]);
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+        *reinterpret_cast<uint32_t*>(tile_b + sw32(r + 8 * h, 16 * nn + 4 * quad)) =
+            pack_bf16x2(ob[4 * nn + 2 * h] * l[h], ob[4 * nn + 2 * h + 1] * l[h]);
+    }
+    fence_proxy_async();
+    warpgroup_sync(1 + g);
+    if (leader) {
+      tma_store_3d(&o_a_map, sm.q_a[u][g], 0, head, q0 + 64 * g);
+      tma_store_3d(&o_b_map, sm.q_b[u][g], 64, head, q0 + 64 * g);
+      bulk_commit();
+    }
+    for (int t = t_last + 1; t < n_tiles; ++t) pass(step + t);
+    step += n_tiles;
   }
-  cp_async_wait<0>();
-  store_rows<D>(w, q_s + warp * WARP_ROWS * SROW,
-                out + (int64_t)(q0 + warp * WARP_ROWS) * H * D + hoff, (int64_t)H * D, WARP_ROWS,
-                lane);
+  if (leader) bulk_wait_read<0>();  // the last store has read its tiles before the CTA ends
 }
 
 constexpr int CAUSAL_D = 128;  // K2: head dim of the recognition decoder (1536 / 12)
@@ -413,8 +620,8 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
                             const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
                             int B, int L, int KVH, int rows_per_cta, float scale_log2) {
   constexpr int STAGES = CAUSAL_STAGES, QBUF = CAUSAL_QBUF;
-  // aligned here, not by the declaration: a 1024-byte aligned dynamic
-  // shared memory would pad K1's static shared memory to 1 KB in this file
+  // aligned here, not by the declaration: an aligned extern __shared__
+  // declaration applies to every kernel of this file
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<CausalSmem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                             ~static_cast<uintptr_t>(1023));
@@ -649,31 +856,66 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
   if (w == 0 && lane == 0) bulk_wait_read<0>();  // the last store has read its tile before the CTA ends
 }
 
-constexpr int SEG_D = 80;  // head dim of the recognition encoder (1280 / 16)
-
 }  // namespace
 
 // The wrapper (ops/flash.py) has checked shapes, dtype (bf16), alignment,
 // S % 128 == 0 and 0 < kv_range <= S. Each entry returns cudaGetLastError()
 // after its launch, or cudaErrorInvalidValue for a configuration it was not
-// built for. Dynamic shared memory above 48 KB must be asked for on each
-// device; each launch asks, which costs little next to the launch.
+// built for or a tensor the driver will not map. Dynamic shared memory above
+// 48 KB must be asked for on each device; each launch asks, which costs
+// little next to the launch.
+
+constexpr int SEG_SMEM = (int)sizeof(SegSmem) + 1024;  // and room to align it to 1024 bytes
+
+// K1's CTAs: one an SM, each walking its items (fewer where there are fewer items)
+static int segmented_ctas(int S, int H) {
+  const int64_t items = (int64_t)S / PLAN_CHUNK * H, sms = sm_count();
+  return (int)(items < sms ? items : sms);
+}
+
 extern "C" int surya_segmented_attention(const void* q, const void* k, const void* v, int64_t q_rs,
                                          int64_t k_rs, int64_t v_rs, const void* seg,
                                          const void* kv_starts, void* out, int S, int H, int D,
                                          int kv_range, float scale, void* stream) {
-  if (D != SEG_D || S % PLAN_CHUNK || kv_range <= 0 || kv_range > S) return (int)cudaErrorInvalidValue;
-  constexpr int smem = (SEG_QT + STAGES * 2 * SEG_BK) * (SEG_D + PAD) * (int)sizeof(bf16) +
-                       STAGES * SEG_BK * (int)sizeof(int);
-  const auto kernel = segmented_attention_kernel<SEG_D>;
+  if (D != SEG_D || H < 1 || S % PLAN_CHUNK || kv_range <= 0 || kv_range > S) return (int)cudaErrorInvalidValue;
+  // [S, H, D] as 3-D maps, innermost first; boxes of 64 rows of one head
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S};
+  const cuuint64_t q_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)q_rs * 2};
+  const cuuint64_t k_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)k_rs * 2};
+  const cuuint64_t v_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)v_rs * 2};
+  const cuuint64_t o_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2};
+  const cuuint32_t box_a[3] = {64, 1, 64}, box_b[3] = {16, 1, 64};
+  constexpr CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle sw_a = CU_TENSOR_MAP_SWIZZLE_128B, sw_b = CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap qa, qb, ka, kb, va, vb, oa, ob;
+  if (!make_map(&qa, bf, 3, q, dims, q_strides, box_a, sw_a) || !make_map(&qb, bf, 3, q, dims, q_strides, box_b, sw_b) ||
+      !make_map(&ka, bf, 3, k, dims, k_strides, box_a, sw_a) || !make_map(&kb, bf, 3, k, dims, k_strides, box_b, sw_b) ||
+      !make_map(&va, bf, 3, v, dims, v_strides, box_a, sw_a) || !make_map(&vb, bf, 3, v, dims, v_strides, box_b, sw_b) ||
+      !make_map(&oa, bf, 3, out, dims, o_strides, box_a, sw_a) ||
+      !make_map(&ob, bf, 3, out, dims, o_strides, box_b, sw_b))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(segmented_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SEG_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  kernel<<<dim3(S / SEG_QT, H), SEG_QT / WARP_ROWS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), q_rs,
-      k_rs, v_rs, static_cast<const int*>(seg), static_cast<const int*>(kv_starts),
-      static_cast<bf16*>(out), S, H, kv_range, scale * LOG2E);
+  segmented_attention_kernel<<<segmented_ctas(S, H), SEG_THREADS, SEG_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qa, qb, ka, kb, va, vb, oa, ob, static_cast<const int*>(seg), static_cast<const int*>(kv_starts), S, H, kv_range,
+      scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+// How K1 launches at these shapes, into cfg: CTAs, threads and K/V stages of
+// a CTA, its dynamic shared memory, and the CTAs an SM holds at once (0 if
+// the runtime cannot say). Returns 0.
+extern "C" int surya_segmented_config(int S, int H, int* cfg) {
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(segmented_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SEG_SMEM) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segmented_attention_kernel, SEG_THREADS, SEG_SMEM) !=
+          cudaSuccess)
+    per_sm = 0;
+  const int out[5] = {segmented_ctas(S, H), SEG_THREADS, SEG_STAGES, SEG_SMEM, per_sm};
+  for (int i = 0; i < 5; ++i) cfg[i] = out[i];
+  return 0;
 }
 
 // K2's rows an item and CTAs, as measured on the H100 (PERF.md): an item takes all of a (batch row, kv head)'s row
@@ -731,8 +973,9 @@ extern "C" int surya_causal_attention(const void* q, const void* k, const void* 
   const cuuint32_t box[4] = {64, 1, BLOCK, 1};
   CUtensorMap q_map, k_map, v_map, o_map;
   constexpr CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!make_map(&q_map, bf, 4, q, q_dims, q_strides, box) || !make_map(&k_map, bf, 4, k, k_dims, k_strides, box) ||
-      !make_map(&v_map, bf, 4, v, k_dims, k_strides, box) || !make_map(&o_map, bf, 4, out, q_dims, q_strides, box))
+  constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!make_map(&q_map, bf, 4, q, q_dims, q_strides, box, sw) || !make_map(&k_map, bf, 4, k, k_dims, k_strides, box, sw) ||
+      !make_map(&v_map, bf, 4, v, k_dims, k_strides, box, sw) || !make_map(&o_map, bf, 4, out, q_dims, q_strides, box, sw))
     return (int)cudaErrorInvalidValue;
   return launch_causal(q_map, k_map, v_map, o_map, B, L, KVH, c, scale * LOG2E, static_cast<cudaStream_t>(stream));
 }

@@ -82,6 +82,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
                                              int c3) {
   asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
@@ -125,18 +132,42 @@ __device__ __forceinline__ uint32_t sw128(int row, int col_bytes) {
   return row * 128 + ((((col_bytes >> 4) ^ row) & 7) << 4) + (col_bytes & 15);
 }
 
+// The same for a tile of 32-byte rows as the TMA's 32-byte swizzle lays it
+// out: unit col / 16 of a row moves to unit (col / 16) ^ (row / 4 % 2).
+// Tiles must start on 256 bytes.
+__device__ __forceinline__ uint32_t sw32(int row, int col_bytes) {
+  return row * 32 + ((((col_bytes >> 4) ^ (row >> 2)) & 1) << 4) + (col_bytes & 15);
+}
+
 // -- wgmma ---------------------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (see the callers), layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (see the callers), layout type (1: 128-byte swizzle, 3: 32-byte)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+// a 128-byte-swizzled operand
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return smem_desc(addr, lbo, sbo, 1);
+}
+
+// a 32-byte-swizzled operand: K-major, a 32-byte row holds one k16 step and
+// the stride byte offset is 8 rows' (256); MN-major, a row holds 16 of N and
+// the stride byte offset is 8 of K's rows'
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return smem_desc(addr, lbo, sbo, 3);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// all but the newest N committed groups of products are done
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // keeps the compiler from moving reads or writes of an accumulator across a
 // wgmma fence, commit or wait
@@ -165,6 +196,28 @@ __device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t a, uint6
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SURYA_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : SURYA_D32_OUT(d)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64x64] += A[64x16] B[16x64]: A from registers as in wgmma_64x128_rs_tb,
+// B from shared memory MN-major (the descriptor transposes); d as in
+// wgmma_64x64_ss
+__device__ __forceinline__ void wgmma_64x64_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SURYA_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SURYA_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64x16] += A[64x16] B[16x16], as wgmma_64x64_rs_tb; d[4j..4j+3] the
+// 8-column block j
+__device__ __forceinline__ void wgmma_64x16_rs_tb(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, "
+      "%12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 #define SURYA_D64                                                                                               \
@@ -245,15 +298,16 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A tiled map of `rank` dims (innermost first; strides in bytes of dims 1..,
-// each a multiple of 16) with 128-byte swizzle; reads past a dim's end give
-// zeros and writes there are dropped. False if the driver refuses it.
+// each a multiple of 16) that lays boxes out in shared memory with the given
+// swizzle (the box's innermost dim at most as wide); reads past a dim's end
+// give zeros and writes there are dropped. False if the driver refuses it.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled();
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return encode != nullptr &&
          encode(map, type, rank, const_cast<void*>(base), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -88,9 +88,10 @@ class EncoderLayout:
     win_range: int  # window-attention KV window length
 
     def __post_init__(self):
-        # the K1 kernel walks, for each 16 query rows, only the keys from the
-        # start of the first row's group run to the end of the last row's: a
-        # group split over two runs of slots would lose the other run's keys
+        # the K1 kernel takes a row's valid keys as its group's run of slots,
+        # and walks for each 64 query rows only the keys from the start of the
+        # first row's run to the end of the last row's: a group split over two
+        # runs of slots would lose the other run's keys
         # (a sharded plan stacks one plan a data shard: each row is checked)
         for name in ("seg_id", "win_id"):
             for ids in np.atleast_2d(getattr(self, name)):

@@ -47,6 +47,7 @@ SIGNATURES = {
     "surya_gqa_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "surya_decode_config": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "surya_causal_config": [_I, _I, _I, ctypes.POINTER(_I)],
+    "surya_segmented_config": [_I, _I, ctypes.POINTER(_I)],
     "surya_graph_if_begin": [_P, _P, _P],
     "surya_graph_if_end": [_P],
     "surya_graph_while_begin": [_P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong)],

@@ -12,7 +12,7 @@ count through ``common.graphs.count``, so a launch inside a captured program
 K1 replaces surya_tpu/ops/flash.py::segmented_block_attention, K2 replaces
 surya_tpu/ops/flash.py::causal_flash_attention. Unlike the Pallas wrapper,
 K1 reads q/k/v as [S, H, D] through their row strides (no transpose to
-[H, S, D]), and walks for each 16 query rows only the span of keys their
+[H, S, D]), and walks for each 64 query rows only the span of keys their
 groups can reach instead of the whole window; the kernel finds the spans
 itself. That needs each group to be one contiguous run of slots, which
 ``qwen_encoder.plan_layout`` checks.
