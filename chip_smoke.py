@@ -3258,7 +3258,8 @@ def check_bench_workload(gen, power):
             wall, prof, counts, tokens = min(runs, key=lambda t: t[0])
             return {"pages_per_s": BENCH_PAGES / wall, "trial_walls_s": [t[0] for t in runs],
                     "decoded_tokens_per_page": tokens / BENCH_PAGES,
-                    "stages": {k: {"total_s": v["total_s"], "calls": v["calls"]} for k, v in sorted(prof.items())},
+                    "stages": {k: {"total_s": v["total_s"], "calls": v["calls"]} for k, v in sorted(prof.items())
+                               if "total_s" in v},  # the stages, not the counters beside them
                     "launches": {n: counts[n] for n in ("segmented_block_attention", "causal_flash_attention",
                                                         "gqa_decode", "gqa_decode_int8")},
                     "k1_launches_by_kv_range": counts[K1_BY_RANGE],

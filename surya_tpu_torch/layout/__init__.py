@@ -38,6 +38,7 @@ from tqdm import tqdm
 
 from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.predictor import BasePredictor
+from surya_tpu_torch.common.profiling import stage
 from surya_tpu_torch.common.util import clean_boxes
 from surya_tpu_torch.layout.loader import load_layout_model
 from surya_tpu_torch.layout.schema import LayoutBox, LayoutResult
@@ -132,6 +133,7 @@ class LayoutPredictor(BasePredictor):
                  top_k: int = 5) -> List[LayoutResult]:
         return self.batch_layout_detection(images, batch_size=batch_size, top_k=top_k)
 
+    @stage("layout.call")
     def batch_layout_detection(self, images: List[Image.Image], batch_size: Optional[int] = None,
                                top_k: int = 5) -> List[LayoutResult]:
         if not all(isinstance(im, Image.Image) for im in images):
@@ -147,13 +149,13 @@ class LayoutPredictor(BasePredictor):
         results: List[LayoutResult] = []
         inflight = None
         for start_idx, end_idx in tqdm(batches, desc="Recognizing layout", disable=self.disable_tqdm):
-            tiles, tile_positions = slicer.slice([im.convert("RGB") for im in images[start_idx:end_idx]])
-            pixels = self.gray_ship(np.stack([self.prepare_image(im) for im in tiles]))
-            # a power of two (even blocks on a mesh) of rows: copies of the last tile
-            rows = self.bucket_rows(len(tiles), batch_size)
-            if rows > len(tiles):
-                pixels = np.pad(pixels, [(0, rows - len(tiles))] + [(0, 0)] * 3, mode="edge")
-            t0 = time.perf_counter()
+            with stage("layout.prepare"):
+                tiles, tile_positions = slicer.slice([im.convert("RGB") for im in images[start_idx:end_idx]])
+                pixels = self.gray_ship(np.stack([self.prepare_image(im) for im in tiles]))
+                # a power of two (even blocks on a mesh) of rows: copies of the last tile
+                rows = self.bucket_rows(len(tiles), batch_size)
+                if rows > len(tiles):
+                    pixels = np.pad(pixels, [(0, rows - len(tiles))] + [(0, 0)] * 3, mode="edge")
             rans = []  # a box loop's on each data shard
 
             def generate(model, px):
@@ -161,9 +163,11 @@ class LayoutPredictor(BasePredictor):
                 rans.append(ran)
                 return packed
 
-            with self._on_stream(), torch.inference_mode():
-                handle = self._fetch(self.data_parallel(generate, self._upload(pixels)))
-            run["enqueue_s"] += time.perf_counter() - t0
+            with stage("layout.enqueue"):
+                t0 = time.perf_counter()
+                with self._on_stream(), torch.inference_mode():
+                    handle = self._fetch(self.data_parallel(generate, self._upload(pixels)))
+                run["enqueue_s"] += time.perf_counter() - t0
             run["tiles"].append(len(tiles))
             run["rows"].append(rows)
             # fetch the previous batch only now that this one is enqueued
@@ -176,12 +180,14 @@ class LayoutPredictor(BasePredictor):
         return results
 
     def _finish(self, handle, rans, orig_sizes, tile_positions, slicer, top_k) -> List[LayoutResult]:
-        [packed] = self._wait(handle)
+        with stage("layout.wait"):
+            [packed] = self._wait(handle)
         self.last_run["steps"].append(max(ran.credit() for ran in rans))
         packed = packed[:len(orig_sizes)]  # the padding rows go
         return self._assemble_batch(packed[..., :7], packed[..., 7:-1], packed[..., -1] > 0.5, orig_sizes,
                                     tile_positions, slicer, top_k)
 
+    @stage("layout.assemble")
     def _assemble_batch(self, boxes, logits, valid, orig_sizes, tile_positions, slicer, top_k):
         """Host assembly of one fetched batch into LayoutResults, tiles joined."""
         batch_results = []

@@ -64,7 +64,7 @@ from tqdm import tqdm
 from surya_tpu_torch.common import graphs
 from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.common.predictor import BasePredictor
-from surya_tpu_torch.common.profiling import stage
+from surya_tpu_torch.common.profiling import count, stage
 from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
 from surya_tpu_torch.models import qwen_decoder
 from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, slot_sources
@@ -412,6 +412,7 @@ class RecognitionPredictor(BasePredictor):
             "res_scales": all_res_scales,
         }
 
+    @stage("recognition.slice")
     def slice_bboxes(self, images, task_names, bboxes=None, polygons=None, input_text=None):
         if bboxes is None and polygons is None:
             raise ValueError("need bboxes or polygons")
@@ -459,6 +460,7 @@ class RecognitionPredictor(BasePredictor):
 
     # -- the scheduler ---------------------------------------------------------
 
+    @stage("recognition.loop")
     @torch.inference_mode()
     def prediction_loop(self, flat: dict, recognition_batch_size=None, math_mode=True,
                         feeder=None, leftover_sink=None, on_done=None, prompt_bound_override=None):
@@ -496,6 +498,7 @@ class RecognitionPredictor(BasePredictor):
         max_tokens = {}
         cache_len = None  # set once the first prompts size the cache
 
+        @stage("recognition.add_prompts")
         def add_prompts(f, fit_check=False):
             """A group's prompts: ids in arrival order, enqueued widest
             first. With fit_check, a prompt whose bound and budget exceed the
@@ -521,7 +524,8 @@ class RecognitionPredictor(BasePredictor):
         # an empty first group must not size the cache: pull until a prompt
         # exists or the stream ends
         while not queue and not feed_exhausted:
-            nxt = feeder(True)
+            with stage("recognition.feed"):
+                nxt = feeder(True)
             if nxt is FEED_DONE:
                 feed_exhausted = True
             else:
@@ -590,7 +594,10 @@ class RecognitionPredictor(BasePredictor):
                 on_done(pid, predicted_tokens[pid], scores[pid],
                         np.concatenate(bb, axis=0) if bb else np.zeros((0, 6), np.float32))
 
-        def process_decode(packed):
+        @stage("recognition.process_decode")
+        def process_decode(packed) -> int:
+            """Append a chunk's tokens to its active slots' prompts and stop
+            them; returns the tokens appended."""
             # a vectorized stop scan over the [slots, K] chunk: Python runs
             # per slot (extend and finish), never per token
             toks = packed[..., 0].astype(np.int32)
@@ -598,7 +605,7 @@ class RecognitionPredictor(BasePredictor):
             chunk_bboxes = packed[..., 2:]
             act = [s for s in range(n_slots) if slot_prompt[s] is not None and host_active[s]]
             if not act:
-                return
+                return 0
             K = self.decode_chunk
             W = REPEAT_WINDOW
             ctoks = toks[act, :K]
@@ -616,31 +623,36 @@ class RecognitionPredictor(BasePredictor):
                     if h:
                         tails[i, -len(h):] = h
                 any_stop, cut = chunk_stop_scan(ctoks, prior, budget, tails, eos, pad, W)
+            kept = 0
             for i, s in enumerate(act):
                 pid = slot_prompt[s]
                 k = int(cut[i]) + 1
+                kept += k
                 predicted_tokens[pid].extend(ctoks[i, :k].tolist())
                 scores[pid].extend(chunk_scores[s, :k].tolist())
                 bboxes[pid].append(chunk_bboxes[s, :k])
                 if any_stop[i]:
                     # EOS or pad at the cut: the device stopped the slot itself
                     finish(s, device_knows=(not pin) and int(ctoks[i, int(cut[i])]) in (eos, pad))
+            return kept
 
         def build_wave(slot_budget: int):
             """Pop prompts from the queue under the slot and patch budgets and
             pack their prefill batch: numpy only, run in the builder thread
-            while the device works (one build at a time touches the queue)."""
+            while the device works (one build at a time touches the queue).
+            Returns (prompts, batch, rows, the window slots they need)."""
             round_prompts: List[RecognitionPrompt] = []
             imgs: List[np.ndarray] = []
             patch_budget = self.patch_cap
-            while queue and len(round_prompts) < slot_budget:
-                img = self._prepare_image(queue[0].image, queue[0].task_name)
-                need = self._estimate_window_slots(img)
-                if round_prompts and need > patch_budget:
-                    break
-                round_prompts.append(queue.popleft())
-                imgs.append(img)
-                patch_budget -= need
+            with stage("recognition.wave_select"):
+                while queue and len(round_prompts) < slot_budget:
+                    img = self._prepare_image(queue[0].image, queue[0].task_name)
+                    need = self._estimate_window_slots(img)
+                    if round_prompts and need > patch_budget:
+                        break
+                    round_prompts.append(queue.popleft())
+                    imgs.append(img)
+                    patch_budget -= need
             if not round_prompts:
                 return None
             batch_rows = next(b for b in self.prefill_row_buckets if b >= len(round_prompts))
@@ -656,8 +668,9 @@ class RecognitionPredictor(BasePredictor):
                     patch_caps=self.patch_caps,
                     n_shards=self.n_data,
                 )
-            return round_prompts, batch, batch_rows
+            return round_prompts, batch, batch_rows, self.patch_cap - patch_budget
 
+        @stage("recognition.seed_prefill")
         def seed_from_prefill(packed, target_slots, round_prompts, rows):
             """Host bookkeeping for prefill token 0; prompt i sits at row
             rows[i]. Its slots were taken when the wave was dispatched."""
@@ -681,12 +694,13 @@ class RecognitionPredictor(BasePredictor):
             rec, inflight = inflight, None
             with stage(f"recognition.drain_{rec['kind']}"):
                 packed = self._wait(rec["handle"])
-            if rec["ran"] is not None:
-                rec["ran"].credit()  # the chunk's launches, now that its outputs are in
+            # the chunk's steps, and its launches credited, now that its outputs are in
+            steps = rec["ran"].credit() if rec["ran"] is not None else 0
             if rec["kind"] == "prefill":
                 seed_from_prefill(packed[0], rec["slots"], rec["prompts"], rec["rows"])
             if len(packed) > 1 or rec["kind"] == "decode":
-                process_decode(packed[-1])
+                count("recognition.decode_row_steps", (n_slots + 1) * steps)  # every slot, the trash slot too
+                count("recognition.decode_tokens_kept", process_decode(packed[-1]))
 
         builder = ThreadPoolExecutor(max_workers=1)
         pending = None  # the build of the next wave, in the builder thread
@@ -699,7 +713,8 @@ class RecognitionPredictor(BasePredictor):
                 if not feed_exhausted and len(queue) < self.prefill_row_buckets[-1]:
                     idle = not (queue or held is not None or pending is not None or inflight is not None
                                 or any(p is not None for p in slot_prompt))
-                    nxt = feeder(idle)
+                    with stage("recognition.feed"):
+                        nxt = feeder(idle)
                     if nxt is FEED_DONE:
                         feed_exhausted = True
                     elif nxt is not None:
@@ -711,7 +726,8 @@ class RecognitionPredictor(BasePredictor):
                 if held is None and pending is not None:
                     # wait for an unfinished build only when no slot could decode
                     if pending.done() or not decoding():
-                        held, pending = pending.result(), None
+                        with stage("recognition.build_wait"):
+                            held, pending = pending.result(), None
                         if held is None:
                             continue
                 if held is not None and len(held[0]) <= len(frees):
@@ -719,7 +735,10 @@ class RecognitionPredictor(BasePredictor):
                     # that must not be given to the wave's prompts before
                     drain_inflight()
                     frees = free_slots()
-                    (round_prompts, batch, batch_rows), held = held, None
+                    (round_prompts, batch, batch_rows, patches), held = held, None
+                    count("recognition.wave_patches", patches)
+                    # the patch rows the wave is padded to (every shard's on a mesh)
+                    count("recognition.wave_patch_cap", int(np.prod(batch.patches.shape[:-1])))
                     target_slots = frees[: len(round_prompts)]
                     slot_idx = np.full(batch_rows, n_slots, np.int32)  # padding rows -> trash slot
                     slot_idx[batch.valid_rows] = target_slots
@@ -790,6 +809,7 @@ class RecognitionPredictor(BasePredictor):
 
     # -- detokenization and assembly (host) ------------------------------------
 
+    @stage("recognition.detokenize")
     def get_bboxes_text(self, flat, predicted_tokens, scores, predicted_polygons, drop_repeated_text=False):
         char_predictions = []
         tok = self.processor.tokenizer
@@ -853,6 +873,7 @@ class RecognitionPredictor(BasePredictor):
 
     # -- public API ------------------------------------------------------------
 
+    @stage("recognition.call")
     def __call__(
         self,
         images,
@@ -1177,6 +1198,7 @@ class RecognitionPredictor(BasePredictor):
         return self._assemble_results(images, flat, predicted_tokens, scores, bbox_arr, sort_lines=sort_lines,
                                       return_words=return_words, drop_repeated_text=drop_repeated_text)
 
+    @stage("recognition.assemble")
     def _assemble_results(self, images, flat, predicted_tokens, scores, bbox_arr, *,
                           sort_lines=False, return_words=False, drop_repeated_text=False) -> List[OCRResult]:
         """Detokenize and assemble one OCRResult per page. All flat lists,
