@@ -48,11 +48,13 @@ sharded slot-cache store, as above); over distinct cards they run eagerly.
 
 from __future__ import annotations
 
+import gc
 import queue as queue_mod
 import re
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -78,8 +80,8 @@ from surya_tpu_torch.recognition.tokenizer import NOMATH_TOKEN, TaskNames
 from surya_tpu_torch.recognition.util import (
     REPEAT_WINDOW,
     chunk_stop_scan,
-    clean_close_polygons,
     clean_math_tags,
+    close_to_previous,
     detect_repeat_token,
     interleave_shard_slots,
     prediction_to_polygon_batch,
@@ -117,8 +119,74 @@ def _first_shard(t) -> torch.Tensor:
     return t[0, 0] if isinstance(t, Sharded) else t
 
 
+# the box of a character the model gave none
+_BLANK_POLYGON = np.array([[[0, 0], [0, 1], [1, 1], [1, 0]]], np.float64)
+
+
 def _empty_results(images) -> List[OCRResult]:
     return [OCRResult(text_lines=[], image_bbox=[0, 0, img.size[0], img.size[1]]) for img in images]
+
+
+def _page_space(polygons: np.ndarray, confidences: np.ndarray, line_of: np.ndarray, res_scales,
+                line_boxes: List[PolygonBox]):
+    """Characters' polygons [N, 4, 2] (float64, line space) and raw
+    confidences [N] as lists of Python floats, character n of line
+    line_of[n]: each polygon as PolygonBox.rescale(res_scale, (1, 1)),
+    shift(x0, y0) and clamp(line box) leave it, in that order, and each
+    NaN confidence as 0, as the schema's validator makes it."""
+    scale = np.array([[1 / rs[0], 1 / rs[1]] for rs in res_scales], np.float64).reshape(-1, 2)
+    box = np.array([b.bbox for b in line_boxes], np.float64).reshape(-1, 4)
+    scale, box = scale[line_of, None, :], box[line_of, None, :]
+    # int() truncates toward zero and never gives -0.0
+    pts = np.trunc(polygons * scale) + 0.0 + box[..., :2]
+    # min(pt, hi) keeps pt unless hi < pt; max(., lo) keeps it unless lo > it
+    pts = np.where(box[..., 2:] < pts, box[..., 2:], pts)
+    pts = np.where(box[..., :2] > pts, box[..., :2], pts)
+    return pts.tolist(), np.where(np.isnan(confidences), 0.0, confidences).tolist()
+
+
+def _text_chars(texts, polygons, confidences, valid) -> List[TextChar]:
+    """TextChar.model_construct(text=, polygon=, confidence=, bbox_valid=)
+    of each, values taken as given, at half its cost: each object gets the
+    state that model_construct gives (pickle's, through __setstate__), a
+    set of set fields of its own, without model_construct's pass over the
+    class's fields."""
+    state = TextChar.model_construct(text="", polygon=[], confidence=0.0, bbox_valid=True).__getstate__()
+    fields, fields_set = state["__dict__"], state["__pydantic_fields_set__"]
+    new, set_state = TextChar.__new__, TextChar.__setstate__
+    chars = []
+    for t, p, c, v in zip(texts, polygons, confidences, valid):
+        char = new(TextChar)
+        values = dict(fields)
+        values.update(text=t, polygon=p, confidence=c, bbox_valid=v)
+        set_state(char, {**state, "__dict__": values, "__pydantic_fields_set__": set(fields_set)})
+        chars.append(char)
+    return chars
+
+
+_collector_lock = threading.Lock()
+_collector_holds = [0, False]  # holds, and whether the collector ran before the first
+
+
+@contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector held off while a block builds many
+    small objects that all outlive it (assembly's characters, five lists and
+    a dict each): its passes would walk them and free nothing. Holds nest
+    across threads; the collector's state before the first comes back after
+    the last."""
+    with _collector_lock:
+        if _collector_holds[0] == 0:
+            _collector_holds[1] = gc.isenabled()
+            gc.disable()
+        _collector_holds[0] += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector_holds[0] -= 1
+            if _collector_holds[0] == 0 and _collector_holds[1]:
+                gc.enable()
 
 
 class RecognitionPredictor(BasePredictor):
@@ -810,65 +878,104 @@ class RecognitionPredictor(BasePredictor):
     # -- detokenization and assembly (host) ------------------------------------
 
     @stage("recognition.detokenize")
-    def get_bboxes_text(self, flat, predicted_tokens, scores, predicted_polygons, drop_repeated_text=False):
-        char_predictions = []
+    def get_bboxes_text(self, flat, predicted_tokens, scores, predicted_polygons, line_boxes,
+                        drop_repeated_text=False) -> List[Optional[List[TextChar]]]:
+        """Each line's TextChars, each built once with its final values, in
+        one pass over the call's lines; None for a line that emitted
+        no_output_token. A line's tokens up to its first EOS or pad split
+        into runs: UTF-16 code units (decoded at once; a character per
+        polygon, the last polygon for the rest, near-duplicate polygons
+        dropped), math BPE ids (one character a run) and special tags (one
+        a tag, NOMATH and script tags skipped); the last two sit on a blank
+        box. Every polygon is taken from line to page space as
+        PolygonBox.rescale(res_scale, (1, 1)), shift to the line box's
+        corner and clamp to the line box do it, for the whole call at once."""
         tok = self.processor.tokenizer
         eos, pad = self.config.eos_token_id, self.config.pad_token_id
-        blank_bbox = [[0, 0], [0, 1], [1, 1], [1, 0]]
+        n_lines, width = predicted_polygons.shape[:2]
+        # where each character's polygon and confidence come from: a token's,
+        # or the blank box and a zero after them
+        poly_src = np.concatenate([predicted_polygons.reshape(-1, 4, 2).astype(np.float64), _BLANK_POLYGON])
+        blank = len(poly_src) - 1
+        conf_offsets = np.cumsum([0] + [len(s) for s in scores]).tolist()
+        conf_src = np.array([c for s in scores for c in s] + [0.0], np.float64)
+        zero = len(conf_src) - 1
 
-        for image_tokens, image_polygons, image_scores in zip(predicted_tokens, predicted_polygons, scores):
-            if self.processor.no_output_token in image_tokens:
-                char_predictions.append(None)
+        # every line's ids padded with EOS; a line ends at its first EOS or pad
+        ids = np.full((n_lines, width + 1), eos, np.int64)
+        for i, (tokens, line_scores) in enumerate(zip(predicted_tokens, scores)):
+            n = min(len(tokens), len(line_scores), width)
+            ids[i, :n] = tokens[:n]
+        ends = ((ids == eos) | (ids == pad)).argmax(1).tolist()
+        ids = ids[:, :width]
+        # 0 math BPE, 1 special tag, 2 UTF-16; a run starts where the kind
+        # changes and at every special tag
+        kind = (ids >= tok.qwen_offset).astype(np.int8) + (ids >= tok.special_token_offset)
+        starts = np.ones((n_lines, width), bool)
+        starts[:, 1:] = (kind[:, 1:] != kind[:, :-1]) | (kind[:, 1:] == 1)
+        # a run's polygons that lie within 0.1 of the one before are dropped
+        keep = starts | ~close_to_previous(predicted_polygons)
+        utf16 = ids - tok.special_token_offset
+
+        texts: List[str] = []
+        valid: List[bool] = []
+        poly_idx, conf_idx = [], []
+        line_chars: List[Optional[int]] = []  # characters a line, None for no output
+        runs = 0
+
+        def add_unboxed(text, conf):
+            texts.append(text)
+            valid.append(False)
+            poly_idx.append([blank])
+            conf_idx.append([conf])
+
+        for i, tokens in enumerate(predicted_tokens):
+            if self.processor.no_output_token in tokens:
+                line_chars.append(None)
                 continue
-            if drop_repeated_text and detect_repeat_token(image_tokens):
-                char_predictions.append([TextChar(text="", polygon=blank_bbox, confidence=0, bbox_valid=False)])
+            first = len(texts)
+            if drop_repeated_text and detect_repeat_token(tokens):
+                add_unboxed("", zero)
+                line_chars.append(1)
                 continue
-
-            image_polygons = image_polygons[: len(image_tokens)].tolist()
-            # split the stream into qwen / special / utf-16 runs
-            sequences = []
-            current: List[tuple] = []
-            current_kind = None
-            for bbox, char_id, score in zip(image_polygons, image_tokens, image_scores):
-                if char_id in (eos, pad):
-                    break
-                if char_id < tok.qwen_offset:
-                    kind = "qwen"
-                elif char_id < tok.special_token_offset:
-                    kind = "special"
-                else:
-                    kind = "ocr"
-                if kind != current_kind or kind == "special":
-                    if current:
-                        sequences.append((current, current_kind))
-                    current, current_kind = [], kind
-                current.append((char_id, score, bbox))
-            if current:
-                sequences.append((current, current_kind))
-
-            img_chars: List[TextChar] = []
-            for seq, kind in sequences:
-                token_ids = [s[0] for s in seq]
-                seq_scores = [s[1] for s in seq]
-                if kind == "ocr":
-                    text = tok.decode(token_ids, task=TaskNames.ocr_with_boxes)
-                    polys = clean_close_polygons([s[2] for s in seq])
-                    bbox_idx = 0
-                    for ch in text:
-                        img_chars.append(
-                            TextChar(text=ch, polygon=polys[bbox_idx], confidence=seq_scores[bbox_idx], bbox_valid=True)
-                        )
-                        if bbox_idx < len(polys) - 1:
-                            bbox_idx += 1
-                elif kind == "special":
-                    text = tok.decode(token_ids, task=TaskNames.ocr_without_boxes)
+            end = ends[i]
+            run_starts = np.flatnonzero(starts[i, :end]).tolist()
+            runs += len(run_starts)
+            poly_base, conf_base = i * width, conf_offsets[i]
+            for s, e, k in zip(run_starts, run_starts[1:] + [end], kind[i, run_starts].tolist()):
+                if k == 2:
+                    text = tok.utf16_numbers_to_text(utf16[i, s:e])
+                    if not text:
+                        continue
+                    kept = s + np.flatnonzero(keep[i, s:e])
+                    # a character per kept polygon, the last one for the rest
+                    sel = np.minimum(np.arange(len(text)), len(kept) - 1)
+                    texts.extend(text)
+                    valid.extend([True] * len(text))
+                    poly_idx.append(poly_base + kept[sel])
+                    conf_idx.append(conf_base + s + sel)
+                    continue
+                if k == 1:
+                    text = tok.decode(ids[i, s:e].tolist(), task=TaskNames.ocr_without_boxes)
                     if text == NOMATH_TOKEN or re.match(r"<SCRIPT-\w+>", text):
                         continue
-                    img_chars.append(TextChar(text=text, polygon=blank_bbox, confidence=seq_scores[0], bbox_valid=False))
                 else:
-                    text = tok.decode(token_ids, task=TaskNames.block_without_boxes)
-                    img_chars.append(TextChar(text=text, polygon=blank_bbox, confidence=seq_scores[0], bbox_valid=False))
-            char_predictions.append(img_chars)
+                    text = tok.decode(ids[i, s:e].tolist(), task=TaskNames.block_without_boxes)
+                add_unboxed(text, conf_base + s)
+            line_chars.append(len(texts) - first)
+        count("recognition.assemble_runs", runs)
+
+        line_of = np.repeat(np.arange(n_lines), [n or 0 for n in line_chars])
+        polygons, confidences = _page_space(
+            poly_src[np.concatenate(poly_idx or [[]]).astype(np.int64)],
+            conf_src[np.concatenate(conf_idx or [[]]).astype(np.int64)],
+            line_of, flat["res_scales"], line_boxes,
+        )
+        chars = _text_chars(texts, polygons, confidences, valid)
+        char_predictions, at = [], 0
+        for n in line_chars:
+            char_predictions.append(None if n is None else chars[at : at + n])
+            at += n or 0
         return char_predictions
 
     # -- public API ------------------------------------------------------------
@@ -1199,6 +1306,7 @@ class RecognitionPredictor(BasePredictor):
                                       return_words=return_words, drop_repeated_text=drop_repeated_text)
 
     @stage("recognition.assemble")
+    @_collector_paused()
     def _assemble_results(self, images, flat, predicted_tokens, scores, bbox_arr, *,
                           sort_lines=False, return_words=False, drop_repeated_text=False) -> List[OCRResult]:
         """Detokenize and assemble one OCRResult per page. All flat lists,
@@ -1208,31 +1316,29 @@ class RecognitionPredictor(BasePredictor):
         bbox_size = self.config.bbox_size
         image_sizes = [img.shape for img in flat["slices"]]
         predicted_polygons = prediction_to_polygon_batch(bbox_arr, image_sizes, bbox_size, bbox_size // 2)
+        line_boxes = [PolygonBox(polygon=polygon) for polygon in flat["polygons"]]
         char_predictions = self.get_bboxes_text(
-            flat, predicted_tokens, scores, predicted_polygons, drop_repeated_text=drop_repeated_text
+            flat, predicted_tokens, scores, predicted_polygons, line_boxes, drop_repeated_text=drop_repeated_text
         )
 
         results = []
+        n_chars = 0
         slice_start = 0
         for idx, image in enumerate(images):
             slice_end = slice_start + flat["slice_map"][idx]
             image_lines = char_predictions[slice_start:slice_end]
             polys = flat["polygons"][slice_start:slice_end]
-            res_scales = flat["res_scales"][slice_start:slice_end]
+            boxes = line_boxes[slice_start:slice_end]
             slice_start = slice_end
 
             lines = []
-            for text_line, polygon, res_scale in zip(image_lines, polys, res_scales):
+            for text_line, polygon, poly_box in zip(image_lines, polys, boxes):
                 if not text_line:
                     lines.append(TextLine(text="", polygon=polygon, chars=[], confidence=1, original_text_good=True))
                     continue
                 confidence = float(np.mean([c.confidence for c in text_line]))
-                poly_box = PolygonBox(polygon=polygon)
-                for char in text_line:
-                    char.rescale(res_scale, (1, 1))
-                    char.shift(poly_box.bbox[0], poly_box.bbox[1])
-                    char.clamp(poly_box.bbox)
                 text_line = fix_unbalanced_tags(text_line, self.processor.tokenizer.special_tokens)
+                n_chars += len(text_line)
                 text = clean_math_tags(unwrap_math("".join(c.text for c in text_line)))
                 lines.append(
                     TextLine(
@@ -1246,4 +1352,5 @@ class RecognitionPredictor(BasePredictor):
             if sort_lines:
                 lines = sort_text_lines(lines)
             results.append(OCRResult(text_lines=lines, image_bbox=[0, 0, image.size[0], image.size[1]]))
+        count("recognition.assemble_chars", n_chars)
         return results

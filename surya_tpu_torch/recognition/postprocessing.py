@@ -44,7 +44,7 @@ def fix_unbalanced_tags(text_chars: List[TextChar], special_tokens: Dict[str, li
     """Append closing chars for dangling format/math tags (reference :76-121)."""
     self_closing = ["br"]
     open_tags: List[str] = []
-    format_tags = extract_tags(special_tokens["formatting"]) + extract_tags(special_tokens["math_external"])
+    format_tags = None  # read at the first tag: most lines have none
 
     for char in text_chars:
         if len(char.text) <= 1:
@@ -52,6 +52,8 @@ def fix_unbalanced_tags(text_chars: List[TextChar], special_tokens: Dict[str, li
         m = re.match(TAG_PATTERN, char.text)
         if not m:
             continue
+        if format_tags is None:
+            format_tags = extract_tags(special_tokens["formatting"]) + extract_tags(special_tokens["math_external"])
         is_closing = m.group(1) == "/"
         name = m.group(2).lower()
         if name not in format_tags or name in self_closing:

@@ -18,6 +18,8 @@ import html
 import re
 from typing import Dict, List, Sequence
 
+import numpy as np
+
 # Task-agnostic token strings (reference: processor/__init__.py:26-39)
 EOS_TOKEN = "</S>"
 EOI_TOKEN = "<EOI>"
@@ -147,12 +149,10 @@ class OCRTokenizer:
         raw = text.encode("utf-16le")
         return [raw[i] | (raw[i + 1] << 8) for i in range(0, len(raw), 2)]
 
-    def utf16_numbers_to_text(self, numbers: List[int]) -> str:
-        raw = bytearray()
-        for n in numbers:
-            raw.append(n & 0xFF)
-            raw.append((n >> 8) & 0xFF)
-        return raw.decode("utf-16le", errors="ignore")
+    def utf16_numbers_to_text(self, numbers) -> str:
+        """UTF-16 code units (each taken modulo 2**16, a list or an integer
+        array) as text; lone surrogates are dropped."""
+        return np.asarray(numbers, np.int64).astype("<u2").tobytes().decode("utf-16le", errors="ignore")
 
     def _tokenize_ocr(self, text: str) -> List[int]:
         tokens: List[int] = []

@@ -142,21 +142,15 @@ def sort_text_lines(lines: List[TextLine] | List[dict], tolerance: float = 1.25)
     return sorted_lines
 
 
-def clean_close_polygons(bboxes: List[List[List[float]]], thresh: float = 0.1):
-    """Drop consecutive near-identical polygons (multi-token chars emit
-    duplicate boxes; reference :99-119)."""
-    if len(bboxes) < 2:
-        return bboxes
-    kept = [bboxes[0]]
-    for i in range(1, len(bboxes)):
-        prev, cur = bboxes[i - 1], bboxes[i]
-        close = all(
-            abs(cur[j][0] - prev[j][0]) <= thresh and abs(cur[j][1] - prev[j][1]) <= thresh
-            for j in range(4)
-        )
-        if not close:
-            kept.append(cur)
-    return kept
+def close_to_previous(polygons: np.ndarray, thresh: float = 0.1) -> np.ndarray:
+    """polygons [..., T, 4, 2]: True at [..., t] where polygon t lies within
+    thresh of polygon t - 1 in every coordinate, False at t = 0. Multi-token
+    characters emit such near-duplicate boxes, and only the first of them is
+    kept (reference :99-119, which compares consecutive polygons of a run)."""
+    polygons = np.asarray(polygons, np.float64)
+    close = np.zeros(polygons.shape[:-2], bool)
+    close[..., 1:] = (np.abs(np.diff(polygons, axis=-3)) <= thresh).all(axis=(-2, -1))
+    return close
 
 
 def words_from_chars(chars: List[TextChar], line_box: PolygonBox) -> List[TextWord]:

@@ -454,7 +454,7 @@ PORT_ONLY_NAMES = {
     "recognition.wave_select", "recognition.seed_prefill", "recognition.process_decode",
     "recognition.assemble", "recognition.detokenize",
     "recognition.wave_patches", "recognition.wave_patch_cap", "recognition.decode_row_steps",
-    "recognition.decode_tokens_kept",
+    "recognition.decode_tokens_kept", "recognition.assemble_chars", "recognition.assemble_runs",
 }
 
 

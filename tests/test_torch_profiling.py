@@ -28,7 +28,7 @@ CALL_SPANS = ("recognition.call", "recognition.slice", "recognition.loop", "reco
 LOOP_SPANS = ("recognition.add_prompts", "recognition.build_wait", "recognition.seed_prefill",
               "recognition.process_decode", "recognition.wave_select")
 COUNTERS = ("recognition.wave_patches", "recognition.wave_patch_cap", "recognition.decode_row_steps",
-            "recognition.decode_tokens_kept")
+            "recognition.decode_tokens_kept", "recognition.assemble_chars", "recognition.assemble_runs")
 LAYOUT_DISPATCH_SPANS = ("layout.prepare", "layout.enqueue", "layout.wait", "layout.assemble")
 # spans of the recognition builder thread: a CPU profiler session records
 # only the thread that started it
@@ -146,6 +146,7 @@ def test_given_lines_ocr_reports_every_span_and_counter(rec):
     assert got["recognition.wave_patch_cap"]["calls"] == waves
     assert got["recognition.process_decode"]["calls"] == got["recognition.decode_tokens_kept"]["calls"] == chunks
     assert got["recognition.add_prompts"]["calls"] == 1
+    assert got["recognition.assemble_chars"]["calls"] == got["recognition.assemble_runs"]["calls"] == 1
     assert 0 < got["recognition.wave_patches"]["count"] <= got["recognition.wave_patch_cap"]["count"]
     # every prompt's token 0 comes from its wave, the rest from the chunks
     assert got["recognition.decode_tokens_kept"]["count"] + lines == rec.last_decoded_tokens
