@@ -227,6 +227,13 @@ Exits non-zero on any failure and when no CUDA device is present. Prints the
 card's name and power limit, one JSON line with the kernels' results, and as
 its last line ``{"ok": true, "device": {...}}``.
 
+    python3 chip_smoke.py --lfm2
+
+holds what LFM2-8B-A1B's decoder adds against plain versions at its widths
+(K2 and K3 at head dim 64 with 4 query heads a kv head, the sparse-expert
+layer at a decode step's and a prefill wave's tokens), times them and
+prints the grouped GEMMs' kernel names, as one ``LFM2_SMOKE`` JSON line.
+
     python3 chip_smoke.py --kernels [--tree DIR]
 
 holds the kernels against their plain versions and times them at fixed
@@ -808,31 +815,35 @@ def check_decode_launch(B, kvh, S, K) -> Optional[dict]:
     return cfg
 
 
-def check_causal(results, B, L, gen, report=False, heads=(12, 4), name="causal_flash_attention"):
+def check_causal(results, B, L, gen, report=False, heads=(12, 4), name="causal_flash_attention", D=128):
     """K2 over B right-padded prompts of bucket L (heads: query and kv heads;
-    6/2 is a 2x2 mesh's shard)."""
+    6/2 is a 2x2 mesh's shard; 32/8 at D = 64 LFM2-MoE's attention layers)."""
     H, kvh = heads
-    qc, kc, vc = randn(gen, B, L, H, 128, scale=1.0), randn(gen, B, L, kvh, 128), randn(gen, B, L, kvh, 128)
-    print(f"  K2 B={B} L={L} H={H} kvh={kvh} D=128; launch {causal_config(B, L, kvh)}")
+    qc, kc, vc = randn(gen, B, L, H, D, scale=1.0), randn(gen, B, L, kvh, D), randn(gen, B, L, kvh, D)
+    print(f"  K2 B={B} L={L} H={H} kvh={kvh} D={D}; launch {causal_config(B, L, kvh)}")
     qt, kt, vt = (x.transpose(1, 2) for x in (qc, kc, vc))
     return compare(
         f"{name}[{B}x{L}]",
         lambda: flash.causal_flash_attention(qc, kc, vc),
         lambda: flash.causal_flash_attention_reference(qc, kc, vc),
         results,
-        work=(4 * B * H * 128 * (L * (L + 1) // 2), 2 * nbytes(qc) + nbytes(kc, vc)),
+        work=(4 * B * H * D * (L * (L + 1) // 2), 2 * nbytes(qc) + nbytes(kc, vc)),
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
         report=report,
         entry=name,
     )
 
 
-def decode_inputs(gen, B, S, K, layers=10, kvh=4):
+def decode_inputs(gen, B, S, K, layers=10, kvh=4, group=3, D=128):
     """q, bf16 cache and chunk, and the same cache quantized to int8, at the
-    decoder's widths (12/4 heads, D = 128; kvh=2: a 2x2 mesh's shard)."""
-    qd = randn(gen, B, 3 * kvh, 128, scale=1.0)
-    kcache, vcache = randn(gen, layers, B, kvh, S, 128), randn(gen, layers, B, kvh, S, 128)
-    ck, cv = randn(gen, layers, B, kvh, K, 128), randn(gen, layers, B, kvh, K, 128)
+    decoder's widths (12/4 heads, D = 128; kvh=2: a 2x2 mesh's shard; group
+    4 at D = 64, LFM2-MoE's attention layers, whose cache K3q does not
+    read: None in its place)."""
+    qd = randn(gen, B, group * kvh, D, scale=1.0)
+    kcache, vcache = randn(gen, layers, B, kvh, S, D), randn(gen, layers, B, kvh, S, D)
+    ck, cv = randn(gen, layers, B, kvh, K, D), randn(gen, layers, B, kvh, K, D)
+    if (D, group) not in decode_attn.QUANT_SHAPES:
+        return qd, (kcache, vcache), None, (ck, cv)
     (kq, ks), (vq, vs) = qwen_decoder.quantize_kv(kcache), qwen_decoder.quantize_kv(vcache)
     return qd, (kcache, vcache), (kq, vq, ks, vs), (ck, cv)
 
@@ -866,14 +877,15 @@ def check_decode_case(results, label, inputs, lens_np, step, layer, library=Fals
     of its plain version, timed with a cold L2 as a decode step finds the
     cache, and their launch held to the cluster rule; names: their entries
     in results. Returns {kernel: its times}."""
-    qd, (kcache, vcache), (kq, vq, ks, vs), (ck, cv) = inputs
+    qd, (kcache, vcache), int8, (ck, cv) = inputs
     B, S, K, kvh = qd.shape[0], kcache.shape[3], ck.shape[3], kcache.shape[2]
+    H, D = qd.shape[1], qd.shape[2]
     lens = to_cuda(lens_np)
     rows = int(lens_np.sum())  # valid cache rows of each kv head, over all slots
-    ops = 4 * 3 * kvh * 128 * (rows + B * (step + 1))
-    chunk_bytes = 2 * B * kvh * (step + 1) * 128 * 2
+    ops = 4 * H * D * (rows + B * (step + 1))
+    chunk_bytes = 2 * B * kvh * (step + 1) * D * 2
     other = 2 * nbytes(qd) + nbytes(lens)
-    print(f"  K3 B={B} kvh={kvh} S={S} K={K} step={step} layer={layer}, {label} lengths "
+    print(f"  K3 B={B} H={H} kvh={kvh} D={D} S={S} K={K} step={step} layer={layer}, {label} lengths "
           f"(longest {int(lens_np.max())}; {rows} valid cache rows per kv head); launch "
           f"{check_decode_launch(B, kvh, S, K)}")
     lib_call = None
@@ -887,11 +899,14 @@ def check_decode_case(results, label, inputs, lens_np, step, layer, library=Fals
         lambda: decode_attn.gqa_decode(qd, kcache, vcache, lens, ck, cv, step, layer),
         lambda: decode_attn.gqa_decode_reference(qd, kcache, vcache, lens, ck, cv, step, layer),
         results,
-        work=(ops, 2 * rows * kvh * 128 * 2 + chunk_bytes + other),
+        work=(ops, 2 * rows * kvh * D * 2 + chunk_bytes + other),
         library=lib_call,
         cold=True,  # a decode step reads each layer's cache once
         entry=names[0],
     )}
+    if int8 is None:
+        return timed
+    kq, vq, ks, vs = int8
     print("  K3q, the same with an int8 cache and bf16 row scales" +
           ("; no PyTorch call reads an int8 cache with row scales, so it has no library time" if library else ""))
     timed["gqa_decode_int8"] = compare(
@@ -4588,6 +4603,9 @@ def kernels_ab():
     times["K2 128x128"] = check_causal(results, 128, 128, gen)["ms"]
     times["K2-mesh shard 16x128, 6/2 heads"] = check_causal(results, 16, 128, gen, heads=(6, 2),
                                                             name="causal_flash_attention_shard")["ms"]
+    # LFM2-MoE's attention layers: D = 64, 32/8 heads, a 128-row wave of bucket 128
+    times["K2 128x128, 32/8 heads, D=64"] = check_causal(results, 128, 128, gen, heads=(32, 8), D=64,
+                                                         name="causal_flash_attention_d64")["ms"]
     # K3 and K3q at main-path-like lengths: 129 slots, S = 256, K = 64 (K3:
     # 32 slots of 1 to 108 rows; K3q: every slot 0 to 78), steps 0, 31, 63
     lens3 = np.zeros(129, np.int32)
@@ -4602,6 +4620,10 @@ def kernels_ab():
                      for step in (0, 31, 63)]
             times[f"{'K3q' if kernel.endswith('int8') else 'K3'}{tag} main path, mean of steps 0/31/63"] = \
                 float(np.mean(steps))
+    inputs = decode_inputs(gen, 129, 256, 64, 6, kvh=8, group=4, D=64)
+    steps = [check_decode_case({}, "main-path-like", inputs, lens3, step, 5, names=("gqa_decode_d64",))["gqa_decode"]["ms"]
+             for step in (0, 31, 63)]
+    times["K3 D=64, 32/8 heads, main path, mean of steps 0/31/63"] = float(np.mean(steps))
     long = check_decode_case({}, "ragged", decode_inputs(gen, 129, 512, 64, 10), ragged, 37, 7)
     times["K3 long cache S=512 step 37"] = long["gqa_decode"]["ms"]
     times["K3q long cache S=512 step 37"] = long["gqa_decode_int8"]["ms"]
@@ -4624,9 +4646,106 @@ def kernels_ab():
                                              "count": torch.cuda.device_count()}}))
 
 
+def moe_case(gen, T, valid_rows=None, reps=5) -> dict:
+    """The sparse-expert layer (ops/moe.py) at LFM2-8B-A1B's widths (32
+    experts of 1792 over 2048, top-4) over T tokens (valid_rows: the first
+    of every 128 tokens that are valid, a prefill wave's rows; None: all,
+    a decode step's slots): held to its plain version in float32 within 2 %
+    of the output's largest magnitude (bf16 weights, activations and the
+    grouped GEMMs' bf16 outputs), captured in a CUDA graph with a
+    synchronisation anywhere an error, and timed; the bound counts each hit
+    expert's weights once and each row's activations (counts/lfm2.py)."""
+    from surya_tpu_torch.ops import moe
+
+    E, H, inter, k = 32, 2048, 1792, 4
+    gate, bias = randn(gen, E, H, scale=H**-0.5), randn(gen, E, scale=0.02)
+    w13, w2 = randn(gen, E, 2 * inter, H, scale=H**-0.5), randn(gen, E, H, inter, scale=inter**-0.5)
+    x = randn(gen, T, H, scale=1.0)
+    valid = None if valid_rows is None else (torch.arange(T, device="cuda") % 128) < valid_rows
+    counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.sparse_moe(x, gate, bias, w13, w2, k, valid=valid, counts=counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = moe.sparse_moe_reference(x, gate, bias, w13, w2, k, valid=valid)
+    err = (out.float() - ref.float()).abs().max().item()
+    mag = ref.float().abs().max().item()
+    rows, hits, largest = counts.tolist()
+    label = f"sparse_moe[{T} tokens{'' if valid is None else f', {valid_rows} of 128 valid'}]"
+    print(f"  {label}: max_abs_err {err:.3e} (|ref| max {mag:.3f}); rows {rows}, experts hit {hits}, "
+          f"largest expert {largest} rows")
+    if not (err <= 0.02 * mag) or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: the layer disagrees with its plain version")
+    ms = cuda_ms(lambda: moe.sparse_moe(x, gate, bias, w13, w2, k, valid=valid), reps, cold=True)
+    flops = rows * 2 * 3 * H * inter
+    nbytes_ = hits * 3 * H * inter * 2 + rows * (2 * H + 2 * inter) * 2
+    bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes_ / HBM_BYTES_PER_S) * 1e3
+    print(f"    {label}: layer {ms:.4f} ms, expert GEMMs' bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f} %)")
+    return {"ms": ms, "bound_ms": bound_ms, "rows": rows, "experts_hit": hits, "max_abs_err": err}
+
+
+def lfm2_smoke():
+    """--lfm2: what LFM2-8B-A1B's decoder adds, alone at its widths: K2 and
+    K3 at head dim 64 with 4 query heads a kv head against their plain
+    versions (and ptxas's registers and spills for them), the sparse-expert
+    layer at a decode step's 129 slots and a prefill wave's 128 rows of
+    128 (against its plain version, sync-free, in a CUDA graph, timed), and
+    the names of the kernels its grouped GEMMs run; prints one LFM2_SMOKE
+    JSON line."""
+    power = card()
+    lib = _build.library()
+    print(f"[1] card: {power}; torch {torch.__version__}, torch._grouped_mm "
+          f"{'present' if hasattr(torch, '_grouped_mm') else 'absent'}; kernels built in {lib.build_seconds:.1f} s")
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("    " + line.strip())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    results, times = {}, {}
+    print("[2] K2 and K3 at D = 64, 32/8 heads")
+    for B, L in ((128, 128), (32, 256), (3, 1536)):
+        times[f"K2 {B}x{L}"] = check_causal(results, B, L, gen, heads=(32, 8), D=64,
+                                            name="causal_flash_attention_d64")["ms"]
+    inputs = decode_inputs(gen, 129, 256, 64, 6, kvh=8, group=4, D=64)
+    edges = np.resize(np.array([0, 1, 15, 16, 17, 63, 64, 65, 255, 256], np.int32), 129)
+    ragged = rng.integers(0, 257, 129).astype(np.int32)
+    for label, lens, step in (("ragged", ragged, 37), ("edge", edges, 0), ("edge", edges, 63),
+                              ("floor: all 0", np.zeros(129, np.int32), 0)):
+        times[f"K3 {label} step {step}"] = check_decode_case(
+            results, label, inputs, lens, step, 5, names=("gqa_decode_d64",))["gqa_decode"]["ms"]
+    few = decode_inputs(gen, 8, 1536, 64, 2, kvh=8, group=4, D=64)
+    times["K3 8 slots S=1536 full"] = check_decode_case(results, "full", few, np.full(8, 1536, np.int32), 37, 1,
+                                                        names=("gqa_decode_d64",))["gqa_decode"]["ms"]
+    print("[3] the sparse-expert layer")
+    moe_times = {"decode 129 slots": moe_case(gen, 129), "prefill 128 x 128": moe_case(gen, 128 * 128, 90, reps=3)}
+    from surya_tpu_torch.ops import moe
+
+    E, H, inter = 32, 2048, 1792
+    args = (randn(gen, 129, H, scale=1.0), randn(gen, E, H), randn(gen, E, scale=0.02),
+            randn(gen, E, 2 * inter, H, scale=H**-0.5), randn(gen, E, H, inter, scale=inter**-0.5), 4)
+    moe.sparse_moe(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        moe.sparse_moe(*args)
+        torch.cuda.synchronize()
+    names = sorted({ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA})
+    print("    kernels of one sparse_moe call:")
+    for n in names:
+        print(f"      {n}")
+    print("LFM2_SMOKE " + json.dumps({"card": power, "ms": times, "moe": moe_times, "moe_kernels": names,
+                                      "results": results}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main():
     if "--kernels" in sys.argv:
         kernels_ab()
+        return
+    if "--lfm2" in sys.argv:
+        lfm2_smoke()
         return
     kind = torch.cuda.get_device_name(0)
     power = card()

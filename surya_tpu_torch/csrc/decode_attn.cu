@@ -8,7 +8,10 @@
 // (`_decode_kernel`): K3 with a bf16 cache, K3q with an int8 cache and one
 // bf16 scale per cache row (`quantized=True`). Each (slot, kv head) attends
 // its valid cache rows (< lengths[slot]) and the chunk buffer's columns
-// 0..step as one softmax, for its 3 query heads.
+// 0..step as one softmax, for its query heads. Head dim and query heads a
+// kv head are template arguments, built for the Qwen2-style recognition
+// decoder's (128, 3) and LFM2-MoE's attention layers' (64, 4); K3q for
+// (128, 3) only.
 //
 // What bounds it on an H100 is bytes: every valid K and V row is read once
 // and serves 3 query heads, 4 flops per element and head, about 1.5 flops a
@@ -83,6 +86,8 @@ namespace {
 
 constexpr int HD = 128;         // head dim of the recognition decoder (1536 / 12)
 constexpr int G = 3;            // query heads per kv head (12 / 4)
+constexpr int LFM2_HD = 64;     // head dim of LFM2-MoE's attention layers (2048 / 32)
+constexpr int LFM2_G = 4;       // their query heads per kv head (32 / 8)
 constexpr int SUB = 16;         // rows of a sub-tile: one TMA box, what a warp computes at once
 constexpr int NWARP = 2;        // warps of a CTA
 constexpr int NT = NWARP * 32;
@@ -94,8 +99,8 @@ constexpr int SUBS_PER_CTA = 2 * NSLOT;  // sub-tiles a CTA may walk (two rounds
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size: CTAs of a (slot, kv head)
 constexpr int BOX = SUB * 128;  // a 16-row box of 128-byte rows: half a bf16 sub-tile's K or V
 
-// A sub-tile's K and V rows as the products read them: bf16, each 256-byte
-// row as two 128-byte swizzled halves (dims 0..63, then 64..127); int8
+// A sub-tile's K and V rows as the products read them: bf16, each row as
+// 128-byte swizzled halves (dims 0..63, then 64..127 where D = 128); int8
 // (K3q's cache rows), the first half of k and of v, 128 bytes a row.
 struct alignas(1024) Slot {
   unsigned char k[2 * BOX];
@@ -104,9 +109,10 @@ struct alignas(1024) Slot {
 
 // A CTA's partial: its own warps' in its shared memory, every rank's in
 // rank 0's.
+template <int D, int GROUP>
 struct Partial {
-  float acc[G][HD];
-  float m[G], l[G];
+  float acc[GROUP][D];
+  float m[GROUP], l[GROUP];
 };
 
 struct Args {
@@ -121,8 +127,9 @@ struct Args {
 
 // Shared memory: NSLOT Slots, then (C > 1) C Partials, then the mbarriers;
 // the warps' partials overlay the slots once the products are done.
+template <int D, int GROUP>
 __host__ __device__ inline int barriers_offset(int cluster) {
-  return NSLOT * (int)sizeof(Slot) + (cluster > 1 ? cluster * (int)sizeof(Partial) : 0);
+  return NSLOT * (int)sizeof(Slot) + (cluster > 1 ? cluster * (int)sizeof(Partial<D, GROUP>) : 0);
 }
 
 // Bytes i and j of w as signed int8 -> a bf16 pair (byte i the low half),
@@ -139,9 +146,11 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t w) {
 
 // Zero the bf16 V rows [rows, 16) of a sub-tile: past its valid rows they
 // may hold anything, and P V multiplies them by 0.
+template <int D>
 __device__ __forceinline__ void zero_v_rows(Slot& st, int rows, int lane) {
-  for (int u = rows * 16 + lane; u < SUB * 16; u += 32) {
-    const int r = u / 16, c = u % 16;  // the 16-byte unit c of row r, in its half
+  constexpr int UNITS = D / 8;  // 16-byte units of a row
+  for (int u = rows * UNITS + lane; u < SUB * UNITS; u += 32) {
+    const int r = u / UNITS, c = u % UNITS;  // the 16-byte unit c of row r, in its half
     *reinterpret_cast<uint4*>(st.v + (c / 8) * BOX + sw128(r, 16 * (c % 8))) = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncwarp();
@@ -160,7 +169,7 @@ __device__ __forceinline__ const bf16* unit(const unsigned char* t, int row, int
 // O^T, dims as rows: o[dn] holds dims 16dn + g and 16dn + g + 8 of heads
 // 2t, 2t + 1 (heads G.. are zero columns), and (K3q) o8[dn] the int8 rows'
 // share at dims 16dn + 2g and 16dn + 2g + 1.
-template <bool QUANT>
+template <int HD, bool QUANT>
 struct WarpState {
   uint32_t qa[HD / 16][2];
   uint32_t qp[QUANT ? HD / 16 : 1][2];
@@ -189,8 +198,8 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
 // rows g and g + 8 of o8. Lane r < 16 holds row r's K scale in sc, lane 16
 // + r its V scale, and the scales stay out of the products: ks_r (q .
 // k_int), and P V takes p_r vs_r.
-template <bool INT8_ROWS, bool QUANT>
-__device__ __forceinline__ void attend_sub(WarpState<QUANT>& w, const Slot& st, int rows, float sc,
+template <int HD, bool INT8_ROWS, bool QUANT>
+__device__ __forceinline__ void attend_sub(WarpState<HD, QUANT>& w, const Slot& st, int rows, float sc,
                                            float scale_log2, int lane) {
   const int g = lane >> 2;
   // S^T: lane (g, t) gets keys g and g + 8 of heads 2t, 2t + 1; even and
@@ -314,12 +323,14 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) gqa_decode_kernel(const __grid_c
                                                         const __grid_constant__ CUtensorMap vc_map,
                                                         const __grid_constant__ CUtensorMap ck_map,
                                                         const __grid_constant__ CUtensorMap cv_map, const Args a) {
-  static_assert(D == HD && GROUP == G, "built for the recognition decoder's heads");
+  static_assert(D % 64 == 0 && GROUP <= 8 && (!QUANT || D == 128), "K3q reads 128-byte int8 rows");
+  constexpr int HD = D, G = GROUP;
+  using Part = Partial<D, GROUP>;
   extern __shared__ __align__(1024) unsigned char decode_smem[];
   const int C = gridDim.x;
   Slot* slots = reinterpret_cast<Slot*>(decode_smem);
-  Partial* parts = reinterpret_cast<Partial*>(decode_smem + NSLOT * sizeof(Slot));
-  uint64_t* full = reinterpret_cast<uint64_t*>(decode_smem + barriers_offset(C));
+  Part* parts = reinterpret_cast<Part*>(decode_smem + NSLOT * sizeof(Slot));
+  uint64_t* full = reinterpret_cast<uint64_t*>(decode_smem + barriers_offset<D, GROUP>(C));
   uint64_t* merged = full + NSLOT;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -348,8 +359,8 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) gqa_decode_kernel(const __grid_c
     } else {
       const CUtensorMap* km = chunk ? &ck_map : &kc_map;
       const CUtensorMap* vm = chunk ? &cv_map : &vc_map;
-      mbar_expect_tx(bar, 4 * BOX);
-      for (int h = 0; h < 2; ++h) {
+      mbar_expect_tx(bar, 2 * (D / 64) * BOX);
+      for (int h = 0; h < D / 64; ++h) {
         tma_load_3d(dst.k + h * BOX, km, bar, 64 * h, x * SUB, slab);
         tma_load_3d(dst.v + h * BOX, vm, bar, 64 * h, x * SUB, slab);
       }
@@ -367,7 +378,7 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) gqa_decode_kernel(const __grid_c
   if (lane == 0)
     for (int k = warp; k < min(n_mine, NSLOT); k += NWARP) issue(k);
 
-  WarpState<QUANT> w;
+  WarpState<D, QUANT> w;
   w.m[0] = w.m[1] = NEG_INF;
   w.l[0] = w.l[1] = 0.f;
 #pragma unroll
@@ -400,11 +411,11 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) gqa_decode_kernel(const __grid_c
       const int64_t row = (int64_t)slab * a.S + x * SUB + r;
       const float sc = r < rows ? __bfloat162float((lane < SUB ? a.k_scale : a.v_scale)[row]) : 0.f;
       mbar_wait(&full[k % NSLOT], (i / SLOTS) & 1);
-      attend_sub<true, QUANT>(w, st, rows, sc, a.scale_log2, lane);  // int8 rows past `rows`: finite, p = 0
+      attend_sub<D, true, QUANT>(w, st, rows, sc, a.scale_log2, lane);  // int8 rows past `rows`: finite, p = 0
     } else {
       mbar_wait(&full[k % NSLOT], (i / SLOTS) & 1);
-      if (rows < SUB) zero_v_rows(st, rows, lane);
-      attend_sub<false, QUANT>(w, st, rows, 0.f, a.scale_log2, lane);
+      if (rows < SUB) zero_v_rows<D>(st, rows, lane);
+      attend_sub<D, false, QUANT>(w, st, rows, 0.f, a.scale_log2, lane);
     }
     __syncwarp();  // the slot is free
     if (lane == 0 && k + NSLOT < n_mine) {
@@ -416,7 +427,7 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) gqa_decode_kernel(const __grid_c
   // the warps' states meet in shared memory (over the slots), thread t
   // combining dims t and t + NT of each head
   __syncthreads();
-  Partial* wp = reinterpret_cast<Partial*>(slots);
+  Part* wp = reinterpret_cast<Part*>(slots);
 #pragma unroll
   for (int j = 0; j < 2; ++j) {  // lane (g, t): dims 16dn + g (+ 8) of head 2t + j
     const int h = 2 * t + j;
@@ -481,8 +492,8 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) gqa_decode_kernel(const __grid_c
     for (int e = 0; e < PER; ++e)
       st_cluster(map_to_rank(mine + (uint32_t)((h * HD + tid + NT * e) * sizeof(float)), 0), A[h][e]);
     if (tid == h) {
-      st_cluster(map_to_rank(mine + (uint32_t)(offsetof(Partial, m) + h * sizeof(float)), 0), M[h]);
-      st_cluster(map_to_rank(mine + (uint32_t)(offsetof(Partial, l) + h * sizeof(float)), 0), L[h]);
+      st_cluster(map_to_rank(mine + (uint32_t)(offsetof(Part, m) + h * sizeof(float)), 0), M[h]);
+      st_cluster(map_to_rank(mine + (uint32_t)(offsetof(Part, l) + h * sizeof(float)), 0), L[h]);
     }
   }
   mbar_arrive_remote(map_to_rank(smem_addr(merged), 0));
@@ -509,47 +520,52 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) gqa_decode_kernel(const __grid_c
   }
 }
 
-int decode_smem_bytes(int cluster) { return barriers_offset(cluster) + (NSLOT + 1) * (int)sizeof(uint64_t); }
+template <int D, int GROUP>
+int decode_smem_bytes(int cluster) {
+  return barriers_offset<D, GROUP>(cluster) + (NSLOT + 1) * (int)sizeof(uint64_t);
+}
 
 // CTAs an SM holds at once with clusters of c: what its shared memory
 // allows, with the bytes the card reserves for each CTA, and at most
 // MIN_CTAS (what the registers are sized for). On the H100's 228 KB: 4 up
 // to c = 5, 3 above.
+template <int D, int GROUP>
 int decode_ctas_per_sm(int c) {
   int dev = 0, per_sm = 0, reserved = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) != cudaSuccess)
     return 1;
-  return max(1, min(MIN_CTAS, per_sm / (decode_smem_bytes(c) + reserved)));
+  return max(1, min(MIN_CTAS, per_sm / (decode_smem_bytes<D, GROUP>(c) + reserved)));
 }
 
 // CTAs of a (slot, kv head): enough that none walks more than
 // SUBS_PER_CTA of the sub-tiles S cache rows and K chunk columns can make,
 // as long as every CTA of the launch fits the card at once, and at most
 // MAX_CLUSTER (PERF.md has the timings the constants come from).
+template <int D, int GROUP>
 int decode_cluster_size(int B, int KVH, int S, int K) {
   const int subs = (S + SUB - 1) / SUB + (K + SUB - 1) / SUB;
   const int64_t pairs = (int64_t)B * KVH, sms = sm_count();
   int c = min(MAX_CLUSTER, (subs + SUBS_PER_CTA - 1) / SUBS_PER_CTA);
-  while (c > 1 && c * pairs > decode_ctas_per_sm(c) * sms) --c;
+  while (c > 1 && c * pairs > decode_ctas_per_sm<D, GROUP>(c) * sms) --c;
   return c;
 }
 
-template <bool QUANT>
+template <int D, int GROUP, bool QUANT>
 int launch_decode(const void* q, const void* k_cache, const void* v_cache, const void* k_scale, const void* v_scale,
                   const void* lengths, const void* chunk_k, const void* chunk_v, void* out, int layers, int B,
                   int KVH, int S, int K, int step, int layer, float scale, cudaStream_t stream) {
   if (KVH < 1 || B < 1 || S < 1 || K < 1 || layers < 1) return (int)cudaErrorInvalidValue;
-  const int C = decode_cluster_size(B, KVH, S, K);
+  const int C = decode_cluster_size<D, GROUP>(B, KVH, S, K);
   // [layers * B * KVH slabs, rows, D] as 3-D maps, innermost first; boxes of
   // 16 rows by 128 bytes (64 bf16 dims, or all 128 int8 dims)
   const cuuint64_t slabs = (cuuint64_t)layers * B * KVH;
   const cuuint64_t esize = QUANT ? 1 : 2;
-  const cuuint64_t cache_dims[3] = {(cuuint64_t)HD, (cuuint64_t)S, slabs};
-  const cuuint64_t cache_strides[2] = {HD * esize, (cuuint64_t)S * HD * esize};
-  const cuuint64_t chunk_dims[3] = {(cuuint64_t)HD, (cuuint64_t)K, slabs};
-  const cuuint64_t chunk_strides[2] = {HD * 2, (cuuint64_t)K * HD * 2};
+  const cuuint64_t cache_dims[3] = {(cuuint64_t)D, (cuuint64_t)S, slabs};
+  const cuuint64_t cache_strides[2] = {D * esize, (cuuint64_t)S * D * esize};
+  const cuuint64_t chunk_dims[3] = {(cuuint64_t)D, (cuuint64_t)K, slabs};
+  const cuuint64_t chunk_strides[2] = {D * 2, (cuuint64_t)K * D * 2};
   const cuuint32_t cache_box[3] = {(cuuint32_t)(128 / esize), SUB, 1}, chunk_box[3] = {64, SUB, 1};
   const CUtensorMapDataType cache_type = QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap kc, vc, ck, cv;
@@ -559,8 +575,8 @@ int launch_decode(const void* q, const void* k_cache, const void* v_cache, const
       !make_map(&ck, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, chunk_k, chunk_dims, chunk_strides, chunk_box, sw) ||
       !make_map(&cv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, chunk_v, chunk_dims, chunk_strides, chunk_box, sw))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = gqa_decode_kernel<HD, G, QUANT>;
-  const int smem = decode_smem_bytes(C);
+  const auto kernel = gqa_decode_kernel<D, GROUP, QUANT>;
+  const int smem = decode_smem_bytes<D, GROUP>(C);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const Args args{static_cast<const bf16*>(q), static_cast<const bf16*>(k_scale), static_cast<const bf16*>(v_scale),
@@ -586,17 +602,22 @@ int launch_decode(const void* q, const void* k_cache, const void* v_cache, const
 
 // The wrapper (ops/decode_attn.py) has checked shapes, dtypes, contiguity and
 // 0 <= step < K, 0 <= layer < layers. Each returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a shape it was not built for (the
-// recognition decoder's head dim 128, 3 query heads per kv head) or a tensor
-// the driver will not map.
+// the launch, or cudaErrorInvalidValue for a shape it was not built for (K3:
+// head dim 128 with 3 query heads per kv head, or 64 with 4; K3q: 128 with 3)
+// or a tensor the driver will not map.
 
 // K3: bf16 cache.
 extern "C" int surya_gqa_decode(const void* q, const void* k_cache, const void* v_cache, const void* lengths,
                                 const void* chunk_k, const void* chunk_v, void* out, int layers, int B, int H,
                                 int KVH, int D, int S, int K, int step, int layer, float scale, void* stream) {
-  if (D != HD || H != G * KVH) return (int)cudaErrorInvalidValue;
-  return launch_decode<false>(q, k_cache, v_cache, nullptr, nullptr, lengths, chunk_k, chunk_v, out, layers, B,
-                              KVH, S, K, step, layer, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == HD && H == G * KVH)
+    return launch_decode<HD, G, false>(q, k_cache, v_cache, nullptr, nullptr, lengths, chunk_k, chunk_v, out, layers,
+                                       B, KVH, S, K, step, layer, scale, st);
+  if (D == LFM2_HD && H == LFM2_G * KVH)
+    return launch_decode<LFM2_HD, LFM2_G, false>(q, k_cache, v_cache, nullptr, nullptr, lengths, chunk_k, chunk_v,
+                                                 out, layers, B, KVH, S, K, step, layer, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K3q: int8 cache with bf16 per-row scales.
@@ -605,16 +626,16 @@ extern "C" int surya_gqa_decode_int8(const void* q, const void* k_cache, const v
                                      const void* chunk_v, void* out, int layers, int B, int H, int KVH, int D, int S,
                                      int K, int step, int layer, float scale, void* stream) {
   if (D != HD || H != G * KVH) return (int)cudaErrorInvalidValue;
-  return launch_decode<true>(q, k_cache, v_cache, k_scale, v_scale, lengths, chunk_k, chunk_v, out, layers, B, KVH,
+  return launch_decode<HD, G, true>(q, k_cache, v_cache, k_scale, v_scale, lengths, chunk_k, chunk_v, out, layers, B, KVH,
                              S, K, step, layer, scale, static_cast<cudaStream_t>(stream));
 }
 
-// How K3 and K3q launch at these shapes, into cfg: CTAs, cluster size,
-// sub-tile slots, dynamic shared memory and threads of a CTA, and CTAs an
-// SM holds at once. Returns 0.
+// How K3 and K3q launch at these shapes, at head dim 128 and 3 query heads
+// a kv head, into cfg: CTAs, cluster size, sub-tile slots, dynamic shared
+// memory and threads of a CTA, and CTAs an SM holds at once. Returns 0.
 extern "C" int surya_decode_config(int B, int KVH, int S, int K, int* cfg) {
-  const int C = decode_cluster_size(B, KVH, S, K);
-  const int out[6] = {C * KVH * B, C, NSLOT, decode_smem_bytes(C), NT, decode_ctas_per_sm(C)};
+  const int C = decode_cluster_size<HD, G>(B, KVH, S, K);
+  const int out[6] = {C * KVH * B, C, NSLOT, decode_smem_bytes<HD, G>(C), NT, decode_ctas_per_sm<HD, G>(C)};
   for (int i = 0; i < 6; ++i) cfg[i] = out[i];
   return 0;
 }

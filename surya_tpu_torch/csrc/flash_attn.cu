@@ -54,10 +54,12 @@
 // about 1.3 (full-attention blocks) to 3.5 (windowed) times the plan's
 // query-key pairs, with P V twice over (PERF.md has what each costs).
 //
-// K2 runs on Hopper's own instructions:
+// K2 runs on Hopper's own instructions, at head dim D and G query heads a
+// kv head, both template arguments: built for the Qwen2-style recognition
+// decoder's (128, 3) and LFM2-MoE's attention layers' (64, 4).
 // - Work items of (batch row, kv head, run of row blocks): a CTA serves the
-//   kv head's 3 query heads from each K/V tile it loads, so a kv head's K
-//   and V come from device memory once for all 3.
+//   kv head's G query heads from each K/V tile it loads, so a kv head's K
+//   and V come from device memory once for all G.
 // - TMA: the producer's first lane issues every copy, 64 x 64 boxes of
 //   4-D tensor maps over [B, L, heads, D] (made on the host at each call,
 //   kernel parameters, so a CUDA graph keeps them), with 128-byte swizzle,
@@ -65,10 +67,10 @@
 //   Rows past L read as zeros and stores past L are dropped, so no lane
 //   spends an instruction on an address or a bound.
 // - wgmma on m64 tiles. S = Q K^T with both operands K-major from shared
-//   memory (a 256-byte row is two 128-byte swizzled halves, k16 slice kk at
+//   memory (a row is D / 64 128-byte swizzled halves, k16 slice kk at
 //   byte 32 (kk % 4) of half kk / 4); P V with P from registers and V
 //   MN-major from shared memory (the descriptor transposes), one m64n128
-//   product over both halves of D.
+//   product over both halves of D = 128, one m64n64 at D = 64.
 // - A consumer warpgroup per query head and a producer warpgroup, which
 //   gives its registers to the consumers by setmaxnreg; one CTA an SM
 //   (224 KB). At the main path's 128 x 128 prefill it is persistent: one
@@ -569,27 +571,46 @@ __global__ void __launch_bounds__(SEG_THREADS, 1)
   if (leader) bulk_wait_read<0>();  // the last store has read its tiles before the CTA ends
 }
 
+// K2's head dim and query heads a kv head are template arguments, built for
+// the Qwen2-style recognition decoder's and for LFM2-MoE's attention layers'
 constexpr int CAUSAL_D = 128;  // K2: head dim of the recognition decoder (1536 / 12)
 constexpr int CAUSAL_G = 3;    // K2: query heads per kv head (12 / 4), a consumer warpgroup each
+constexpr int LFM2_D = 64;     // K2: head dim of LFM2-MoE's attention layers (2048 / 32)
+constexpr int LFM2_G = 4;      // K2: their query heads per kv head (32 / 8)
 constexpr int BLOCK = 64;      // K2: rows of a Q tile (wgmma's m64) and keys of a K/V tile
 constexpr int HALF_ELEMS = BLOCK * 64;  // a 64 x 64 bf16 box: one 128-byte half of each row
 constexpr int HALF_BYTES = HALF_ELEMS * 2;
-constexpr int TILE_ELEMS = 2 * HALF_ELEMS;  // a 64 x 128 tile
-constexpr int TILE_BYTES = 2 * HALF_BYTES;
 
 constexpr int CAUSAL_STAGES = 4;     // K2: K/V tiles in the ring (a persistent CTA's items alternate halves)
 constexpr int CAUSAL_QBUF = 2;       // K2: Q tiles a head
-// the consumers and a producer warpgroup, which gives its registers to the
-// consumers by setmaxnreg (ptxas gives a CTA of 416 threads 128 each)
-constexpr int CAUSAL_THREADS = CAUSAL_G * 128 + 128;
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 160;  // 128 x 24 + 384 x 160 <= 65536
+constexpr int PRODUCER_REGS = 24;    // K2: the producer warpgroup's registers a thread
 
-struct CausalSmem {  // at a 1024-byte boundary (its tiles are 16 KB each)
-  bf16 k[CAUSAL_STAGES][TILE_ELEMS];
-  bf16 v[CAUSAL_STAGES][TILE_ELEMS];
-  bf16 q[CAUSAL_G][CAUSAL_QBUF][TILE_ELEMS];
-  uint64_t k_full[CAUSAL_STAGES], v_full[CAUSAL_STAGES], kv_empty[CAUSAL_STAGES];
-  uint64_t q_full[CAUSAL_G][CAUSAL_QBUF], q_empty[CAUSAL_G][CAUSAL_QBUF];
+// K2 at head dim D with G query heads a kv head: a tile is 64 rows of D
+// dims, D / 64 boxes of 128-byte rows; the G consumer warpgroups and a
+// producer warpgroup, which gives its registers to the consumers by
+// setmaxnreg. The consumers can take no more than the CTA was given at its
+// launch, THREADS x the registers a thread that ptxas gives a CTA of
+// THREADS (65536 / THREADS, down to a multiple of 8): 128 x 24 + 384 x 160
+// <= 512 x 128 at G = 3, 128 x 24 + 512 x 112 <= 640 x 96 at G = 4 (a
+// consumer that asks for more waits for ever)
+template <int D, int G>
+struct Causal {
+  static constexpr int HALVES = D / 64;
+  static constexpr int TILE_ELEMS = HALVES * HALF_ELEMS;
+  static constexpr int TILE_BYTES = HALVES * HALF_BYTES;
+  static constexpr int THREADS = G * 128 + 128;
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int CONSUMER_REGS = (THREADS * LAUNCH_REGS - 128 * PRODUCER_REGS) / (G * 128) / 8 * 8;
+  static_assert(CONSUMER_REGS >= LAUNCH_REGS && 128 * PRODUCER_REGS + G * 128 * CONSUMER_REGS <= THREADS * LAUNCH_REGS,
+                "setmaxnreg moves registers inside the CTA only");
+  struct Smem {  // at a 1024-byte boundary (its tiles are 8 or 16 KB each)
+    bf16 k[CAUSAL_STAGES][TILE_ELEMS];
+    bf16 v[CAUSAL_STAGES][TILE_ELEMS];
+    bf16 q[G][CAUSAL_QBUF][TILE_ELEMS];
+    uint64_t k_full[CAUSAL_STAGES], v_full[CAUSAL_STAGES], kv_empty[CAUSAL_STAGES];
+    uint64_t q_full[G][CAUSAL_QBUF], q_empty[G][CAUSAL_QBUF];
+  };
+  static constexpr int SMEM = (int)sizeof(Smem) + 1024;  // and room to align it to 1024 bytes
 };
 
 // K2. q: [B, L, H, D], k/v: [B, L, KVH, D], out: [B, L, H, D], all
@@ -615,11 +636,14 @@ struct CausalSmem {  // at a 1024-byte boundary (its tiles are 16 KB each)
 // Q tiles go through QBUF buffers per head; a finished row block's output
 // is written over its Q tile and leaves by TMA store, which frees the
 // buffer (q_empty) once it has been read, checked at the next store.
-__global__ void __launch_bounds__(CAUSAL_THREADS, 1)
+template <int D, int G>
+__global__ void __launch_bounds__(Causal<D, G>::THREADS, 1)
     causal_attention_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
                             int B, int L, int KVH, int rows_per_cta, float scale_log2) {
-  constexpr int STAGES = CAUSAL_STAGES, QBUF = CAUSAL_QBUF;
+  constexpr int STAGES = CAUSAL_STAGES, QBUF = CAUSAL_QBUF, CAUSAL_G = G, CAUSAL_D = D;
+  constexpr int HALVES = Causal<D, G>::HALVES, TILE_BYTES = Causal<D, G>::TILE_BYTES;
+  using CausalSmem = typename Causal<D, G>::Smem;
   // aligned here, not by the declaration: an aligned extern __shared__
   // declaration applies to every kernel of this file
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -670,11 +694,11 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
     prefetch_map(&v_map);
     auto load_tile = [&](int b, int kh, int j, int s) {
       mbar_expect_tx(&sm.k_full[s], TILE_BYTES);
-      tma_load_4d(sm.k[s], &k_map, &sm.k_full[s], 0, kh, j * BLOCK, b);
-      tma_load_4d(sm.k[s] + HALF_ELEMS, &k_map, &sm.k_full[s], 64, kh, j * BLOCK, b);
+      for (int h = 0; h < HALVES; ++h)
+        tma_load_4d(sm.k[s] + h * HALF_ELEMS, &k_map, &sm.k_full[s], 64 * h, kh, j * BLOCK, b);
       mbar_expect_tx(&sm.v_full[s], TILE_BYTES);
-      tma_load_4d(sm.v[s], &v_map, &sm.v_full[s], 0, kh, j * BLOCK, b);
-      tma_load_4d(sm.v[s] + HALF_ELEMS, &v_map, &sm.v_full[s], 64, kh, j * BLOCK, b);
+      for (int h = 0; h < HALVES; ++h)
+        tma_load_4d(sm.v[s] + h * HALF_ELEMS, &v_map, &sm.v_full[s], 64 * h, kh, j * BLOCK, b);
     };
     // resident tiles go before the row block's Q tiles, which may wait for
     // a buffer; streamed ones after them, as they wait for the consumers
@@ -693,9 +717,9 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
         for (int g = 0; g < CAUSAL_G; ++g) {
           if (qi >= QBUF) mbar_wait(&sm.q_empty[g][u], (qi / QBUF - 1) & 1);
           mbar_expect_tx(&sm.q_full[g][u], TILE_BYTES);
-          tma_load_4d(sm.q[g][u], &q_map, &sm.q_full[g][u], 0, it.kh * CAUSAL_G + g, i * BLOCK, it.b);
-          tma_load_4d(sm.q[g][u] + HALF_ELEMS, &q_map, &sm.q_full[g][u], 64, it.kh * CAUSAL_G + g, i * BLOCK,
-                      it.b);
+          for (int h = 0; h < HALVES; ++h)
+            tma_load_4d(sm.q[g][u] + h * HALF_ELEMS, &q_map, &sm.q_full[g][u], 64 * h, it.kh * CAUSAL_G + g,
+                        i * BLOCK, it.b);
         }
         if (!it.resident) {
           for (int j = 0; j <= i; ++j, ++step) {
@@ -710,7 +734,7 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
   }
 
   // a consumer warpgroup: rows 16w + lane / 4 (+ 8) of each row block in its accumulators
-  setmaxnreg_inc<CONSUMER_REGS>();
+  setmaxnreg_inc<Causal<D, G>::CONSUMER_REGS>();
   const int g = warp / 4, w = warp % 4, quad = lane & 3, r0 = 16 * w + (lane >> 2);
   int step = 0, qi = 0, nl = 0;
   int stored_g = -1, stored_u = 0;  // the Q buffer of the output store in flight
@@ -721,9 +745,11 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
     for (int i = it.i0; i < it.i1; ++i, ++qi) {
       const int u = qi % QBUF;
       {
-        float o[2][32], s[32];
+        float o[HALVES][32], s[32];
 #pragma unroll
-        for (int e = 0; e < 32; ++e) o[0][e] = o[1][e] = 0.f;
+        for (int half = 0; half < HALVES; ++half)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) o[half][e] = 0.f;
         float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
         const uint32_t q_s = smem_addr(sm.q[g][u]);
         mbar_wait(&sm.q_full[g][u], (qi / QBUF) & 1);
@@ -772,22 +798,23 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
             }
             l[h] = l[h] * corr + sum;
 #pragma unroll
-            for (int nn = 0; nn < 8; ++nn) {
-              o[0][4 * nn + 2 * h] *= corr;
-              o[0][4 * nn + 2 * h + 1] *= corr;
-              o[1][4 * nn + 2 * h] *= corr;
-              o[1][4 * nn + 2 * h + 1] *= corr;
-            }
+            for (int half = 0; half < HALVES; ++half)
+#pragma unroll
+              for (int nn = 0; nn < 8; ++nn) {
+                o[half][4 * nn + 2 * h] *= corr;
+                o[half][4 * nn + 2 * h + 1] *= corr;
+              }
           }
           // O += P V: P from registers (the accumulator layout of key blocks
           // 2kk and 2kk + 1 is the A layout of k16 step kk), as its bf16 value
-          // and its rounding error; V MN-major, 16 keys (2048 bytes) a step,
-          // one m64n128 product over both 64-dim halves (8192 bytes apart: the
-          // leading byte offset), o[0] and o[1] its two 64-column halves
+          // and its rounding error; V MN-major, 16 keys (2048 bytes) a step:
+          // at D = 128 one m64n128 product over both 64-dim halves (8192 bytes
+          // apart: the leading byte offset), o[0] and o[1] its two 64-column
+          // halves; at D = 64 one m64n64 product into o[0]
           mbar_wait(&sm.v_full[st], parity);
           const uint32_t v_s = smem_addr(sm.v[st]);
-          fence_regs(o[0]);
-          fence_regs(o[1]);
+#pragma unroll
+          for (int half = 0; half < HALVES; ++half) fence_regs(o[half]);
           uint32_t hi[BLOCK / 16][4], lo[BLOCK / 16][4];
 #pragma unroll
           for (int kk = 0; kk < BLOCK / 16; ++kk) {
@@ -795,17 +822,22 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
             for (int a = 0; a < 4; ++a) split_bf16x2(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1], hi[kk][a], lo[kk][a]);
           }
           wgmma_fence();
-          float(&o128)[64] = reinterpret_cast<float(&)[64]>(o);
 #pragma unroll
           for (int kk = 0; kk < BLOCK / 16; ++kk) {
             const uint64_t vd = sw128_desc(v_s + kk * 2048, HALF_BYTES, 1024);
-            wgmma_64x128_rs_tb(o128, hi[kk], vd);
-            wgmma_64x128_rs_tb(o128, lo[kk], vd);
+            if constexpr (HALVES == 2) {
+              float(&o128)[64] = reinterpret_cast<float(&)[64]>(o);
+              wgmma_64x128_rs_tb(o128, hi[kk], vd);
+              wgmma_64x128_rs_tb(o128, lo[kk], vd);
+            } else {
+              wgmma_64x64_rs_tb(o[0], hi[kk], vd);
+              wgmma_64x64_rs_tb(o[0], lo[kk], vd);
+            }
           }
           wgmma_commit();
           wgmma_wait_all();
-          fence_regs(o[0]);
-          fence_regs(o[1]);
+#pragma unroll
+          for (int half = 0; half < HALVES; ++half) fence_regs(o[half]);
           if (!it.resident) {
             __syncwarp();
             if (lane == 0) mbar_arrive(&sm.kv_empty[st]);
@@ -821,7 +853,7 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
         }
         unsigned char* tile = reinterpret_cast<unsigned char*>(sm.q[g][u]);
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < HALVES; ++half) {
 #pragma unroll
           for (int nn = 0; nn < 8; ++nn) {
 #pragma unroll
@@ -835,8 +867,8 @@ __global__ void __launch_bounds__(CAUSAL_THREADS, 1)
         fence_proxy_async();
         warpgroup_sync(1 + g);
         if (w == 0 && lane == 0) {
-          tma_store_4d(&o_map, sm.q[g][u], 0, it.kh * CAUSAL_G + g, i * BLOCK, it.b);
-          tma_store_4d(&o_map, sm.q[g][u] + HALF_ELEMS, 64, it.kh * CAUSAL_G + g, i * BLOCK, it.b);
+          for (int h = 0; h < HALVES; ++h)
+            tma_store_4d(&o_map, sm.q[g][u] + h * HALF_ELEMS, 64 * h, it.kh * CAUSAL_G + g, i * BLOCK, it.b);
           bulk_commit();
           // the previous store has read its tile: free that Q buffer (this
           // one's read goes on under the next head's products)
@@ -940,30 +972,34 @@ static CausalLaunch causal_launch(int B, int L, int KVH) {
   return c;
 }
 
+template <int D, int G>
 static int launch_causal(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
                          const CUtensorMap& o_map, int B, int L, int KVH, const CausalLaunch& c, float scale_log2,
                          cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(CausalSmem) + 1024;  // and room to align it to 1024 bytes
-  const cudaError_t attr =
-      cudaFuncSetAttribute(causal_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = Causal<D, G>::SMEM;
+  const auto kernel = causal_attention_kernel<D, G>;
+  const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  causal_attention_kernel<<<c.ctas, CAUSAL_THREADS, smem, stream>>>(q_map, k_map, v_map, o_map, B, L, KVH,
-                                                                    c.rows_per_cta, scale_log2);
+  kernel<<<c.ctas, Causal<D, G>::THREADS, smem, stream>>>(q_map, k_map, v_map, o_map, B, L, KVH, c.rows_per_cta,
+                                                          scale_log2);
   return (int)cudaGetLastError();
 }
 
-// How K2 launches at these shapes, into cfg: CTAs, row blocks an item,
-// K/V stages, dynamic shared memory and threads of a CTA. Returns 0.
+// How K2 launches at these shapes (head dim 128, 3 query heads a kv head),
+// into cfg: CTAs, row blocks an item, K/V stages, dynamic shared memory and
+// threads of a CTA. Returns 0.
 extern "C" int surya_causal_config(int B, int L, int KVH, int* cfg) {
+  using C = Causal<CAUSAL_D, CAUSAL_G>;
   const CausalLaunch c = causal_launch(B, L, KVH);
-  const int out[5] = {c.ctas, c.rows_per_cta, CAUSAL_STAGES, (int)sizeof(CausalSmem) + 1024, CAUSAL_THREADS};
+  const int out[5] = {c.ctas, c.rows_per_cta, CAUSAL_STAGES, C::SMEM, C::THREADS};
   for (int i = 0; i < 5; ++i) cfg[i] = out[i];
   return 0;
 }
 
 extern "C" int surya_causal_attention(const void* q, const void* k, const void* v, void* out, int B, int L, int H,
                                       int KVH, int D, float scale, void* stream) {
-  if (D != CAUSAL_D || H != CAUSAL_G * KVH || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const bool qwen2 = D == CAUSAL_D && H == CAUSAL_G * KVH, lfm2 = D == LFM2_D && H == LFM2_G * KVH;
+  if (!(qwen2 || lfm2) || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const CausalLaunch c = causal_launch(B, L, KVH);
   // [B, L, heads, D] as 4-D maps, innermost first; 64 x 64 boxes (one head)
   const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
@@ -977,5 +1013,6 @@ extern "C" int surya_causal_attention(const void* q, const void* k, const void* 
   if (!make_map(&q_map, bf, 4, q, q_dims, q_strides, box, sw) || !make_map(&k_map, bf, 4, k, k_dims, k_strides, box, sw) ||
       !make_map(&v_map, bf, 4, v, k_dims, k_strides, box, sw) || !make_map(&o_map, bf, 4, out, q_dims, q_strides, box, sw))
     return (int)cudaErrorInvalidValue;
-  return launch_causal(q_map, k_map, v_map, o_map, B, L, KVH, c, scale * LOG2E, static_cast<cudaStream_t>(stream));
+  const auto launch = qwen2 ? &launch_causal<CAUSAL_D, CAUSAL_G> : &launch_causal<LFM2_D, LFM2_G>;
+  return launch(q_map, k_map, v_map, o_map, B, L, KVH, c, scale * LOG2E, static_cast<cudaStream_t>(stream));
 }

@@ -19,6 +19,13 @@ step.
 
 The lm head shares the token embedding matrix (plus ``lm_head_bias``).
 
+The decoder is the one ``decoder.model_type`` names (``DECODERS``): the
+Qwen2-style decoder (models/qwen_decoder.py, "qwen2") or LFM2-MoE's hybrid
+of short convolutions and attention over sparse experts
+(models/lfm2_decoder.py, "lfm2_moe"), whose slot cache holds the
+convolution state beside the attention layers' KV. Either takes the same
+programs; ``MeshedFoundation`` runs the Qwen2-style one only.
+
 ``MeshedFoundation`` runs both programs on a mesh (parallel/mesh.py): rows
 and slots over the data axis, the decoder tensor-parallel over the model
 axis. Its prefill wave is a ``common.graphs.Program`` over every shard,
@@ -41,8 +48,24 @@ import torch
 from torch import nn
 
 from surya_tpu_torch.common import graphs
-from surya_tpu_torch.models import qwen_decoder, qwen_encoder
+from surya_tpu_torch.models import lfm2_decoder, qwen_decoder, qwen_encoder
 from surya_tpu_torch.parallel.mesh import Placement, Sharded, gather_rows
+
+# decoder.model_type -> (the decoder's module class, the module of its slot-cache helpers)
+DECODERS = {"qwen2": (qwen_decoder.Decoder, qwen_decoder),
+            lfm2_decoder.MODEL_TYPE: (lfm2_decoder.Lfm2Decoder, lfm2_decoder)}
+
+
+def decoder_kind(config) -> tuple:
+    """DECODERS' entry for a decoder config, by its model_type."""
+    if config.model_type not in DECODERS:
+        raise ValueError(f"no decoder of model_type {config.model_type!r}; known: {sorted(DECODERS)}")
+    return DECODERS[config.model_type]
+
+
+def init_cache(config, n_slots: int, max_seq: int, dtype, device, quantize: bool = False, mesh=None) -> dict:
+    """The slot cache of the decoder that `config` describes (its module's init_cache)."""
+    return decoder_kind(config)[1].init_cache(config, n_slots, max_seq, dtype, device, quantize=quantize, mesh=mesh)
 
 
 @dataclass(frozen=True)
@@ -58,6 +81,7 @@ class FoundationConfig:
     image_embed_encoding_size: int = 1024
     image_embed_encoding_multiplier: int = 256
     encoder: qwen_encoder.EncoderConfig = field(default_factory=qwen_encoder.EncoderConfig)
+    # a qwen_decoder.DecoderConfig or an lfm2_decoder.Lfm2Config
     decoder: qwen_decoder.DecoderConfig = field(default_factory=qwen_decoder.DecoderConfig)
 
     @property
@@ -73,7 +97,7 @@ class FoundationModel(nn.Module):
         self.config = config
         h = config.hidden_size
         self.vision_encoder = qwen_encoder.VisionEncoder(config.encoder)
-        self.decoder = qwen_decoder.Decoder(config.decoder)
+        self.decoder = decoder_kind(config.decoder)[0](config.decoder)
         self.token_embed = nn.Embedding(config.vocab_size, h)
         self.img_w_embed = nn.Embedding(config.image_embed_encoding_size, h)
         self.img_h_embed = nn.Embedding(config.image_embed_encoding_size, h)
@@ -81,6 +105,13 @@ class FoundationModel(nn.Module):
         self.lm_head_bias = nn.Parameter(torch.zeros(config.vocab_size))
 
     # -- pieces ----------------------------------------------------------------
+
+    def projection_type(self) -> str:
+        """What the graphs key the decoder's projections by: the type of the
+        first attention projection (nn.Linear, or nn.QuantLinear with int8
+        weights)."""
+        layer = next(layer for layer in self.decoder.layers if hasattr(layer, "self_attn"))
+        return type(layer.self_attn.q_proj).__name__
 
     def sample_greedy(self, hidden):
         """Greedy token, its softmax probability and the int bbox, from
@@ -146,8 +177,8 @@ class FoundationModel(nn.Module):
         sample token 0. Returns (token [B], score [B], bbox [B, 6])."""
         image_tokens = self.encode_images(patches, enc_args, llm_h_idx, llm_w_idx, kv_range, win_range)
         embeds = self.embed_prompt_tokens(input_ids, img_gather, image_tokens)
-        new_k, new_v, last_hidden = self.decoder.prefill(embeds, seq_lens)
-        qwen_decoder.merge_prefill(cache, new_k, new_v, seq_lens, slot_idx)
+        *state, last_hidden = self.decoder.prefill(embeds, seq_lens)
+        decoder_kind(self.config.decoder)[1].merge_prefill(cache, *state, seq_lens, slot_idx)
         return self.sample_greedy(last_hidden)
 
     def launch_prefill(self, cache: dict, inputs: dict, kv_range: int, win_range: int, pin: bool, normalize,
@@ -160,8 +191,7 @@ class FoundationModel(nn.Module):
         config (normalize and no_output_token are the processor's, one for
         a predictor's store). Returns its outputs, which a graph owns until
         its next replay."""
-        key = ("prefill", cache_id(cache), kv_range, win_range, bool(pin),
-               type(self.decoder.layers[0].self_attn.q_proj).__name__, self.config,
+        key = ("prefill", cache_id(cache), kv_range, win_range, bool(pin), self.projection_type(), self.config,
                *((name, tuple(t.shape), t.dtype) for name, t in inputs.items()))
         return programs.run(key, lambda: self.prefill_program(cache, inputs, kv_range, win_range, pin, normalize,
                                                               no_output_token), inputs)
@@ -218,7 +248,7 @@ class FoundationModel(nn.Module):
         owns until its next replay, and common.graphs.Ran)."""
         run = run if run is not None else torch.zeros_like(last_token)
         key = ("decode_chunk", cache_id(cache), last_token.shape[0], num_steps, bool(pin_decode), repeat_window,
-               type(self.decoder.layers[0].self_attn.q_proj).__name__, self.config)
+               self.projection_type(), self.config)
         return loops.run(key, lambda: self.chunk_loop(cache, last_token.shape[0], num_steps, repeat_window,
                                                       pin_decode),
                          {"last_token": last_token, "active": active, "run": run})
@@ -228,9 +258,11 @@ class FoundationModel(nn.Module):
         """The decode chunk over `cache` as a graphs.Loop: static inputs
         last_token, active and run [n_slots]; begin zeroes the chunk
         buffers (so that commit_chunk writes the same bytes however many
-        steps ran) and takes the cache lengths; step i is the embedding,
-        decode_step_chunked and decode_step_update; the cond is any(active);
-        end commits the chunk. Outputs: decode_chunk's."""
+        steps ran) and takes the cache lengths (and, for a decoder with
+        convolution state, a copy of that state, which the steps roll);
+        step i is the embedding, decode_step_chunked and decode_step_update;
+        the cond is any(active); end commits the chunk (and writes the
+        rolled state back). Outputs: decode_chunk's."""
         dev = cache["len"].device
         state = {"last_token": torch.zeros((n_slots,), dtype=torch.int32, device=dev),
                  "active": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
@@ -240,17 +272,21 @@ class FoundationModel(nn.Module):
         tokens_buf, scores_buf, bbox_buf, chunk_k, chunk_v, advance = bufs
         base_len = torch.zeros_like(cache["len"])
         pred = torch.zeros((), dtype=torch.bool, device=dev)
+        # the slots' convolution state, rolled by the steps (lfm2_decoder)
+        conv = {"conv_state": torch.empty_like(cache["conv"])} if "conv" in cache else {}
 
         def begin():
             tokens_buf.fill_(self.config.pad_token_id)
             for buf in (scores_buf, bbox_buf, chunk_k, chunk_v, advance):
                 buf.zero_()
             base_len.copy_(cache["len"])
+            if conv:
+                conv["conv_state"].copy_(cache["conv"])
             pred.copy_(active.any())
 
         def step(i: int):
             emb = self.token_embed(last_token.long())
-            hidden = self.decoder.decode_step_chunked(cache, chunk_k, chunk_v, emb, i, base_len)
+            hidden = self.decoder.decode_step_chunked(cache, chunk_k, chunk_v, emb, i, base_len, **conv)
             for dst, src in zip((last_token, active, run), self.decode_step_update(
                     hidden, i, bufs, last_token, active, run, repeat_window, pin_decode)):
                 dst.copy_(src)
@@ -258,6 +294,8 @@ class FoundationModel(nn.Module):
 
         def end():
             qwen_decoder.commit_chunk(cache, chunk_k, chunk_v, base_len, advance)
+            if conv:
+                cache["conv"].copy_(conv["conv_state"])
 
         return graphs.Loop(num_steps, state, (tokens_buf, scores_buf, bbox_buf, last_token, active, run), pred,
                            begin, step, end)
@@ -265,10 +303,10 @@ class FoundationModel(nn.Module):
     def chunk_buffers(self, last_token, n_kv_heads: int, num_steps: int) -> tuple:
         """A decode chunk's buffers over last_token's B slots, on its device:
         (tokens [B, K] pad, scores [B, K], bboxes [B, K, 6], chunk_k and
-        chunk_v [layers, B, n_kv_heads, K, head_dim], advance [B])."""
+        chunk_v [cache layers, B, n_kv_heads, K, head_dim], advance [B])."""
         cfg, dec = self.config, self.config.decoder
         B, K, dev = last_token.shape[0], num_steps, last_token.device
-        chunk_k = torch.zeros((dec.num_hidden_layers, B, n_kv_heads, K, dec.head_dim),
+        chunk_k = torch.zeros((dec.cache_layers, B, n_kv_heads, K, dec.head_dim),
                               dtype=self.token_embed.weight.dtype, device=dev)
         return (
             torch.full((B, K), cfg.pad_token_id, dtype=torch.int32, device=dev),
@@ -328,6 +366,8 @@ class MeshedFoundation:
     SPMD program does. Per-shard values are dicts {(d, m): tensor}."""
 
     def __init__(self, model: FoundationModel, mesh):
+        if model.config.decoder.model_type != "qwen2":
+            lfm2_decoder.check_supported(mesh=mesh)
         self.mesh = mesh
         self.config = model.config
         self.placement = Placement(model, mesh)
@@ -403,7 +443,7 @@ class MeshedFoundation:
         mesh = self.mesh
         flat = {f"{name}/{d},{m}": t for (d, m), group in inputs.items() for name, t in group.items()}
         key = ("meshed_prefill", mesh_cache_id(cache, mesh), (mesh.n_data, mesh.n_model), kv_range, win_range,
-               bool(sharded), bool(pin), type(self.model((0, 0)).decoder.layers[0].self_attn.q_proj).__name__,
+               bool(sharded), bool(pin), self.model((0, 0)).projection_type(),
                self.config, *((name, tuple(t.shape), t.dtype) for name, t in flat.items()))
         return programs.run(key, lambda: self.prefill_program(cache, inputs, kv_range, win_range, sharded, pin,
                                                               normalize, no_output_token), flat)
@@ -465,7 +505,7 @@ class MeshedFoundation:
         mesh = self.mesh
         key = ("meshed_decode_chunk", mesh_cache_id(cache, mesh), (mesh.n_data, mesh.n_model),
                tuple(last_token[dm].shape[0] for dm in mesh.coords()), num_steps, bool(pin_decode), repeat_window,
-               type(self.model((0, 0)).decoder.layers[0].self_attn.q_proj).__name__, self.config)
+               self.model((0, 0)).projection_type(), self.config)
         inputs = {f"{name}/{d},{m}": x[d, m] for name, x in (("last_token", last_token), ("active", active),
                                                             ("run", run)) for d, m in mesh.coords()}
         return loops.run(key, lambda: self.chunk_loop(cache, {dm: t.shape[0] for dm, t in last_token.items()},
@@ -549,7 +589,7 @@ def convert_torch(tensors, config: FoundationConfig) -> dict:
     bag = tensors if isinstance(tensors, TensorBag) else TensorBag(tensors)
     params = {
         "vision_encoder": qwen_encoder.convert_torch(bag, config.encoder, "vision_encoder"),
-        "decoder": qwen_decoder.convert_torch(bag, config.decoder, "decoder"),
+        "decoder": decoder_kind(config.decoder)[1].convert_torch(bag, config.decoder, "decoder"),
         "token_embed": bag.embedding("embedder.token_embed"),
         "img_w_embed": bag.embedding("img_w_embed"),
         "img_h_embed": bag.embedding("img_h_embed"),

@@ -51,10 +51,16 @@ class DecoderConfig:
     num_key_value_heads: int = 4
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6
+    model_type: str = "qwen2"
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def cache_layers(self) -> int:
+        """Layers with KV in the slot cache: every layer."""
+        return self.num_hidden_layers
 
 
 class _SelfAttention(nn.Module):

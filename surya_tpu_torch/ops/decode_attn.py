@@ -31,9 +31,14 @@ import torch
 from surya_tpu_torch.common import graphs
 from surya_tpu_torch.ops import _build
 from surya_tpu_torch.ops.attention import NEG_INF
+from surya_tpu_torch.ops.flash import shapes_text
 from surya_tpu_torch.parallel.mesh import Sharded, kernel_shardable
 
 HEAD_DIM, GROUP = 128, 3  # the recognition decoder's head dim and query heads per kv head
+# (head dim, query heads per kv head) K3 is built for: the Qwen2-style
+# decoder's and LFM2-MoE's attention layers'; K3q the first only
+DECODE_SHAPES = ((HEAD_DIM, GROUP), (64, 4))
+QUANT_SHAPES = ((HEAD_DIM, GROUP),)
 
 
 def gqa_decode_reference(q, k_cache, v_cache, lengths, chunk_k, chunk_v, step: int, layer: int,
@@ -77,9 +82,9 @@ def _check_decode(name, q, k_cache, v_cache, lengths, chunk_k, chunk_v, step, la
         raise ValueError(f"{name}: chunk {tuple(chunk_k.shape)} does not match cache {tuple(k_cache.shape)}")
     if quantized and (k_scale.shape != k_cache.shape[:-1] or v_scale.shape != k_scale.shape):
         raise ValueError(f"{name}: scales {tuple(k_scale.shape)} do not match cache {tuple(k_cache.shape)}")
-    if H != GROUP * kvh or D != HEAD_DIM:
-        raise ValueError(f"{name}: the kernel is built for {GROUP} query heads per kv head and head dim "
-                         f"{HEAD_DIM}, got {H}/{kvh} heads of dim {D}")
+    shapes = QUANT_SHAPES if quantized else DECODE_SHAPES
+    if H % kvh or (D, H // kvh) not in shapes:
+        raise ValueError(f"{name}: the kernel is built for {shapes_text(shapes)}, got {H}/{kvh} heads of dim {D}")
     if lengths.shape != (B,) or lengths.dtype != torch.int32:
         raise ValueError(f"{name}: lengths must be int32 [{B}]")
     cache_dtype = torch.int8 if quantized else torch.bfloat16

@@ -35,6 +35,14 @@ PLAN_CHUNK = 128  # query rows per kv_starts entry (qwen_encoder.FULL_ATTN_Q_CHU
 SEGMENTED_HEAD_DIM = 80  # the head dims the kernels are built for: recognition encoder
 CAUSAL_HEAD_DIM = 128  # and decoder
 CAUSAL_GROUP = 3  # K2's query heads per kv head, one consumer warpgroup each (12 / 4)
+# (head dim, query heads per kv head) K2 is built for: the Qwen2-style
+# decoder's and LFM2-MoE's attention layers' (2048 / 32, 32 / 8)
+CAUSAL_SHAPES = ((CAUSAL_HEAD_DIM, CAUSAL_GROUP), (64, 4))
+
+
+def shapes_text(shapes) -> str:
+    """A kernel's (head dim, group) pairs, as its refusals name them."""
+    return " and ".join(f"head dim {d} with {g} query heads per kv head" for d, g in shapes)
 
 
 def _check_cuda(name: str, *tensors) -> None:
@@ -152,10 +160,9 @@ def _check_causal(name, q, k, v) -> None:
     kvh = k.shape[2]
     if k.shape != (B, L, kvh, D) or v.shape != k.shape or H % kvh:
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if D != CAUSAL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel is built for head dim {CAUSAL_HEAD_DIM}, got {D}")
-    if H != CAUSAL_GROUP * kvh:
-        raise ValueError(f"{name}: the kernel is built for {CAUSAL_GROUP} query heads per kv head, got {H}/{kvh}")
+    if (D, H // kvh) not in CAUSAL_SHAPES:
+        raise ValueError(f"{name}: the kernel is built for {shapes_text(CAUSAL_SHAPES)}, got head dim {D} with "
+                         f"{H}/{kvh} heads")
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")

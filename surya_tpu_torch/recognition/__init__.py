@@ -68,8 +68,8 @@ from surya_tpu_torch.common.polygon import PolygonBox
 from surya_tpu_torch.common.predictor import BasePredictor
 from surya_tpu_torch.common.profiling import count, stage
 from surya_tpu_torch.input.processing import convert_if_not_rgb, slice_bboxes_from_image, slice_polys_from_image
-from surya_tpu_torch.models import qwen_decoder
-from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, slot_sources
+from surya_tpu_torch.models import lfm2_decoder
+from surya_tpu_torch.models.foundation import MeshedFoundation, cache_id, init_cache, slot_sources
 from surya_tpu_torch.models.foundation import pack_outputs as _pack
 from surya_tpu_torch.parallel.mesh import Mesh, Sharded, gather_rows, split_range, split_sizes
 from surya_tpu_torch.recognition.loader import load_recognition_model
@@ -203,20 +203,24 @@ class RecognitionPredictor(BasePredictor):
     }
 
     def __init__(self, checkpoint: Optional[str] = None, tiny: bool = False, *, device=None,
-                 jax_params: Optional[dict] = None, mesh: Optional[Mesh] = None):
+                 jax_params: Optional[dict] = None, mesh: Optional[Mesh] = None, config: Optional[dict] = None):
         """checkpoint: a local directory or ``s3://`` name (default
         RECOGNITION_MODEL_CHECKPOINT); tiny: the small test configuration of
         random weights; jax_params: the JAX foundation pytree as numpy
         leaves, whose weights the model takes (no checkpoint is resolved);
         mesh: run on it (parallel/mesh.py; default: with USE_MESH on and
-        more than one card, every card, MESH_NUM_MODEL_SHARDS model shards)."""
+        more than one card, every card, MESH_NUM_MODEL_SHARDS model shards);
+        config: a checkpoint's config.json as a dict, for the random weights
+        where no checkpoint resolves (loader.config_from_json reads it; its
+        ``decoder.model_type`` picks the decoder)."""
         self._tiny = tiny
         self._jax_params = jax_params
+        self._raw_config = config
         super().__init__(checkpoint, device, mesh)
 
     def _load(self):
         self.model, self.config, self.processor = load_recognition_model(
-            self.checkpoint, self._tiny, self.device, self._jax_params
+            self.checkpoint, self._tiny, self.device, self._jax_params, self._raw_config
         )
         self._jax_params = None
         self.last_decoded_tokens = 0  # tokens decoded by the last __call__ or stream()
@@ -224,6 +228,8 @@ class RecognitionPredictor(BasePredictor):
         # the mesh: slots and prefill rows over its data axis, the decoder
         # over its model axis; the scheduler keeps its global view
         self.setup_mesh(tensor_parallel=True)
+        if self.config.decoder.model_type == lfm2_decoder.MODEL_TYPE:
+            lfm2_decoder.check_supported(quantize_cache=bool(settings.RECOGNITION_MODEL_QUANTIZE), mesh=self.mesh)
         self.meshed = MeshedFoundation(self.model, self.mesh) if self.mesh is not None else None
         self.n_data = self.mesh.n_data if self.mesh is not None else 1
         batch = self.get_batch_size()
@@ -408,8 +414,8 @@ class RecognitionPredictor(BasePredictor):
         A run that starts while another holds the store makes its own."""
         mesh = self.mesh
         if mesh is not None and mesh.distinct() != [self.device]:
-            return qwen_decoder.init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device,
-                                           quantize=quantize, mesh=mesh), None
+            return init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device, quantize=quantize,
+                              mesh=mesh), None
         with self._kept_cache_lock:
             store, self._kept_cache = self._kept_cache, None
         if store is not None:
@@ -418,11 +424,12 @@ class RecognitionPredictor(BasePredictor):
                 self._forget_cache(store)  # before the new one is made
                 store = None
         if store is None:
-            store = qwen_decoder.init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device,
-                                            quantize=quantize, mesh=mesh)
+            store = init_cache(self.config.decoder, n_slots, cache_len, self.dtype, self.device, quantize=quantize,
+                               mesh=mesh)
         for t in (store["len"].shards.values() if mesh is not None else (store["len"],)):
             t.zero_()
-        return {name: t if name == "len" else _rows_view(t, cache_len) for name, t in store.items()}, store
+        # the rows of the KV entries; the lengths and a convolution state have none
+        return {name: t if name in ("len", "conv") else _rows_view(t, cache_len) for name, t in store.items()}, store
 
     def _keep_cache(self, store: Optional[dict]) -> None:
         """Hand a run's store back; if a run that ran meanwhile kept its own,
@@ -807,6 +814,8 @@ class RecognitionPredictor(BasePredictor):
                     count("recognition.wave_patches", patches)
                     # the patch rows the wave is padded to (every shard's on a mesh)
                     count("recognition.wave_patch_cap", int(np.prod(batch.patches.shape[:-1])))
+                    if "conv" in cache:  # the slots whose convolution state the wave seeds
+                        count("recognition.conv_state_seeds", len(round_prompts))
                     target_slots = frees[: len(round_prompts)]
                     slot_idx = np.full(batch_rows, n_slots, np.int32)  # padding rows -> trash slot
                     slot_idx[batch.valid_rows] = target_slots
@@ -865,6 +874,7 @@ class RecognitionPredictor(BasePredictor):
             self._keep_cache(cache_store)
 
         self.last_decoded_tokens += sum(len(t) for t in predicted_tokens)
+        self._count_moe()
 
         n = len(predicted_tokens)
         max_len = max((sum(b.shape[0] for b in bs) for bs in bboxes if bs), default=1)
@@ -874,6 +884,23 @@ class RecognitionPredictor(BasePredictor):
                 cat = np.concatenate(bs, axis=0)
                 bbox_arr[i, : len(cat)] = cat
         return predicted_tokens, bbox_arr, scores
+
+    def _count_moe(self) -> None:
+        """The sparse-expert layers' device counters (ops/moe.py), read once
+        the run's last dispatch is drained, into the counters
+        recognition.moe_rows (token-expert rows computed),
+        recognition.moe_experts_hit (experts with a row, summed over the
+        layers' calls) and recognition.moe_rows_max (the largest expert's
+        rows, summed so too); then zeroed."""
+        counts = getattr(self.model.decoder, "moe_counts", None)
+        if counts is None:
+            return
+        with stage("recognition.moe_counters"):
+            rows, hits, largest = counts.tolist()
+            counts.zero_()
+        count("recognition.moe_rows", rows)
+        count("recognition.moe_experts_hit", hits)
+        count("recognition.moe_rows_max", largest)
 
     # -- detokenization and assembly (host) ------------------------------------
 

@@ -29,7 +29,7 @@ import torch
 from surya_tpu_torch import nn as pnn
 from surya_tpu_torch.common.checkpoint import checkpoint_dir, load_model
 from surya_tpu_torch.common.weights import load_config_json
-from surya_tpu_torch.models import foundation, qwen_decoder, qwen_encoder
+from surya_tpu_torch.models import foundation, lfm2_decoder, qwen_decoder, qwen_encoder
 from surya_tpu_torch.models.foundation import FoundationConfig, FoundationModel
 from surya_tpu_torch.recognition.processor import RecognitionProcessor
 from surya_tpu_torch.recognition.tokenizer import ByteFallbackMathTokenizer, OCRTokenizer, QwenMathTokenizer
@@ -68,10 +68,36 @@ def recognition_config(tokenizer: OCRTokenizer, tiny: bool = False) -> Foundatio
     )
 
 
+def decoder_config(raw: dict, vocab_size: int):
+    """The decoder's config from config.json's "decoder" entry, by its
+    ``model_type``: "qwen2" (the default) with surya_tpu/recognition/
+    loader.py's defaults, or "lfm2_moe" with LFM2-8B-A1B's
+    (lfm2_decoder.Lfm2Config), each of its keys taken as the entry gives
+    it; keys that set no width or setting of the decoder (a language
+    model's own vocab_size, max_position_embeddings, ...) are not read."""
+    model_type = raw.get("model_type", "qwen2")
+    if model_type == lfm2_decoder.MODEL_TYPE:
+        fields = set(lfm2_decoder.Lfm2Config.__dataclass_fields__) - {"vocab_size"}
+        kw = {k: tuple(v) if k == "layer_types" else v for k, v in raw.items() if k in fields}
+        return lfm2_decoder.Lfm2Config(vocab_size=vocab_size, **kw)
+    if model_type != "qwen2":
+        raise ValueError(f"no decoder of model_type {model_type!r}; known: 'qwen2', {lfm2_decoder.MODEL_TYPE!r}")
+    return qwen_decoder.DecoderConfig(
+        vocab_size=vocab_size,
+        hidden_size=raw.get("hidden_size", 1536),
+        intermediate_size=raw.get("intermediate_size", 4096),
+        num_hidden_layers=raw.get("num_hidden_layers", 10),
+        num_attention_heads=raw.get("num_attention_heads", 12),
+        num_key_value_heads=raw.get("num_key_value_heads", 4),
+        rope_theta=raw.get("rope_theta", 10000.0),
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-6),
+    )
+
+
 def config_from_json(raw: dict) -> FoundationConfig:
-    """A checkpoint's config.json with surya_tpu/recognition/loader.py's defaults."""
+    """A checkpoint's config.json with surya_tpu/recognition/loader.py's
+    defaults; the decoder by ``decoder.model_type`` (decoder_config)."""
     enc_raw = raw.get("vision_encoder", {})
-    dec_raw = raw.get("decoder", {})
     enc = qwen_encoder.EncoderConfig(
         depth=enc_raw.get("depth", 8),
         hidden_size=enc_raw.get("hidden_size", 1280),
@@ -84,16 +110,7 @@ def config_from_json(raw: dict) -> FoundationConfig:
         out_hidden_size=enc_raw.get("out_hidden_size", 1280),
         fullatt_block_indexes=tuple(enc_raw.get("fullatt_block_indexes", (3, 7))),
     )
-    dec = qwen_decoder.DecoderConfig(
-        vocab_size=raw["vocab_size"],
-        hidden_size=dec_raw.get("hidden_size", 1536),
-        intermediate_size=dec_raw.get("intermediate_size", 4096),
-        num_hidden_layers=dec_raw.get("num_hidden_layers", 10),
-        num_attention_heads=dec_raw.get("num_attention_heads", 12),
-        num_key_value_heads=dec_raw.get("num_key_value_heads", 4),
-        rope_theta=dec_raw.get("rope_theta", 10000.0),
-        rms_norm_eps=dec_raw.get("rms_norm_eps", 1e-6),
-    )
+    dec = decoder_config(raw.get("decoder", {}), raw["vocab_size"])
     return FoundationConfig(
         vocab_size=raw["vocab_size"],
         bbox_size=raw.get("bbox_size", 1025),
@@ -139,15 +156,31 @@ def random_model(config: FoundationConfig, device=None, dtype: Optional[torch.dt
     pnn.init_normal_(model, gen)
     with torch.no_grad():
         model.lm_head_bias.zero_()
+    if isinstance(model.decoder, lfm2_decoder.Lfm2Decoder):
+        model.decoder.init_extra_(gen)
     model = model.to(dtype=dtype or model_dtype(device))
-    if settings.RECOGNITION_WEIGHT_QUANTIZE:
-        qwen_decoder.quantize_weights(model.decoder)
+    _quantize(model)
     return model.eval().requires_grad_(False)
+
+
+def _quantize(model: FoundationModel) -> None:
+    """int8 decoder projections under RECOGNITION_WEIGHT_QUANTIZE (the
+    Qwen2-style decoder only: the lfm2_moe decoder raises)."""
+    if not settings.RECOGNITION_WEIGHT_QUANTIZE:
+        return
+    if isinstance(model.decoder, lfm2_decoder.Lfm2Decoder):
+        lfm2_decoder.check_supported(quantize_weights=True)
+    qwen_decoder.quantize_weights(model.decoder)
 
 
 def load_recognition_model(
     checkpoint: Optional[str] = None, tiny: bool = False, device=None, jax_params: Optional[dict] = None,
+    config: Optional[dict] = None,
 ) -> Tuple[FoundationModel, FoundationConfig, RecognitionProcessor]:
+    """(model, config, processor) of the checkpoint that resolves; where none
+    does, random weights at `config` (a config.json as a dict, read by
+    config_from_json, its vocabulary the byte-level tokenizer's) or else at
+    the default widths (tiny: the test widths)."""
     ckpt_dir = None
     if jax_params is None:
         device = resolve_device(device)
@@ -159,11 +192,16 @@ def load_recognition_model(
                                  math_tokenizer=QwenMathTokenizer(ckpt_dir))
         model = load_model(ckpt_dir, "recognition", lambda: FoundationModel(config),
                            lambda t: foundation.convert_torch(t, config), device, model_dtype(device))
-        if settings.RECOGNITION_WEIGHT_QUANTIZE:
-            qwen_decoder.quantize_weights(model.decoder)
+        _quantize(model)
     else:
         tokenizer = OCRTokenizer(math_tokenizer=ByteFallbackMathTokenizer())
-        config = recognition_config(tokenizer, tiny=tiny)
+        if config is not None:
+            config = config_from_json(config)
+            if config.vocab_size != tokenizer.vocab_size:
+                raise ValueError(f"config vocab_size {config.vocab_size} is not the tokenizer's "
+                                 f"{tokenizer.vocab_size}")
+        else:
+            config = recognition_config(tokenizer, tiny=tiny)
         if jax_params is not None:
             model = from_jax_params(jax_params, config, device)
         else:
