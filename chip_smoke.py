@@ -231,8 +231,18 @@ its last line ``{"ok": true, "device": {...}}``.
 
 holds what LFM2-8B-A1B's decoder adds against plain versions at its widths
 (K2 and K3 at head dim 64 with 4 query heads a kv head, the sparse-expert
-layer at a decode step's and a prefill wave's tokens), times them and
-prints the grouped GEMMs' kernel names, as one ``LFM2_SMOKE`` JSON line.
+layer at a decode step's and a prefill wave's tokens; each of its four
+glue kernels against its plain function on the same inputs), times them
+(the layer also on its plain path, and each glue kernel alone beside its
+bound and its plain function), prints the device work of one layer call,
+which must be those four kernels and the two grouped GEMMs (each
+``prepare_grouped_gemm_data`` and CUTLASS's kernel: eight launches),
+counts each glue kernel's launches over a call of the recognition
+predictor with the whole decoder replayed from its CUDA graphs (equal to
+the sparse layer calls, 22 a decoder pass), and prints one
+``LFM2_SMOKE`` JSON line. With ``--tree DIR`` it
+times another tree's layer (an unpacked parent: its glue as PyTorch
+launches).
 
     python3 chip_smoke.py --kernels [--tree DIR]
 
@@ -288,7 +298,7 @@ FONT_DL_BASE = "http://127.0.0.1:9"  # nothing listens there
 if __name__ == "__main__":  # the settings are read when the port is first imported
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script runs only on the GPU")
-    if "--tree" in sys.argv:  # --kernels --tree DIR: the port of another tree (an unpacked commit) is timed
+    if "--tree" in sys.argv:  # --kernels or --lfm2 with --tree DIR: the port of another tree (an unpacked commit)
         sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--tree") + 1]))
     os.environ.setdefault("ALLOW_RANDOM_WEIGHTS", "true")
     os.environ.setdefault("DISABLE_TQDM", "true")
@@ -4646,15 +4656,68 @@ def kernels_ab():
                                              "count": torch.cuda.device_count()}}))
 
 
+MOE_NEAR_TIE = 1e-5  # biased router scores closer than this may be chosen either way
+
+
+def check_glue_kernels(label, moe, x, gate, bias, valid, chosen, weights, hist, h, y, inter):
+    """Each of the sparse layer's glue kernels (csrc/moe.cu) against its
+    plain function on the same inputs, raising on a mismatch: the route's
+    choices (a choice may differ only at a near tie of the biased scores:
+    the kernel sums a logit in another order than cuBLAS) and weights
+    within 1e-6; the permute's offsets, row places, sorted rows and
+    counters (each side's from zero) exactly; SwiGLU within its one
+    rounding against the plain version's two (2^-7 of the value); the
+    combine within one bf16 unit in the last place. chosen .. y: the kernel
+    path's intermediates."""
+    E, k = gate.shape[0], chosen.shape[1]
+    chosen_p, weights_p = moe.route(x, gate, bias, k, True, 1.0, valid)
+    differ = (chosen.long() != chosen_p).any(1)
+    if valid is not None:
+        differ &= valid
+    keys = torch.sigmoid(x.float() @ gate.float().T) + bias.float()
+    gap = (keys.gather(1, chosen.long().clamp(max=E - 1)).sort(-1).values
+           - keys.gather(1, chosen_p.clamp(max=E - 1)).sort(-1).values).abs()
+    if differ.any() and not bool((gap[differ] < MOE_NEAR_TIE).all()):
+        raise AssertionError(f"{label}: the route kernel chooses other experts away from a near tie")
+    ok = ~differ if valid is None else ~differ & valid
+    w_err = (weights - weights_p)[ok].abs().max().item()
+    if not w_err <= 1e-6 or (valid is not None and not bool((chosen[~valid] == E).all())):
+        raise AssertionError(f"{label}: the route kernel's weights are {w_err:.3e} from route's, or a token that "
+                             "is not valid has an expert")
+    counts, counts_p = (torch.zeros(3, dtype=torch.int64, device=x.device) for _ in range(2))
+    rows_k, offs, inverse = moe.permute_kernel(x, chosen, hist, counts)
+    rows_p, offs_p, inverse_p = moe.permute(x, chosen.long(), E, counts_p)
+    total, real = int(offs_p[-1]), chosen.reshape(-1) < E
+    if not (torch.equal(offs, offs_p) and torch.equal(counts, counts_p)
+            and torch.equal(inverse[real].long(), inverse_p[real]) and bool((inverse[~real] == -1).all())
+            and torch.equal(rows_k[:total], rows_p[:total])):
+        raise AssertionError(f"{label}: the permute kernel's offsets, places, rows or counters are not permute's "
+                             f"(counters {counts.tolist()} against {counts_p.tolist()})")
+    a = moe.swiglu_kernel(h, offs, inter)[:total].float()
+    a_p = moe.swiglu(h, inter)[:total].float()
+    if not bool(((a - a_p).abs() <= 2.0**-7 * a_p.abs()).all()):
+        raise AssertionError(f"{label}: the SwiGLU kernel is more than its roundings from swiglu")
+    out = moe.combine_kernel(y, inverse, weights, valid).float()
+    out_p = moe.combine(y, inverse.long(), weights, valid, torch.bfloat16).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(torch.maximum(out.abs(), out_p.abs()))) - 7)
+    if not bool(((out - out_p).abs() <= ulp).all()):
+        raise AssertionError(f"{label}: the combine kernel is more than a bf16 unit in the last place from combine")
+    print(f"    {label}: route {int(differ.sum())} near-tie flips, weights within {w_err:.3e}; permute offsets, "
+          f"places, rows and counters {counts.tolist()} equal; SwiGLU and combine within their roundings")
+
+
 def moe_case(gen, T, valid_rows=None, reps=5) -> dict:
     """The sparse-expert layer (ops/moe.py) at LFM2-8B-A1B's widths (32
     experts of 1792 over 2048, top-4) over T tokens (valid_rows: the first
     of every 128 tokens that are valid, a prefill wave's rows; None: all,
     a decode step's slots): held to its plain version in float32 within 2 %
     of the output's largest magnitude (bf16 weights, activations and the
-    grouped GEMMs' bf16 outputs), captured in a CUDA graph with a
-    synchronisation anywhere an error, and timed; the bound counts each hit
-    expert's weights once and each row's activations (counts/lfm2.py)."""
+    grouped GEMMs' bf16 outputs), run with a synchronisation anywhere an
+    error, and timed; the bound counts each hit expert's weights once and
+    each row's activations (counts/lfm2.py). Where the port has the glue's
+    kernels (csrc/moe.cu), the layer is also timed on its plain path
+    (use_kernels=False: the glue as PyTorch launches), and each kernel
+    alone beside its bound and its plain function on the same inputs."""
     from surya_tpu_torch.ops import moe
 
     E, H, inter, k = 32, 2048, 1792, 4
@@ -4682,7 +4745,86 @@ def moe_case(gen, T, valid_rows=None, reps=5) -> dict:
     nbytes_ = hits * 3 * H * inter * 2 + rows * (2 * H + 2 * inter) * 2
     bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes_ / HBM_BYTES_PER_S) * 1e3
     print(f"    {label}: layer {ms:.4f} ms, expert GEMMs' bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f} %)")
-    return {"ms": ms, "bound_ms": bound_ms, "rows": rows, "experts_hit": hits, "max_abs_err": err}
+    result = {"ms": ms, "bound_ms": bound_ms, "rows": rows, "experts_hit": hits, "max_abs_err": err}
+    if not hasattr(moe, "route_kernel"):  # another tree's port (--tree): the glue as PyTorch launches
+        return result
+    result["plain_ms"] = cuda_ms(lambda: moe.sparse_moe(x, gate, bias, w13, w2, k, valid=valid, use_kernels=False),
+                                 reps, cold=True)
+    print(f"    {label}: plain path (the glue as PyTorch launches) {result['plain_ms']:.4f} ms")
+    chosen, weights, hist = moe.route_kernel(x, gate, bias, True, 1.0, valid)
+    sorted_rows, offs, inverse = moe.permute_kernel(x, chosen, hist, None)
+    h = torch._grouped_mm(sorted_rows, w13.transpose(1, 2), offs=offs)
+    y = torch._grouped_mm(moe.swiglu_kernel(h, offs, inter), w2.transpose(1, 2), offs=offs)
+    check_glue_kernels(label, moe, x, gate, bias, valid, chosen, weights, hist, h, y, inter)
+    tokens = T if valid is None else int(valid.sum())
+    small = T * k * (4 + 4 + 4)  # chosen, weights, places
+    cases = {  # kernel: (its call, its plain function's call, bytes, operations)
+        "route": (lambda: moe.route_kernel(x, gate, bias, True, 1.0, valid),
+                  lambda: moe.route(x, gate, bias, k, True, 1.0, valid),
+                  (T * H + E * H) * 2 + small + hist.numel() * 4, 2 * T * E * H),
+        "permute": (lambda: moe.permute_kernel(x, chosen, hist, None),
+                    lambda: moe.permute(x, chosen.long(), E),
+                    (tokens + rows) * H * 2 + small + hist.numel() * 4, 0),
+        "swiglu": (lambda: moe.swiglu_kernel(h, offs, inter), lambda: moe.swiglu(h, inter),
+                   rows * 3 * inter * 2, 0),
+        "combine": (lambda: moe.combine_kernel(y, inverse, weights, valid),
+                    lambda: moe.combine(y, inverse.long(), weights, valid, torch.bfloat16),
+                    (rows + T) * H * 2 + small, 0),
+    }
+    result["kernels"] = {}
+    for name, (kernel, plain, nbytes_, flops) in cases.items():
+        k_ms, p_ms = cuda_ms(kernel, reps, cold=True), cuda_ms(plain, reps, cold=True)
+        b_ms = max(flops / BF16_FLOPS_PER_S, nbytes_ / HBM_BYTES_PER_S) * 1e3
+        result["kernels"][name] = {"ms": k_ms, "bound_ms": b_ms, "plain_ms": p_ms}
+        print(f"    {label}: {name} {k_ms:.4f} ms, bound {b_ms:.4f} ms ({100 * b_ms / k_ms:.1f} %), "
+              f"plain {p_ms:.4f} ms")
+    return result
+
+
+def lfm2_graph_launches(rng) -> dict:
+    """The sparse layers' launches as the recognition predictor runs
+    LFM2-8B-A1B's decoder (random bf16 weights at the benchmark's
+    configuration, perfbench/configs/lfm2_8b_a1b_ocr.json): a first call of
+    given lines captures the prefill wave's and the decode chunk's CUDA
+    graphs; over a second call, replays only, each glue kernel's launches
+    (credited once a replay, a decode step's once a step that ran) must
+    equal the sparse layer calls, and those the sparse layers times the
+    decoder's passes (each prefill wave and each decode step: the attention
+    layers' K2 and K3 launches over the attention layers). Returns the
+    counts measured."""
+    from perfbench.systems import ocr_lfm2
+    from surya_tpu_torch.ops import moe
+
+    cfg = json.loads((Path(__file__).resolve().parent / "perfbench/configs/lfm2_8b_a1b_ocr.json").read_text())
+    t0 = time.perf_counter()
+    pred = RecognitionPredictor(device="cuda", config=ocr_lfm2.program_config(cfg))
+    sparse = sum(layer.is_sparse for layer in pred.model.decoder.layers)
+    attention = len(pred.config.decoder.attention_layers)
+    pages, bboxes = synthetic_pages(rng)
+    set_pin(True)
+    pred(pages, bboxes=bboxes)  # captures the graphs
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    glue = (moe.route_kernel, moe.permute_kernel, moe.swiglu_kernel, moe.combine_kernel)
+    for fn in (moe.sparse_moe, *glue):
+        fn.launches = 0
+    reset_counts()
+    results = pred(pages, bboxes=bboxes)
+    torch.cuda.synchronize()
+    n_lines = check_lines(results, pages, LINES_PER_PAGE)
+    launched = read_counts()
+    passes = (launched["causal_flash_attention"] + launched["gqa_decode"]) / attention
+    counts = {"sparse_moe": moe.sparse_moe.launches, **{fn.__name__: fn.launches for fn in glue},
+              "decoder passes": passes, "sparse layers": sparse, "lines": n_lines}
+    print(f"    a second call of {n_lines} given lines (graphs captured by a first, {built:.1f} s with the model's "
+          f"build), launches counted: {counts}")
+    if any(fn.launches != moe.sparse_moe.launches for fn in glue) or moe.sparse_moe.launches != sparse * passes \
+            or not passes:
+        raise AssertionError(f"the sparse layers' kernels are not launched once a sparse layer call, "
+                             f"{sparse} a decoder pass: {counts}")
+    del pred
+    torch.cuda.empty_cache()
+    return counts
 
 
 def lfm2_smoke():
@@ -4690,9 +4832,10 @@ def lfm2_smoke():
     K3 at head dim 64 with 4 query heads a kv head against their plain
     versions (and ptxas's registers and spills for them), the sparse-expert
     layer at a decode step's 129 slots and a prefill wave's 128 rows of
-    128 (against its plain version, sync-free, in a CUDA graph, timed), and
-    the names of the kernels its grouped GEMMs run; prints one LFM2_SMOKE
-    JSON line."""
+    128 (against its plain version, sync-free, in a CUDA graph, timed, its
+    glue kernels alone too: moe_case), the device work of one layer call,
+    and the sparse layers' launches through the whole decoder's captured
+    graphs (lfm2_graph_launches); prints one LFM2_SMOKE JSON line."""
     power = card()
     lib = _build.library()
     print(f"[1] card: {power}; torch {torch.__version__}, torch._grouped_mm "
@@ -4730,12 +4873,24 @@ def lfm2_smoke():
     with torch.profiler.profile(activities=acts) as prof:
         moe.sparse_moe(*args)
         torch.cuda.synchronize()
-    names = sorted({ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA})
-    print("    kernels of one sparse_moe call:")
-    for n in names:
+    launched = [ev.name for ev in sorted(prof.events(), key=lambda ev: ev.time_range.start)
+                if ev.device_type == torch.autograd.DeviceType.CUDA]
+    names = sorted(set(launched))
+    print(f"    the device work of one sparse_moe call ({len(launched)}), in order:")
+    for n in launched:
         print(f"      {n}")
     print("LFM2_SMOKE " + json.dumps({"card": power, "ms": times, "moe": moe_times, "moe_kernels": names,
-                                      "results": results}))
+                                      "moe_launches": launched, "results": results}))
+    if hasattr(moe, "route_kernel"):  # this tree's port: four kernels around the two grouped GEMMs
+        glue = ("moe_route_reduce_kernel", "moe_permute_gather_kernel", "moe_swiglu_elementwise_kernel",
+                "moe_combine_gather_kernel")
+        # each torch._grouped_mm: PyTorch's prepare_grouped_gemm_data, then CUTLASS's grouped GEMM
+        gemm = ("prepare_grouped_gemm_data", "GroupProblemShape")
+        order = [next((g for g in glue + gemm if g in n), n) for n in launched]
+        if order != [glue[0], glue[1], *gemm, glue[2], *gemm, glue[3]]:
+            raise AssertionError(f"a sparse_moe call is not its four kernels around its two grouped GEMMs: {launched}")
+        print("[4] the sparse layers' launches in the decoder's captured graphs")
+        print("LFM2_GRAPH_LAUNCHES " + json.dumps(lfm2_graph_launches(rng)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -212,7 +212,7 @@ class Lfm2Decoder(nn.Module):
         v = attn.v_proj(x).view(B, S, c.num_key_value_heads, c.head_dim)
         return q, k, v
 
-    def _feed_forward(self, layer: _Layer, x, valid=None):
+    def _feed_forward(self, layer: _Layer, x, valid, use_kernels: bool):
         y = layer.ffn_norm(x)
         ff = layer.feed_forward
         if not layer.is_sparse:
@@ -221,7 +221,8 @@ class Lfm2Decoder(nn.Module):
         shape = y.shape
         out = moe.sparse_moe(y.reshape(-1, shape[-1]), ff.gate.weight, ff.expert_bias, ff.experts.w13,
                              ff.experts.w2, c.num_experts_per_tok, c.norm_topk_prob, c.routed_scaling_factor,
-                             valid=None if valid is None else valid.reshape(-1), counts=self.moe_counts)
+                             valid=None if valid is None else valid.reshape(-1), counts=self.moe_counts,
+                             use_kernels=use_kernels)
         return x + out.view(shape)
 
     # -- prefill and decode ------------------------------------------------------
@@ -259,7 +260,7 @@ class Lfm2Decoder(nn.Module):
                 x = x + conv.out_proj(cg * causal_conv(bx, conv.conv))
                 picked = bx.gather(1, tail.clamp(min=0)[..., None].expand(B, taps - 1, H))
                 tails.append(torch.where((tail >= 0)[..., None], picked, 0.0))
-            x = self._feed_forward(layer, x, valid)
+            x = self._feed_forward(layer, x, valid, use_kernels)
         x = self.embedding_norm(x)
         last = x[torch.arange(B, device=dev), seq_lens.long() - 1]
         return torch.stack(ks), torch.stack(vs), torch.stack(tails), last
@@ -295,7 +296,7 @@ class Lfm2Decoder(nn.Module):
                 conv_state[ci].copy_(window[:, 1:])
                 x = x + conv.out_proj(cg * causal_conv(window, conv.conv)[:, -1])[:, None]
                 ci += 1
-            x = self._feed_forward(layer, x)
+            x = self._feed_forward(layer, x, None, use_kernels)
         return self.embedding_norm(x)[:, 0]
 
 

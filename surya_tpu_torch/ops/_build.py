@@ -52,6 +52,10 @@ SIGNATURES = {
     "surya_graph_if_end": [_P],
     "surya_graph_while_begin": [_P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong)],
     "surya_graph_while_end": [_P, _P, ctypes.c_ulonglong],
+    "surya_moe_route": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "surya_moe_permute": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "surya_moe_swiglu": [_P, _P, _P, _I, _I, _I, _P],
+    "surya_moe_combine": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

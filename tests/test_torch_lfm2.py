@@ -7,6 +7,7 @@ import os
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 import lfm2_reference as ref
 from surya_tpu_torch import nn as pnn
@@ -185,6 +186,154 @@ def test_sparse_moe_matches_the_reference(case):
     assert counts.tolist() == [int(per_expert.sum()), int((per_expert > 0).sum()), int(per_expert.max())]
     if case == "an expert without rows":
         assert per_expert[5] == 0 and counts[1] == E - 1
+
+
+def composite(x, gate_w, expert_bias, w13, w2, top_k, norm_topk_prob=True, routed_scaling_factor=1.0, valid=None):
+    """The sparse layer as the one composite it was before its glue was
+    split into route, permute, swiglu and combine (the yardstick of those
+    plain functions): each step's result, and the counters it added."""
+    T, H = x.shape
+    E, inter = w13.shape[0], w2.shape[2]
+    scores = torch.sigmoid(F.linear(x.float(), gate_w.float()))
+    chosen = torch.topk(scores + expert_bias.float(), top_k, dim=-1).indices
+    weights = scores.gather(1, chosen)
+    if norm_topk_prob:
+        weights = weights / (weights.sum(-1, keepdim=True) + moe.NORM_EPS)
+    weights = weights * routed_scaling_factor
+    flat = chosen.reshape(-1)
+    if valid is not None:
+        flat = torch.where(valid.repeat_interleave(top_k), flat, E)
+    order = torch.argsort(flat, stable=True)
+    per_expert = torch.zeros(E + 1, dtype=torch.int64).scatter_add_(0, flat, torch.ones_like(flat))[:E]
+    offs = per_expert.cumsum(0).to(torch.int32)
+    rows = x[order // top_k]
+    h = torch._grouped_mm(rows, w13.transpose(1, 2), offs=offs)
+    a = F.silu(h[:, :inter]) * h[:, inter:]
+    y = torch._grouped_mm(a, w2.transpose(1, 2), offs=offs)
+    inverse = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel()))
+    out = (y[inverse].view(T, top_k, H).float() * weights[..., None]).sum(1)
+    if valid is not None:
+        out = torch.where(valid[:, None], out, 0.0)
+    counts = [int(per_expert.sum()), int((per_expert > 0).sum()), int(per_expert.max())]
+    return dict(chosen=flat.view(T, top_k), weights=weights, offs=offs, inverse=inverse, rows=rows, h=h, a=a, y=y,
+                out=out.to(x.dtype), counts=counts)
+
+
+GLUE_CASES = ["plain", "bias changes the choice", "an expert without rows", "padding tokens",
+              "scaled, not normalised"]
+
+
+def glue_case(case):
+    """(x, gate, bias, w13, w2, top_k, norm_topk_prob, routed_scaling_factor,
+    valid) of a glue test, 8 experts at the tiny width."""
+    gen = torch.Generator().manual_seed(8)
+    T, E, H = 24, 8, 16
+    x = torch.randn(T, H, generator=gen)
+    gate, w13, w2 = _experts(gen, E, H)
+    bias, valid, norm, scale = torch.zeros(E), None, True, 1.0
+    if case == "bias changes the choice":
+        bias = torch.randn(E, generator=gen) * 0.3
+        assert not torch.equal(moe.route(x, gate, torch.zeros(E), 4)[0], moe.route(x, gate, bias, 4)[0])
+    elif case == "an expert without rows":
+        bias[2] = -10.0
+    elif case == "padding tokens":
+        valid = torch.arange(T) % 8 < 5
+    elif case == "scaled, not normalised":
+        norm, scale = False, 2.5
+    return x, gate, bias, w13, w2, 4, norm, scale, valid
+
+
+@pytest.mark.parametrize("case", GLUE_CASES)
+def test_route_matches_the_composite(case):
+    """route's choices (the sentinel E for a token that is not valid) and
+    weights are the composite's, exactly."""
+    x, gate, bias, w13, w2, k, norm, scale, valid = glue_case(case)
+    want = composite(x, gate, bias, w13, w2, k, norm, scale, valid)
+    chosen, weights = moe.route(x, gate, bias, k, norm, scale, valid)
+    assert torch.equal(chosen, want["chosen"])
+    assert torch.equal(weights, want["weights"])
+
+
+@pytest.mark.parametrize("case", GLUE_CASES)
+def test_permute_matches_the_composite(case):
+    """permute's offsets, each row's place, the sorted rows and the
+    counters are the composite's, exactly."""
+    x, gate, bias, w13, w2, k, norm, scale, valid = glue_case(case)
+    want = composite(x, gate, bias, w13, w2, k, norm, scale, valid)
+    counts = torch.zeros(3, dtype=torch.int64)
+    rows, offs, inverse = moe.permute(x, want["chosen"], 8, counts)
+    assert torch.equal(offs, want["offs"]) and torch.equal(inverse, want["inverse"])
+    assert torch.equal(rows, want["rows"])
+    assert counts.tolist() == want["counts"]
+    total = int(offs[-1])
+    # rows of one expert keep their tokens' order; sentinel rows come last
+    experts = want["chosen"].reshape(-1)
+    placed = torch.empty_like(experts).scatter_(0, inverse, experts)
+    assert torch.equal(placed, experts.sort(stable=True).values)
+    assert total == int((experts < 8).sum())
+    if case == "an expert without rows":
+        assert offs[2] == offs[1] and counts[1] == 7
+    if case == "padding tokens":
+        assert bool((inverse.view(-1, k)[~valid] >= total).all())
+
+
+@pytest.mark.parametrize("case", GLUE_CASES)
+def test_swiglu_and_combine_match_the_composite(case):
+    """swiglu and combine, and the whole plain path, within TOL of the
+    composite; no kernel launches on the CPU, whatever use_kernels says."""
+    x, gate, bias, w13, w2, k, norm, scale, valid = glue_case(case)
+    want = composite(x, gate, bias, w13, w2, k, norm, scale, valid)
+    assert (moe.swiglu(want["h"], w2.shape[2]) - want["a"]).abs().max() < TOL
+    out = moe.combine(want["y"], want["inverse"], want["weights"], valid, x.dtype)
+    assert (out - want["out"]).abs().max() < TOL
+    launched = [f.launches for f in (moe.route_kernel, moe.permute_kernel, moe.swiglu_kernel, moe.combine_kernel)]
+    counts = torch.zeros(3, dtype=torch.int64)
+    for use_kernels in (True, False):
+        whole = moe.sparse_moe(x, gate, bias, w13, w2, k, norm, scale, valid=valid, counts=counts,
+                               use_kernels=use_kernels)
+        assert (whole - want["out"]).abs().max() < TOL
+    assert counts.tolist() == [2 * n for n in want["counts"]]
+    assert launched == [f.launches for f in (moe.route_kernel, moe.permute_kernel, moe.swiglu_kernel,
+                                            moe.combine_kernel)]
+
+
+@pytest.mark.parametrize("bad", ["8 experts", "top-2", "width 512", "float32 router", "valid as int",
+                                 "float32 activations"])
+def test_the_kernel_path_refuses_what_it_does_not_take(bad):
+    """What csrc/moe.cu is not built for raises before any launch (the
+    kernel path has no fallback)."""
+    E, H, inter, k, T = 32, 1024, 24, 4, 10
+    x, gate, bias = _bf16(T, H), _bf16(E, H), torch.zeros(E)
+    w13, w2, valid = _bf16(E, 2 * inter, H), _bf16(E, H, inter), torch.ones(T, dtype=torch.bool)
+    moe._check_kernels(x, gate, bias, w13, w2, k, valid, None)
+    if bad == "8 experts":
+        w13, w2 = w13[:8], w2[:8]
+    elif bad == "top-2":
+        k = 2
+    elif bad == "width 512":
+        x, gate, w13, w2 = x[:, :512].contiguous(), gate[:, :512].contiguous(), w13[..., :512], w2[:, :512]
+    elif bad == "float32 router":
+        gate = gate.float()
+    elif bad == "float32 activations":  # a float32 model on the card passes use_kernels=False
+        x = x.float()
+    else:
+        valid = valid.int()
+    with pytest.raises((ValueError, TypeError)):
+        moe._check_kernels(x, gate, bias, w13, w2, k, valid, None)
+
+
+def test_the_glue_wrappers_share_the_kernels_constants():
+    """ops/moe.py allocates and launches by csrc/moe.cu's constants: its
+    experts, top-k, tokens a route block (a histogram row each) and route
+    blocks a permute CTA at most."""
+    import re
+    from pathlib import Path
+
+    source = (Path(moe.__file__).resolve().parent.parent / "csrc" / "moe.cu").read_text()
+    consts = {n: int(v) for n, v in re.findall(r"^constexpr int (\w+) = (\d+);", source, re.M)}
+    assert (consts["NE"], consts["TOPK"]) == (moe.KERNEL_EXPERTS, moe.KERNEL_TOP_K)
+    assert consts["ROUTE_TOKENS"] == moe.ROUTE_TOKENS and consts["MAX_BLOCKS_PER_CTA"] == moe.MAX_BLOCKS_PER_CTA
+    assert consts["ROUTE_TOKENS"] * consts["TOPK"] == 32  # a route block's rows are one warp's lanes
 
 
 def test_config_from_json_builds_each_decoder():
